@@ -1,0 +1,282 @@
+"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (none catches its own failure; any failure exits non-zero):
+
+1. Set-up: requires a CUDA device, prints the card's name and power limit
+   (nvidia-smi) and builds the hand-written Gram kernel
+   (gaussian_processes_tpu_torch/csrc/acos_gram.cu) from the checkout.
+2. Kernel: at the bench shapes (K_tilde 2100 x 2100 and K 3160 x 2100, at
+   contraction 6400 = the 80 x 80 crop window and 11664 = the full 108 x 108
+   grid), the kernel's output against its plain PyTorch version on the same
+   operands (max relative error <= 1e-5: the two sum up to 11664 float32
+   products in different orders), with median CUDA-event times of both; and
+   the theta-gradient through the kernel-forward autograd Function against
+   the plain autograd composite at a small shape.
+3. Reference: a small fit through the kernel (float32, on the card) against
+   the same fit on the CPU in float64 through the plain path.
+4. Main path: the single-cell EM fit at bench.py's data and shape (nt 3160
+   images of 108 x 108 px, ntilde 2100, 3 EM iterations of 10 E-, 10 M- and
+   10 f-param steps), then the r^2 evaluation on 30 test images x 30
+   repeats with 200 bootstrap draws.  Kernel launch counts are reset just
+   before and read just after.
+
+The last two lines of standard output are one JSON object with the kernel
+table and one with the device.
+"""
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+
+# bench.py's shape and data (bench.py:56-65, 261-270, 399-404, 464-474)
+NT, N_PX, NTILDE = 3160, 108, 2100
+THETA0 = {"sigma_0": 1.0, "eps_0x": 0.0001, "eps_0y": 0.0001,
+          "-2log2beta": -2 * math.log(2 * 0.1),
+          "-log2rho2": -math.log(2 * 0.1 ** 2), "Amp": 1.0}
+F_PARAMS0 = {"logA": math.log(0.01), "lambda0": 1.0}
+KERNEL_RTOL = 1e-5
+GRAD_RTOL = 1e-3       # float32 gradients, two summation orders
+REFERENCE_RTOL = 1e-3  # float32 fit on the card vs float64 fit on the CPU
+
+
+def bench_data(np, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((NT, N_PX * N_PX)).astype(np.float32)
+    lin = np.linspace(-1, 1, N_PX)
+    yy, xx = np.meshgrid(lin, lin, indexing="ij")
+    w = np.exp(-((xx - 0.1) ** 2 + (yy + 0.2) ** 2) / (2 * 0.1 ** 2)).ravel()
+    w = (w / np.linalg.norm(w)).astype(np.float32)
+    R = rng.poisson(np.exp(0.8 * X @ w)).astype(np.float32)
+    rng_t = np.random.default_rng(1)
+    Xt = rng_t.standard_normal((30, N_PX * N_PX)).astype(np.float32)
+    Rt = rng_t.poisson(np.exp(0.8 * Xt @ w)[None, :].repeat(30, 0))
+    return X, R, Xt, Rt.astype(np.float32)
+
+
+def cuda_ms(torch, fn, reps=20, warmup=3):
+    """Median milliseconds of fn() by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def main():
+    if not (HERE / "gaussian_processes_tpu_torch").is_dir():
+        raise SystemExit("chip_smoke.py: gaussian_processes_tpu_torch/ not "
+                         "found beside this script; run it from a checkout")
+    sys.path.insert(0, str(HERE))
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py: no CUDA device")
+
+    from gaussian_processes_tpu_torch.config import FitConfig, use_full_fp32
+    from gaussian_processes_tpu_torch.models.fit import fit
+    from gaussian_processes_tpu_torch.models.inference import evaluate
+    from gaussian_processes_tpu_torch.ops import gram_cuda
+    from gaussian_processes_tpu_torch.ops.kernels import (
+        crop_window_from_scalars, gram_matrices, gram_matrices_windowed)
+
+    # ---- 1. set-up -------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)
+    device = torch.device("cuda", 0)
+    print(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
+          f" (CUDA {torch.version.cuda})")
+    use_full_fp32()
+    gram_cuda.load_library()
+    print(f"kernel build: {gram_cuda.build_seconds:.2f} s")
+    for line in gram_cuda.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+
+    X, R, Xt, Rt = bench_data(np)
+    x = torch.as_tensor(X, device=device)
+    r = torch.as_tensor(R, device=device)
+    idx = np.random.default_rng(0).permutation(NT)[:NTILDE]
+    xtilde = x[torch.as_tensor(idx, device=device)]
+    theta = {k: torch.tensor(v, dtype=torch.float32, device=device)
+             for k, v in THETA0.items()}
+
+    # ---- 2. kernel vs plain at the main path's operands ------------------
+    def main_path_operands(k_full_grid: bool):
+        """The (u1, s2, q11, q22, sigma0) the Gram hands the kernel for
+        K_tilde and K, at the crop window of the start theta or on the full
+        grid, recorded from one gram_matrices call."""
+        calls = []
+        real = gram_cuda.acos_gram
+
+        def record(*args):
+            calls.append([a.detach() for a in args])
+            return real(*args)
+
+        gram_cuda.acos_gram = record
+        try:
+            with torch.no_grad():
+                if k_full_grid:
+                    gram_matrices(theta, x, xtilde, N_PX, shared=False)
+                else:
+                    i0, j0, w = crop_window_from_scalars(
+                        THETA0["-2log2beta"], THETA0["eps_0x"],
+                        THETA0["eps_0y"], N_PX)
+                    gram_matrices_windowed(theta, x, xtilde, N_PX, False,
+                                           i0, j0, w)
+        finally:
+            gram_cuda.acos_gram = real
+        return calls
+
+    results = {}
+    for full in (False, True):
+        for name, ops in zip(("K_tilde", "K"), main_path_operands(full)):
+            m, n, k = ops[0].shape[0], ops[1].shape[0], ops[0].shape[1]
+            with torch.no_grad():
+                K_kernel = gram_cuda.acos_gram(*ops)
+                K_plain = gram_cuda.acos_gram_torch(*ops)
+                torch.cuda.synchronize()
+                max_abs = float(torch.max(torch.abs(K_kernel - K_plain)))
+                rel = max_abs / float(torch.max(torch.abs(K_plain)))
+                ms = cuda_ms(torch, lambda: gram_cuda.acos_gram(*ops))
+                plain_ms = cuda_ms(torch,
+                                   lambda: gram_cuda.acos_gram_torch(*ops))
+            finite = bool(torch.all(torch.isfinite(K_kernel)))
+            print(f"kernel {name} {m}x{n} k={k}: max|dK|/max|K| = {rel:.3e} "
+                  f"(max|dK| {max_abs:.3e}), kernel {ms:.3f} ms, "
+                  f"plain {plain_ms:.3f} ms  [{smi}]")
+            if not (finite and rel <= KERNEL_RTOL):
+                raise RuntimeError(f"kernel disagrees with its plain version "
+                                   f"at {m}x{n} k={k}: {rel:.3e}")
+            results[(name, k)] = (max_abs, ms, plain_ms)
+
+    # theta-gradient through the kernel-forward Function vs the composite
+    gx = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (96, 24 * 24)).astype(np.float32), device=device)
+
+    def theta_grad(backend):
+        th = {k: torch.tensor(v, dtype=torch.float32, device=device,
+                              requires_grad=True)
+              for k, v in {**THETA0, "-2log2beta": 1.0,
+                           "-log2rho2": 2.0}.items()}
+        Kt, K, _ = gram_matrices(th, gx, gx[:40], 24, shared=False,
+                                 backend=backend)
+        weights = torch.linspace(-1.0, 1.0, K.numel(), device=device)
+        loss = Kt.sum() + (K.reshape(-1) * weights).sum()
+        grads = torch.autograd.grad(loss, list(th.values()))
+        return torch.stack(grads)
+
+    g_kernel, g_plain = theta_grad("cuda"), theta_grad("torch")
+    grad_err = float(torch.max(torch.abs(g_kernel - g_plain))
+                     / torch.max(torch.abs(g_plain)))
+    print(f"theta-gradient, kernel forward vs plain composite: "
+          f"max rel err {grad_err:.3e}")
+    if not grad_err <= GRAD_RTOL:
+        raise RuntimeError(f"kernel gradient disagrees: {grad_err:.3e}")
+
+    # ---- 3. small fit through the kernel vs float64 on the CPU -----------
+    srng = np.random.default_rng(3)
+    sx = srng.standard_normal((256, 24 * 24))
+    lin = np.linspace(-1, 1, 24)
+    yy, xx = np.meshgrid(lin, lin, indexing="ij")
+    sw = np.exp(-((xx - 0.2) ** 2 + (yy + 0.1) ** 2) / (2 * 0.15 ** 2))
+    sw = sw.ravel() / np.linalg.norm(sw)
+    sr = srng.poisson(np.exp(0.6 * sx @ sw)).astype(np.float64)
+    sidx = torch.as_tensor(srng.permutation(256)[:64])
+    scfg = FitConfig(ntilde=64, maxiter=3, n_estep=3, n_mstep=3,
+                     n_fparamstep=3, n_px_side=24, crop_bucket=4)
+    small = {}
+    for dev, dt, backend in ((device, torch.float32, "cuda"),
+                             ("cpu", torch.float64, "torch")):
+        sxt = torch.as_tensor(sx, dtype=dt, device=dev)
+        res = fit(sxt, torch.as_tensor(sr, dtype=dt, device=dev), scfg,
+                  xtilde=sxt[sidx.to(dev)], theta=THETA0,
+                  f_params=F_PARAMS0, backend=backend)
+        small[backend] = res.track.logmarginal.double().cpu().numpy()
+    ref_err = float(np.max(np.abs(small["cuda"] - small["torch"])
+                           / np.abs(small["torch"])))
+    print(f"small fit, kernel float32 on the card vs plain float64 on the "
+          f"CPU: loss {small['cuda']} vs {small['torch']}, max rel "
+          f"{ref_err:.3e}")
+    if not ref_err <= REFERENCE_RTOL:
+        raise RuntimeError(f"small fit disagrees with the float64 "
+                           f"reference: {ref_err:.3e}")
+
+    # ---- 4. the main path ------------------------------------------------
+    cfg = FitConfig(ntilde=NTILDE, maxiter=3, n_estep=10, n_mstep=10,
+                    n_fparamstep=10, n_px_side=N_PX, track_variational=False)
+    torch.cuda.synchronize()
+    gram_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = fit(x, r, cfg, xtilde=xtilde, theta=THETA0, f_params=F_PARAMS0,
+              profile=True)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches_fit = gram_cuda.launches
+    _, rates, r2, sigma_r2 = evaluate(
+        res, torch.as_tensor(Xt, device=device),
+        torch.as_tensor(Rt, device=device), nbootstrap=200)
+    r2, sigma_r2 = float(r2), float(sigma_r2)
+    torch.cuda.synchronize()
+    launches_main = gram_cuda.launches
+
+    loss = res.track.logmarginal.double().cpu().numpy()
+    print(f"fit init {res.timing['init']:.3f} s; per-iteration s "
+          f"{[round(t, 3) for t in res.timing['per_iteration']]}; total "
+          f"{fit_s:.3f} s  [{smi}]")
+    print(f"logmarginal per iteration: {loss.tolist()}")
+    print(f"final theta: { {k: float(v) for k, v in res.theta.items()} }")
+    print(f"r2 = {r2:.4f} +/- {sigma_r2:.4f}; rates finite: "
+          f"{bool(torch.all(torch.isfinite(rates)))}, shape "
+          f"{tuple(rates.shape)}")
+    print(f"acos_gram launches: fit {launches_fit}, fit + evaluate "
+          f"{launches_main}")
+    checks = {
+        "fit not failed": not res.failed,
+        "losses finite": bool(np.all(np.isfinite(loss))),
+        "log-marginal improved": bool(loss[-1] > loss[0]),
+        "rates finite, shape (30,)": (bool(torch.all(torch.isfinite(rates)))
+                                      and tuple(rates.shape) == (30,)),
+        "r2 finite": math.isfinite(r2) and math.isfinite(sigma_r2),
+        "kernel launched on the main path": launches_main > 0,
+    }
+    for what, ok in checks.items():
+        if not ok:
+            raise RuntimeError(f"main path check failed: {what}")
+
+    max_abs, ms, plain_ms = results[("K", 6400)]
+    print(json.dumps({"kernels": [{
+        "name": "acos_gram",
+        "route": "cuda",
+        "source": "gaussian_processes_tpu_torch/csrc/acos_gram.cu",
+        "replaces": "gaussian_processes_tpu/ops/gram_pallas.py:80",
+        "launches": launches_main,
+        "max_abs_err": max(v[0] for v in results.values()),
+        "ms": ms,
+        "plain_ms": plain_ms,
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,505 @@
+"""The EM trainer: sparse variational GP fit with Poisson observations
+(counterpart of ``gaussian_processes_tpu/models/fit.py`` in its
+per-iteration mode; reference ``varGP``, Spatial_GP_repo/utils.py:1569-2316).
+
+Each EM iteration rebuilds the kernels and the stabilizing eigenspace at the
+current theta, runs ``n_estep`` closed-form Newton E-steps on (m, V) (each
+followed by an L-BFGS update of logA with closed-form lambda0), records the
+loss decomposition, and runs ``n_mstep`` L-BFGS steps on the six kernel
+hyperparameters with the eigenspace fixed; the last iteration skips the
+M-step so the final state matches its eigenspace.  A non-finite iteration
+reverts to the state it started from and freezes the fit (``failed``,
+``failed_at``), the reference's rollback (utils.py:2127-2189).
+
+Semantics are the JAX package's exact ones: full-rank eigh stabilization,
+Cholesky E-step solves, exact M-step inverse, Cholesky log-determinant and
+the exact Gram.  The crop window of iteration i is computed from the theta
+iteration i starts from; after the iteration the fit checks that the window
+still covers the margin-1.0 alpha mask of the resulting theta, and re-runs
+with the margin doubled (finally on the full frame) if it does not -- a
+covering window gives the same Gram up to rounding.
+
+Every Gram goes through ``ops/kernels._gram_core``: on CUDA tensors through
+the fused kernel (``ops/gram_cuda``), forward and hand-written backward.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import warnings
+from functools import partial
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..config import FitConfig, use_full_fp32
+from ..ops.kernels import (crop_images, crop_window_from_scalars,
+                           gram_matrices, gram_matrices_precropped,
+                           gram_matrices_windowed, local_envelope)
+from ..ops.stabilize import (Eigenspace, compute_eigenspace, masked_inverse,
+                             reproject)
+from ..optim.lbfgs import lbfgs_minimize
+from ..params import (THETA_KEYS, clip_theta, default_f_params,
+                      generate_theta, theta_bounds, theta_in_bounds)
+from .estep import estep_update
+from .moments import (kl_divergence, lambda0_given_logA, lambda_moments,
+                      mean_f_given_lambda_moments, poisson_ell)
+
+Theta = Dict[str, torch.Tensor]
+FParams = Dict[str, torch.Tensor]
+Window = Optional[Tuple[int, int, int]]     # (i0, j0, w) or None = full frame
+
+
+class KernelState(NamedTuple):
+    """Kernels + stabilizing eigenspace for the current theta."""
+    K_tilde: torch.Tensor   # (ntilde, ntilde)
+    K: torch.Tensor         # (nt, ntilde) -- K_tilde itself when shared
+    Kvec: torch.Tensor      # (nt,)
+    es: Eigenspace
+    K_b: torch.Tensor       # (nt, ntilde) = K @ B
+    a: torch.Tensor         # (nt, ntilde) = K_b K_tilde_b^-1 (B when shared)
+
+
+class Track(NamedTuple):
+    """Per-iteration history (the reference's values_track,
+    utils.py:1713-1727)."""
+    logmarginal: torch.Tensor
+    loglikelihood: torch.Tensor
+    KL: torch.Tensor
+    theta: Dict[str, torch.Tensor]
+    logA: torch.Tensor
+    lambda0: torch.Tensor
+    n_eigen: torch.Tensor
+    m_b: torch.Tensor       # (maxiter, ntilde) or (maxiter, 0)
+    V_b: torch.Tensor       # (maxiter, ntilde, ntilde) or (maxiter, 0, 0)
+
+
+class Carry(NamedTuple):
+    theta: Theta
+    f_params: FParams
+    m_b: torch.Tensor
+    V_b: torch.Tensor
+    kern: KernelState
+    lambda_m: torch.Tensor
+    lambda_var: torch.Tensor
+    track: Track
+    failed: bool
+    failed_at: int          # -1 if clean
+
+
+@dataclasses.dataclass
+class FitResult:
+    """What the reference's ``fit_model`` dict returns
+    (utils.py:2271-2288), as a typed result."""
+    config: FitConfig
+    xtilde: torch.Tensor
+    theta: Theta
+    theta_lower: Dict[str, float]
+    theta_upper: Dict[str, float]
+    f_params: FParams
+    m_b: torch.Tensor
+    V_b: torch.Tensor
+    B: torch.Tensor
+    keep: torch.Tensor
+    eigvals: torch.Tensor
+    k_tilde_b_diag: torch.Tensor
+    k_tilde_inv_diag: torch.Tensor
+    K_tilde: torch.Tensor
+    K: torch.Tensor
+    Kvec: torch.Tensor
+    K_b: torch.Tensor
+    a: torch.Tensor
+    track: Track
+    failed: bool
+    failed_at: int
+    timing: Optional[Dict[str, Any]] = None
+
+    @property
+    def mask(self) -> torch.Tensor:
+        """Boolean pixel mask of the final theta."""
+        _, _, mask = local_envelope(self.theta, self.config.n_px_side,
+                                    alpha_threshold=self.config.alpha_threshold)
+        return mask
+
+    def values_track(self) -> Dict[str, Any]:
+        """Reference-shaped values_track dict (utils.py:1713-1727)."""
+        t = self.track
+        return {
+            "loss_track": {"logmarginal": t.logmarginal,
+                           "loglikelihood": t.loglikelihood, "KL": t.KL},
+            "theta_track": dict(t.theta),
+            "f_par_track": {"logA": t.logA, "lambda0": t.lambda0},
+            "variation_par_track": {"m_b": t.m_b, "V_b": t.V_b},
+            "n_eigen_track": t.n_eigen,
+        }
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+def _masked_grams(theta: Theta, x, xtilde, shared: bool, cfg: FitConfig,
+                  win: Window = None, backend: Optional[str] = None):
+    """(K_tilde, K, Kvec), on the crop window when one is given."""
+    if win is not None:
+        return gram_matrices_windowed(theta, x, xtilde, cfg.n_px_side, shared,
+                                      win[0], win[1], win[2],
+                                      cfg.alpha_threshold, backend)
+    return gram_matrices(theta, x, xtilde, cfg.n_px_side, shared,
+                         cfg.alpha_threshold, backend)
+
+
+def _build_kernel_state(theta: Theta, x, xtilde, shared: bool,
+                        cfg: FitConfig, win: Window = None,
+                        backend: Optional[str] = None) -> KernelState:
+    K_tilde, K, Kvec = _masked_grams(theta, x, xtilde, shared, cfg, win,
+                                     backend)
+    es = compute_eigenspace(K_tilde, cfg.eigval_tol)
+    K_b = K @ es.B
+    a = es.B if shared else K_b * es.k_tilde_inv_diag[None, :]
+    return KernelState(K_tilde, K, Kvec, es, K_b, a)
+
+
+def _fparam_objective(logA, r, lambda_m, lambda_var):
+    """Profiled negative ELL: lambda0 at its closed-form optimum for the
+    trial logA (reference: utils.py:1892-1934)."""
+    lam0 = lambda0_given_logA(logA, r, lambda_m, lambda_var)
+    f_params = {"logA": logA, "lambda0": lam0}
+    f_mean = mean_f_given_lambda_moments(f_params, lambda_m, lambda_var)
+    return -poisson_ell(r, f_mean, lambda_m, f_params)
+
+
+def _estep_block(r, kern: KernelState, m_b, V_b, f_params, lambda_m,
+                 lambda_var, cfg: FitConfig):
+    """n_estep Newton updates on (m_b, V_b), each followed by an L-BFGS
+    update of logA with closed-form lambda0 (reference:
+    utils.py:1859-1943)."""
+    for _ in range(cfg.n_estep):
+        f_mean = mean_f_given_lambda_moments(f_params, lambda_m, lambda_var)
+        m_b, V_b = estep_update(r, kern.a, m_b, f_mean,
+                                kern.es.k_tilde_b_diag, f_params)
+        lambda_m, lambda_var = lambda_moments(kern.a, kern.K_b, kern.Kvec,
+                                              m_b, V_b)
+        logA, _ = lbfgs_minimize(
+            partial(_fparam_objective, r=r, lambda_m=lambda_m,
+                    lambda_var=lambda_var),
+            f_params["logA"], cfg.n_fparamstep,
+            max_linesearch_steps=cfg.max_linesearch_steps)
+        lam0 = lambda0_given_logA(logA, r, lambda_m, lambda_var)
+        f_params = {"logA": logA, "lambda0": lam0}
+    return m_b, V_b, f_params, lambda_m, lambda_var
+
+
+def _mstep_objective(theta: Theta, x, xtilde, r, es: Eigenspace, m_b, V_b,
+                     f_params, shared: bool, cfg: FitConfig, lower, upper,
+                     win: Window = None, xcrop=None,
+                     backend: Optional[str] = None):
+    """Negative log-marginal as a function of theta with the eigenspace B
+    fixed (reference closure: utils.py:2017-2112).  Out-of-bounds trial
+    points return +inf (utils.py:2020-2028); the loss is evaluated on the
+    clipped theta so its gradient stays finite.  ``xcrop`` holds the
+    window's pre-cropped (x, xtilde), cropped once per EM iteration."""
+    ok = theta_in_bounds(theta, lower, upper)
+    theta_c = clip_theta(theta, lower, upper)
+    if xcrop is not None and win is not None:
+        K_tilde, K, Kvec = gram_matrices_precropped(
+            theta_c, xcrop[0], xcrop[1], cfg.n_px_side, shared,
+            win[0], win[1], win[2], cfg.alpha_threshold, backend)
+    else:
+        K_tilde, K, Kvec = _masked_grams(theta_c, x, xtilde, shared, cfg,
+                                         win, backend)
+    B = es.B
+    K_tilde_b = B.T @ (K_tilde @ B)
+    K_tilde_b = 0.5 * (K_tilde_b + K_tilde_b.T)
+    K_b = K @ B
+    K_tilde_inv_b = masked_inverse(K_tilde_b, es.keep)
+    a = B if shared else K_b @ K_tilde_inv_b
+    lambda_m, lambda_var = lambda_moments(a, K_b, Kvec, m_b, V_b)
+    f_mean = mean_f_given_lambda_moments(f_params, lambda_m, lambda_var)
+    ell = poisson_ell(r, f_mean, lambda_m, f_params)
+    # log|V| is constant in theta: omitted.  Cholesky-only logdet: a
+    # non-PSD trial K_tilde_b gives NaN -> inf loss -> rejected step.
+    kl = kl_divergence(m_b, V_b, es, K_tilde_b=K_tilde_b,
+                       K_tilde_inv_b=K_tilde_inv_b, skip_logdet_V=True,
+                       chol_only=True)
+    loss = -(ell - kl)
+    return torch.where(ok & torch.isfinite(loss), loss, float("inf"))
+
+
+def _track_update(track: Track, i: int, ell, kl, theta, f_params,
+                  es: Eigenspace, m_b, V_b, cfg: FitConfig) -> None:
+    """Record iteration i (in place: the track belongs to this fit)."""
+    track.logmarginal[i] = ell - kl
+    track.loglikelihood[i] = ell
+    track.KL[i] = kl
+    for k in THETA_KEYS:
+        track.theta[k][i] = theta[k]
+    track.logA[i] = f_params["logA"]
+    track.lambda0[i] = f_params["lambda0"]
+    track.n_eigen[i] = torch.sum(es.keep)
+    if cfg.track_variational:
+        track.m_b[i] = m_b
+        track.V_b[i] = V_b
+
+
+def _fit_init(x, r, xtilde, theta0: Theta, f_params0: FParams, m0, V0,
+              has_V: bool, shared: bool, cfg: FitConfig, win: Window = None,
+              backend: Optional[str] = None) -> Carry:
+    """Kernels, eigenspace, variational state and tracking
+    (reference: utils.py:1667-1791)."""
+    dtype, device = x.dtype, x.device
+    ntilde = xtilde.shape[0]
+    kern = _build_kernel_state(theta0, x, xtilde, shared, cfg, win, backend)
+    es = kern.es
+    m_b = es.B.T @ m0
+    if has_V:
+        V_b = es.B.T @ (V0 @ es.B)
+        ld_V0 = None
+    else:
+        # V init = K_tilde (utils.py:1700): V_b is exactly diagonal, so its
+        # kept-block log-determinant is a sum of logs
+        V_b = torch.diag(es.k_tilde_b_diag)
+        ld_V0 = torch.sum(torch.log(torch.where(
+            es.keep, es.eigvals, torch.ones_like(es.eigvals))))
+    lambda_m, lambda_var = lambda_moments(kern.a, kern.K_b, kern.Kvec,
+                                          m_b, V_b)
+    f_mean = mean_f_given_lambda_moments(f_params0, lambda_m, lambda_var)
+    ell0 = poisson_ell(r, f_mean, lambda_m, f_params0)
+    kl0 = kl_divergence(m_b, V_b, es, logdet_V=ld_V0)
+
+    maxiter = cfg.maxiter
+    nvar = ntilde if cfg.track_variational else 0
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    track = Track(
+        logmarginal=zeros(maxiter), loglikelihood=zeros(maxiter),
+        KL=zeros(maxiter), theta={k: zeros(maxiter) for k in THETA_KEYS},
+        logA=zeros(maxiter), lambda0=zeros(maxiter),
+        n_eigen=zeros(maxiter, dt=torch.int32),
+        m_b=zeros(maxiter, nvar), V_b=zeros(maxiter, nvar, nvar))
+    _track_update(track, 0, ell0, kl0, theta0, f_params0, es, m_b, V_b, cfg)
+    return Carry(theta0, f_params0, m_b, V_b, kern, lambda_m, lambda_var,
+                 track, False, -1)
+
+
+def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
+                   cfg: FitConfig, bounds, win: Window = None,
+                   do_mstep: bool = True,
+                   backend: Optional[str] = None) -> Carry:
+    """One EM iteration (reference loop body: utils.py:1794-2125); a no-op
+    once the fit has failed."""
+    if c.failed:
+        return c
+    lower, upper = bounds
+    theta, f_params = c.theta, c.f_params
+    m_b, V_b, kern = c.m_b, c.V_b, c.kern
+
+    # Rebuild kernels + eigenspace and reproject the variational state
+    # (utils.py:1801-1841).
+    if cfg.n_mstep > 0:
+        kern_new = _build_kernel_state(theta, x, xtilde, shared, cfg, win,
+                                       backend)
+        m_b, V_b = reproject(kern_new.es, kern.es, m_b, V_b)
+        kern = kern_new
+
+    # moments + closed-form lambda0 at iteration start (utils.py:1870-1874)
+    lambda_m, lambda_var = lambda_moments(kern.a, kern.K_b, kern.Kvec,
+                                          m_b, V_b)
+    lam0 = lambda0_given_logA(f_params["logA"], r, lambda_m, lambda_var)
+    f_params = {"logA": f_params["logA"], "lambda0": lam0}
+
+    if cfg.n_estep > 0:
+        m_b, V_b, f_params, lambda_m, lambda_var = _estep_block(
+            r, kern, m_b, V_b, f_params, lambda_m, lambda_var, cfg)
+
+    # loss decomposition (utils.py:1953-1991)
+    f_mean = mean_f_given_lambda_moments(f_params, lambda_m, lambda_var)
+    ell = poisson_ell(r, f_mean, lambda_m, f_params)
+    kl = kl_divergence(m_b, V_b, kern.es)
+    theta_start = theta
+
+    # M-step on theta with the eigenspace fixed (utils.py:1999-2114)
+    if cfg.n_mstep > 0 and do_mstep:
+        xcrop = None
+        if win is not None:
+            # the theta-independent crop, once per iteration instead of
+            # once per line-search evaluation
+            xc = crop_images(x, win[0], win[1], win[2], cfg.n_px_side)
+            xtc = (xc if shared else
+                   crop_images(xtilde, win[0], win[1], win[2], cfg.n_px_side))
+            xcrop = (xc, xtc)
+        obj = partial(_mstep_objective, x=x, xtilde=xtilde, r=r, es=kern.es,
+                      m_b=m_b, V_b=V_b, f_params=f_params, shared=shared,
+                      cfg=cfg, lower=lower, upper=upper, win=win, xcrop=xcrop,
+                      backend=backend)
+        theta, _ = lbfgs_minimize(obj, theta, cfg.n_mstep,
+                                  max_linesearch_steps=cfg.max_linesearch_steps)
+
+    # Rollback on numerical failure (utils.py:2127-2189): keep the state
+    # this iteration started from and freeze.
+    finite = (torch.isfinite(ell - kl) & torch.all(torch.isfinite(m_b))
+              & torch.all(torch.isfinite(V_b))
+              & torch.all(torch.isfinite(
+                  torch.stack([theta[k] for k in THETA_KEYS]))))
+    if not bool(finite):
+        return c._replace(failed=True, failed_at=i)
+    _track_update(c.track, i, ell, kl, theta_start, f_params, kern.es, m_b,
+                  V_b, cfg)
+    return Carry(theta, f_params, m_b, V_b, kern, lambda_m, lambda_var,
+                 c.track, False, -1)
+
+
+def _fit_finalize(c: Carry, cfg: FitConfig) -> Carry:
+    """Final V_b symmetry / PSD repair (utils.py:2243-2248)."""
+    V_b = 0.5 * (c.V_b + c.V_b.T)
+    keepf = c.kern.es.keep.to(V_b.dtype)
+    padded = V_b + torch.diag(1.0 - keepf)
+    finite = torch.all(torch.isfinite(padded))
+    eye = torch.eye(V_b.shape[0], dtype=V_b.dtype, device=V_b.device)
+    ev = torch.linalg.eigvalsh(torch.where(finite, padded, eye))
+    min_eig = torch.where(finite, torch.min(ev), float("nan"))
+    V_b = torch.where(min_eig <= 0,
+                      V_b + eye * cfg.eigval_tol * keepf[:, None]
+                      * keepf[None, :], V_b)
+    return c._replace(V_b=V_b)
+
+
+# ---------------------------------------------------------------------------
+# Public entry point
+# ---------------------------------------------------------------------------
+
+def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
+        xtilde: Optional[torch.Tensor] = None,
+        theta: Optional[Dict[str, Any]] = None,
+        f_params: Optional[Dict[str, Any]] = None,
+        m: Optional[torch.Tensor] = None,
+        V: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+        backend: Optional[str] = None,
+        profile: bool = False) -> FitResult:
+    """Fit the spatial GP to (x, r): the ``varGP`` equivalent.
+
+    x: (nt, nx) stimuli, r: (nt,) spike counts; the fit runs on their
+    device and in x's dtype.  ``xtilde``/``theta``/``f_params``/``m``/``V``
+    are the reference's warm starts (utils.py:1651-1704).  Without
+    ``xtilde`` the inducing rows are a permutation drawn from ``generator``
+    (a CPU ``torch.Generator``).  ``backend`` ("cuda" or "torch") overrides
+    the Gram backend chosen from the device.  ``profile`` records host
+    wall-clock per iteration (after a device synchronize) in ``timing``.
+    """
+    cfg = cfg or FitConfig()
+    dtype, device = x.dtype, x.device
+    if x.is_cuda:
+        use_full_fp32()
+    r = r.to(dtype=dtype, device=device)
+    nt = x.shape[0]
+    ntilde = cfg.resolve_ntilde(nt)
+    if xtilde is None:
+        if ntilde == nt:
+            xtilde = x
+        else:
+            idx = torch.randperm(nt, generator=generator)[:ntilde]
+            xtilde = x[idx.to(device)]
+    else:
+        xtilde = xtilde.to(dtype=dtype, device=device)
+    if ntilde != xtilde.shape[0]:
+        cfg = dataclasses.replace(cfg, ntilde=xtilde.shape[0])
+    # inducing set identical to the training set -> shared fast path
+    # (reference: K = K_tilde, KKtilde_inv_b = B, utils.py:1677-1694)
+    shared = xtilde is x or (xtilde.shape == x.shape
+                             and bool(torch.equal(xtilde, x)))
+
+    if theta is None:
+        theta0, lower, upper = generate_theta(x, r, cfg.n_px_side)
+    else:
+        theta0 = {k: torch.as_tensor(v, dtype=dtype, device=device)
+                  for k, v in theta.items()}
+        lower, upper = theta_bounds()
+    if f_params is None:
+        fp0 = default_f_params(dtype, device)
+    else:
+        fp0 = {k: torch.as_tensor(v, dtype=dtype, device=device)
+               for k, v in f_params.items()}
+    n = xtilde.shape[0]
+    has_V = V is not None
+    m0 = (torch.zeros(n, dtype=dtype, device=device) if m is None
+          else m.to(dtype=dtype, device=device))
+    V0 = V.to(dtype=dtype, device=device) if has_V else None
+
+    def window(th: Theta) -> Window:
+        if not cfg.crop_window:
+            return None
+        lb, ex, ey = torch.stack([th["-2log2beta"], th["eps_0x"],
+                                  th["eps_0y"]]).tolist()
+        i0, j0, w = crop_window_from_scalars(
+            lb, ex, ey, cfg.n_px_side, cfg.alpha_threshold, cfg.crop_margin,
+            cfg.crop_bucket)
+        return None if w >= cfg.n_px_side else (i0, j0, w)
+
+    def covers(win: Window, th: Theta) -> bool:
+        """The window still covers the margin-1.0 alpha mask of th."""
+        if win is None:
+            return True
+        fi0, fj0, fw = crop_window_from_scalars(
+            *torch.stack([th["-2log2beta"], th["eps_0x"],
+                          th["eps_0y"]]).tolist(),
+            cfg.n_px_side, cfg.alpha_threshold, 1.0, 1)
+        i0, j0, w = win
+        return (fi0 >= i0 and fj0 >= j0
+                and fi0 + fw <= i0 + w and fj0 + fw <= j0 + w)
+
+    def clock() -> float:
+        if x.is_cuda:
+            torch.cuda.synchronize(device)
+        return time.perf_counter()
+
+    bounds = (lower, upper)
+    timing = {"per_iteration": []} if profile else None
+    with torch.no_grad():
+        t0 = clock() if profile else 0.0
+        carry = _fit_init(x, r, xtilde, theta0, fp0, m0, V0, has_V, shared,
+                          cfg, window(theta0), backend)
+        if profile:
+            timing["init"] = clock() - t0
+        for i in range(1, cfg.maxiter):
+            ti = clock() if profile else 0.0
+            win = window(carry.theta)
+            carry = _fit_iteration(i, carry, x, r, xtilde, shared, cfg,
+                                   bounds, win, do_mstep=(i < cfg.maxiter - 1),
+                                   backend=backend)
+            if profile:
+                timing["per_iteration"].append(clock() - ti)
+            if not carry.failed and not covers(win, carry.theta):
+                # the window no longer covers the RF: that iteration's
+                # kernels were inexact -- never return such a fit
+                if cfg.crop_margin * 2.0 <= 8.0:
+                    grown = dataclasses.replace(
+                        cfg, crop_margin=cfg.crop_margin * 2.0)
+                    how = f"crop_margin {cfg.crop_margin} -> {grown.crop_margin}"
+                else:
+                    grown = dataclasses.replace(cfg, crop_window=False)
+                    how = "crop_window=False (full frame)"
+                warnings.warn(
+                    f"crop window used at EM iteration {i} no longer covers "
+                    "the RF alpha mask of the resulting theta; re-running "
+                    f"the fit with {how}")
+                return fit(x, r, grown, xtilde=xtilde, theta=theta,
+                           f_params=f_params, m=m, V=V, backend=backend,
+                           profile=profile)
+        carry = _fit_finalize(carry, cfg)
+        if profile:
+            timing["total"] = clock() - t0
+
+    kern = carry.kern
+    es = kern.es
+    return FitResult(
+        config=cfg, xtilde=xtilde, theta=carry.theta, theta_lower=lower,
+        theta_upper=upper, f_params=carry.f_params, m_b=carry.m_b,
+        V_b=carry.V_b, B=es.B, keep=es.keep, eigvals=es.eigvals,
+        k_tilde_b_diag=es.k_tilde_b_diag,
+        k_tilde_inv_diag=es.k_tilde_inv_diag, K_tilde=kern.K_tilde,
+        K=kern.K, Kvec=kern.Kvec, K_b=kern.K_b, a=kern.a, track=carry.track,
+        failed=carry.failed, failed_at=carry.failed_at, timing=timing)

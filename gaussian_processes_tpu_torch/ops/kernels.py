@@ -1,0 +1,345 @@
+"""Kernel construction for the spatial GP
+(counterpart of ``gaussian_processes_tpu/ops/kernels.py``).
+
+Same math as the JAX module: the separable smoothness prior is applied as
+``S W S`` on each (n, n) image instead of materializing the n^2 x n^2 prior
+matrix C; pixels whose envelope alpha is below the threshold get weight
+exactly zero; and the arc-cosine angular factor J carries its analytic
+derivative.  The two big Gram contractions (K_tilde and K) go through
+``_gram_core``, whose ``backend`` picks the fused kernel
+(``ops/gram_cuda.acos_gram``, the default on CUDA tensors) or the plain
+PyTorch composite (the default on CPU tensors).
+
+theta is a dict of 0-d tensors; every function takes its device and dtype
+from its tensor arguments.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..config import ALPHA_THRESHOLD, COSDELTA_JITTER
+
+Theta = Dict[str, torch.Tensor]
+
+
+@functools.lru_cache(maxsize=8)
+def _grid_1d_np(n_px_side: int):
+    return np.linspace(-1.0, 1.0, n_px_side)
+
+
+def _lin(n_px_side: int, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(_grid_1d_np(n_px_side), dtype=dtype, device=device)
+
+
+def pixel_coords(n_px_side: int, dtype=torch.float32, device=None):
+    """Flattened (xcord, ycord) of the n x n grid, 'ij' indexing: pixel
+    p = i * n + j has ycord = lin[i], xcord = lin[j]
+    (reference: utils.py:876-879)."""
+    lin = _lin(n_px_side, dtype, device)
+    ycord = lin.repeat_interleave(n_px_side)
+    xcord = lin.repeat(n_px_side)
+    return xcord, ycord
+
+
+def _envelope(theta: Theta, xcord, ycord, alpha_threshold):
+    gb = torch.exp(theta["-2log2beta"])          # 1 / (4 beta^2)
+    logalpha = -gb * ((xcord - theta["eps_0x"]) ** 2 +
+                      (ycord - theta["eps_0y"]) ** 2)
+    alpha = torch.exp(logalpha)
+    mask = alpha >= alpha_threshold
+    alpha_eff = torch.where(mask, alpha, torch.zeros_like(alpha))
+    return alpha_eff, logalpha, mask
+
+
+def local_envelope(theta: Theta, n_px_side: int, dtype=None,
+                   alpha_threshold: float = ALPHA_THRESHOLD):
+    """Localized RF envelope alpha over the flattened grid, hard-thresholded
+    to zero below ``alpha_threshold`` (reference crops instead,
+    utils.py:880-887).  Returns (alpha_eff, logalpha, mask)."""
+    amp = theta["Amp"]
+    dtype = amp.dtype if dtype is None else dtype
+    xcord, ycord = pixel_coords(n_px_side, dtype, amp.device)
+    return _envelope(theta, xcord, ycord, alpha_threshold)
+
+
+def _smooth_1d(theta: Theta, lin: torch.Tensor) -> torch.Tensor:
+    gr = torch.exp(theta["-log2rho2"]).to(lin.dtype)     # 1 / (2 rho^2)
+    return torch.exp(-gr * (lin[:, None] - lin[None, :]) ** 2)
+
+
+def smooth_factor(theta: Theta, n_px_side: int, dtype=None) -> torch.Tensor:
+    """1-D RBF factor S of the separable smoothness prior:
+    ``C_smooth = S (row) (x) S (col)``, S[a,b] = exp(-g_rho (lin_a-lin_b)^2)
+    (reference materializes the full C_smooth, utils.py:890-892)."""
+    amp = theta["Amp"]
+    dtype = amp.dtype if dtype is None else dtype
+    return _smooth_1d(theta, _lin(n_px_side, dtype, amp.device))
+
+
+def materialize_C(theta: Theta, n_px_side: int, dtype=None,
+                  alpha_threshold: float = ALPHA_THRESHOLD):
+    """Dense nx-by-nx prior matrix C with masked rows/cols zeroed, plus the
+    boolean mask.  For tests and small problems (reference ``localker``,
+    utils.py:861-914); the fit never calls it."""
+    alpha_eff, _, mask = local_envelope(theta, n_px_side, dtype,
+                                        alpha_threshold)
+    S = smooth_factor(theta, n_px_side, dtype)
+    nx = n_px_side * n_px_side
+    C_smooth = torch.einsum("ik,jl->ijkl", S, S).reshape(nx, nx)
+    C = theta["Amp"] * alpha_eff[:, None] * C_smooth * alpha_eff[None, :]
+    C = 0.5 * (C + C.T)
+    return C, mask
+
+
+def smooth_apply(S: torch.Tensor, w: torch.Tensor, n_px_side: int,
+                 Sx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Apply the separable smoothness prior to flattened images w
+    (batch, nx): reshape to (batch, n, n), compute Sy W Sx, flatten back.
+    ``Sx`` defaults to S (full grid); a crop window passes distinct row and
+    column factors."""
+    b = w.shape[0]
+    if Sx is None:
+        Sx = S
+    imgs = w.reshape(b, n_px_side, n_px_side)
+    out = torch.matmul(torch.matmul(S, imgs), Sx)
+    return out.reshape(b, n_px_side * n_px_side)
+
+
+# ---------------------------------------------------------------------------
+# Crop window: exact contraction-length cut around the RF
+# ---------------------------------------------------------------------------
+
+def crop_window_from_scalars(lb: float, eps_x: float, eps_y: float,
+                             n_px_side: int,
+                             alpha_threshold: float = ALPHA_THRESHOLD,
+                             margin: float = 1.25, bucket: int = 16):
+    """(i0, j0, w) covering {alpha >= threshold} with a safety margin, from
+    host scalars (theta's '-2log2beta', 'eps_0x', 'eps_0y').  Returns
+    w == n_px_side when the RF covers most of the grid."""
+    gb = math.exp(lb)
+    # alpha >= t  <=>  d^2 <= ln(1/t) / gb
+    radius = math.sqrt(max(math.log(1.0 / alpha_threshold) / max(gb, 1e-12),
+                           0.0)) * margin
+    # [-1, 1] grid: pixel spacing 2 / (n - 1)
+    half_px = radius * (n_px_side - 1) / 2.0
+    w = int(2 * half_px) + 2
+    w = min(((w + bucket - 1) // bucket) * bucket, n_px_side)
+    if w >= n_px_side:
+        return 0, 0, n_px_side
+    cx = (eps_x + 1.0) * (n_px_side - 1) / 2.0
+    cy = (eps_y + 1.0) * (n_px_side - 1) / 2.0
+    i0 = int(round(cy)) - w // 2
+    j0 = int(round(cx)) - w // 2
+    i0 = max(0, min(i0, n_px_side - w))
+    j0 = max(0, min(j0, n_px_side - w))
+    return i0, j0, w
+
+
+def crop_images(x: torch.Tensor, i0: int, j0: int, w: int,
+                n_px_side: int) -> torch.Tensor:
+    """Crop flattened images (nt, n^2) to the (w, w) window -> (nt, w^2),
+    as a contiguous copy."""
+    imgs = x.reshape(x.shape[0], n_px_side, n_px_side)
+    return imgs[:, i0:i0 + w, j0:j0 + w].reshape(x.shape[0], w * w)
+
+
+def window_coords(i0: int, j0: int, w: int, n_px_side: int, dtype,
+                  device=None):
+    """(xcord, ycord) of the flattened window, plus the 1-D coordinate
+    slices used for the smoothness factors."""
+    lin = _lin(n_px_side, dtype, device)
+    lin_y = lin[i0:i0 + w]
+    lin_x = lin[j0:j0 + w]
+    return lin_x.repeat(w), lin_y.repeat_interleave(w), lin_y, lin_x
+
+
+def quad_forms(theta: Theta, x1: torch.Tensor, x2: Optional[torch.Tensor],
+               n_px_side: int, alpha_threshold: float = ALPHA_THRESHOLD,
+               with_cross: bool = True):
+    """Quadratic forms through C: ``(q11, q22, q12)`` with
+    q11 = diag(x1^T C x1), q22 = diag(x2^T C x2), q12 = x1^T C x2 (None
+    when with_cross=False or x2 is None)."""
+    alpha_eff, _, _ = local_envelope(theta, n_px_side, x1.dtype,
+                                     alpha_threshold)
+    S = smooth_factor(theta, n_px_side, x1.dtype)
+    amp = theta["Amp"].to(x1.dtype)
+    u1 = x1 * alpha_eff
+    s1 = smooth_apply(S, u1, n_px_side)
+    q11 = amp * torch.sum(u1 * s1, dim=1)
+    if x2 is None:
+        return q11, None, None
+    u2 = x2 * alpha_eff
+    s2 = smooth_apply(S, u2, n_px_side)
+    q22 = amp * torch.sum(u2 * s2, dim=1)
+    q12 = amp * (u1 @ s2.T) if with_cross else None
+    return q11, q22, q12
+
+
+# ---------------------------------------------------------------------------
+# Arc-cosine kernel, order 1 (reference: utils.py:939-1050)
+# ---------------------------------------------------------------------------
+
+class _AcosJ(torch.autograd.Function):
+    """J(c) = (sqrt(1 - c^2) + (pi - acos c) c) / pi with the exact
+    derivative dJ/dc = (pi - acos c) / pi (autodiff of the formula gives
+    inf - inf = NaN at |c| = 1)."""
+
+    @staticmethod
+    def forward(ctx, c):
+        ctx.save_for_backward(c)
+        s = torch.sqrt(torch.clamp(1.0 - c * c, min=0.0))
+        return (s + (math.pi - torch.acos(c)) * c) / math.pi
+
+    @staticmethod
+    def backward(ctx, g):
+        (c,) = ctx.saved_tensors
+        return g * (math.pi - torch.acos(c)) / math.pi
+
+
+def acos_J(c: torch.Tensor) -> torch.Tensor:
+    return _AcosJ.apply(c)
+
+
+def _acos_from_quads(theta: Theta, q11, q22, q12, symmetrize: bool):
+    sigma0 = theta["sigma_0"].to(q11.dtype)
+    s02 = sigma0 * sigma0
+    X1 = torch.sqrt(q11 + s02)
+    X2 = torch.sqrt(q22 + s02)
+    X1X2 = X1[:, None] * X2[None, :]
+    x1x2 = q12 + s02
+    one = torch.ones((), dtype=q11.dtype, device=q11.device)
+    # maximum/minimum rather than clamp: a value exactly on a bound passes
+    # half the gradient, as jnp.clip does
+    cosdelta = torch.minimum(torch.maximum(x1x2 / (X1X2 + COSDELTA_JITTER),
+                                           -one), one)
+    K = X1X2 * acos_J(cosdelta)
+    if symmetrize:
+        K = 0.5 * (K + K.T)
+    return K
+
+
+def acosker(theta: Theta, x1: torch.Tensor, x2: Optional[torch.Tensor] = None,
+            n_px_side: int = 108, diag: bool = False,
+            alpha_threshold: float = ALPHA_THRESHOLD) -> torch.Tensor:
+    """Arc-cosine (order-1) covariance through the localized + smooth prior.
+    ``diag=True`` returns diag(K(x1, x1)) = q11 + sigma_0^2
+    (reference: utils.py:1027-1030); otherwise the full Gram, symmetrized
+    when x1 is x2 (reference: utils.py:1024-1025)."""
+    if diag:
+        q11, _, _ = quad_forms(theta, x1, None, n_px_side, alpha_threshold)
+        s0 = theta["sigma_0"].to(q11.dtype)
+        return q11 + s0 * s0
+    same = x2 is None or x2 is x1
+    x2c = x1 if x2 is None else x2
+    q11, q22, q12 = quad_forms(theta, x1, x2c, n_px_side, alpha_threshold)
+    if x2 is None:
+        q22 = q11
+    return _acos_from_quads(theta, q11, q22, q12, symmetrize=same)
+
+
+def gram_matrices(theta: Theta, x: torch.Tensor, xtilde: torch.Tensor,
+                  n_px_side: int, shared: bool,
+                  alpha_threshold: float = ALPHA_THRESHOLD,
+                  backend: Optional[str] = None):
+    """K_tilde (ntilde, ntilde), K (nt, ntilde), Kvec (nt,) in one pass,
+    sharing the smoothed images (reference: utils.py:1675-1680).
+    ``shared=True`` means xtilde is x, so K = K_tilde."""
+    alpha_eff, _, _ = local_envelope(theta, n_px_side, x.dtype,
+                                     alpha_threshold)
+    S = smooth_factor(theta, n_px_side, x.dtype)
+    return _gram_core(theta, x, xtilde, alpha_eff, S, S, n_px_side, shared,
+                      backend)
+
+
+def _gram_core(theta: Theta, x, xtilde, alpha_eff, Sy, Sx, side: int,
+               shared: bool, backend: Optional[str] = None):
+    """Gram assembly over a (side x side) pixel set (full grid or crop
+    window) from a precomputed envelope and smoothing factors.
+
+    ``backend``: "cuda" routes both big contractions through the fused
+    kernel wrapper ``ops/gram_cuda.acos_gram`` (float32 on the card; on a
+    CPU tensor the wrapper runs its plain forward, with the same
+    hand-written backward); "torch" is the plain composite.  None picks
+    "cuda" for CUDA tensors and "torch" otherwise."""
+    if backend is None:
+        backend = "cuda" if x.is_cuda else "torch"
+    if backend not in ("cuda", "torch"):
+        raise ValueError(f"backend must be 'cuda' or 'torch', got {backend!r}")
+    dtype = x.dtype
+    amp = theta["Amp"].to(dtype)
+    sigma0 = theta["sigma_0"].to(dtype)
+
+    ut = xtilde * alpha_eff
+    st = smooth_apply(Sy, ut, side, Sx)
+    qtt_diag = amp * torch.sum(ut * st, dim=1)
+
+    if backend == "cuda":
+        from .gram_cuda import acos_gram
+        # the kernel computes in float32, as the Pallas kernel did; Amp is
+        # folded into one side so the kernel's q12 is the whole form
+        kdt = torch.float32 if x.is_cuda else dtype
+
+        def gram(u, q, q2):
+            return acos_gram((u * amp).to(kdt), st.to(kdt), q.to(kdt),
+                             q2.to(kdt), sigma0.to(kdt)).to(dtype)
+
+        K_tilde = gram(ut, qtt_diag, qtt_diag)
+        K_tilde = 0.5 * (K_tilde + K_tilde.T)
+    else:
+        qtt = amp * (ut @ st.T)
+        K_tilde = _acos_from_quads(theta, qtt_diag, qtt_diag, qtt,
+                                   symmetrize=True)
+
+    if shared:
+        Kvec = qtt_diag + sigma0 * sigma0
+        return K_tilde, K_tilde, Kvec
+
+    u = x * alpha_eff
+    s = smooth_apply(Sy, u, side, Sx)
+    q_diag = amp * torch.sum(u * s, dim=1)
+    if backend == "cuda":
+        K = gram(u, q_diag, qtt_diag)
+    else:
+        q = amp * (u @ st.T)
+        K = _acos_from_quads(theta, q_diag, qtt_diag, q, symmetrize=False)
+    Kvec = q_diag + sigma0 * sigma0
+    return K_tilde, K, Kvec
+
+
+def gram_matrices_windowed(theta: Theta, x: torch.Tensor,
+                           xtilde: torch.Tensor, n_px_side: int, shared: bool,
+                           i0: int, j0: int, w: int,
+                           alpha_threshold: float = ALPHA_THRESHOLD,
+                           backend: Optional[str] = None):
+    """gram_matrices restricted to the (w, w) crop window at (i0, j0).
+    Equal to the full-grid result (up to summation order) whenever the
+    window covers the {alpha >= threshold} mask."""
+    if w >= n_px_side:
+        return gram_matrices(theta, x, xtilde, n_px_side, shared,
+                             alpha_threshold, backend)
+    xc = crop_images(x, i0, j0, w, n_px_side)
+    xtc = xc if shared else crop_images(xtilde, i0, j0, w, n_px_side)
+    return gram_matrices_precropped(theta, xc, xtc, n_px_side, shared,
+                                    i0, j0, w, alpha_threshold, backend)
+
+
+def gram_matrices_precropped(theta: Theta, xc: torch.Tensor,
+                             xtc: torch.Tensor, n_px_side: int, shared: bool,
+                             i0: int, j0: int, w: int,
+                             alpha_threshold: float = ALPHA_THRESHOLD,
+                             backend: Optional[str] = None):
+    """``gram_matrices_windowed`` on already-cropped stimuli: the crop is
+    theta-independent, so the M-step crops once per EM iteration and every
+    line-search evaluation starts from here."""
+    xcord, ycord, lin_y, lin_x = window_coords(i0, j0, w, n_px_side,
+                                               xc.dtype, xc.device)
+    alpha_eff, _, _ = _envelope(theta, xcord, ycord, alpha_threshold)
+    Sy = _smooth_1d(theta, lin_y)
+    Sx = _smooth_1d(theta, lin_x)
+    return _gram_core(theta, xc, xtc, alpha_eff, Sy, Sx, w, shared, backend)

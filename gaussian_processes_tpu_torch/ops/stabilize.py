@@ -1,0 +1,146 @@
+"""Eigenspace stabilization (the reference's "_b projection";
+counterpart of ``gaussian_processes_tpu/ops/stabilize.py``).
+
+The projection keeps its full (ntilde, ntilde) shape and encodes the rank
+truncation as a boolean ``keep`` vector: dropped eigendirections have their B
+column zeroed, so downstream products carry exact zeros in the dropped
+coordinates (reference: Spatial_GP_repo/utils.py:1682-1694, 1808-1841).
+Determinants and inverses over the kept subspace pad the dropped diagonal
+with ones.
+
+NaN-poison contract: a non-finite input yields NaN outputs, never an
+exception, so the fit's rollback sees the failure.  ``torch.linalg.eigh``
+and ``cholesky`` raise on bad input where JAX on CPU returns NaN, hence the
+``isfinite`` guard in ``_eigh_safe`` and ``cholesky_ex``/``inv_ex`` with
+their ``info`` mapped to NaN.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import EIGVAL_TOL
+
+
+class Eigenspace(NamedTuple):
+    """Stabilizing eigenspace of K_tilde.
+
+    B:               (ntilde, ntilde) eigenvectors; dropped columns zeroed.
+    eigvals:         (ntilde,) raw eigenvalues (ascending).
+    keep:            (ntilde,) bool; True where the eigenvalue is retained.
+    k_tilde_b_diag:  (ntilde,) kept eigenvalues, 0 where dropped.
+    k_tilde_inv_diag:(ntilde,) 1/eigval where kept, 0 where dropped.
+    """
+    B: torch.Tensor
+    eigvals: torch.Tensor
+    keep: torch.Tensor
+    k_tilde_b_diag: torch.Tensor
+    k_tilde_inv_diag: torch.Tensor
+
+
+def _eye_like(M: torch.Tensor) -> torch.Tensor:
+    return torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+
+
+def _eigh_safe(M: torch.Tensor):
+    """eigh with a non-finite-input guard: the factorization runs on an
+    identity stand-in when M is bad, and the returned 0-d ``finite`` flag
+    lets the caller poison its outputs."""
+    finite = torch.all(torch.isfinite(M))
+    M_safe = torch.where(finite, M, _eye_like(M))
+    eigvals, eigvecs = torch.linalg.eigh(M_safe)
+    return eigvals, eigvecs, finite
+
+
+def _poison(ok: torch.Tensor, dtype) -> torch.Tensor:
+    """0 where ``ok``, NaN otherwise (add it to poison an output)."""
+    nan = torch.full((), float("nan"), dtype=dtype, device=ok.device)
+    return torch.where(ok, torch.zeros((), dtype=dtype, device=ok.device),
+                       nan)
+
+
+def compute_eigenspace(K_tilde: torch.Tensor,
+                       eigval_tol: float = EIGVAL_TOL) -> Eigenspace:
+    """eigh + keep-mask truncation: keep eigenvalues above
+    max(lam_max * eigval_tol, eigval_tol) (reference: utils.py:1682-1694).
+    A non-finite K_tilde yields NaN-poisoned outputs."""
+    eigvals, eigvecs, finite = _eigh_safe(K_tilde)
+    poison = _poison(finite, K_tilde.dtype)
+    eigvals = eigvals + poison
+    eigvecs = eigvecs + poison
+    thresh = torch.clamp(eigvals[-1:] * eigval_tol, min=eigval_tol)
+    keep = eigvals > thresh
+    keepf = keep.to(K_tilde.dtype)
+    B = eigvecs * keepf[None, :]
+    safe = torch.where(keep, eigvals, torch.ones_like(eigvals))
+    return Eigenspace(
+        B=B,
+        eigvals=eigvals,
+        keep=keep,
+        k_tilde_b_diag=torch.where(keep, eigvals, 0.0) + poison,
+        k_tilde_inv_diag=keepf / safe + poison,
+    )
+
+
+def project_gram(es: Eigenspace, K: torch.Tensor, shared: bool) -> torch.Tensor:
+    """KKtilde_inv_b = K B diag(1/eig) -- the 'a' matrix of the reference
+    (utils.py:1693-1694); B itself when inducing points == training
+    points."""
+    if shared:
+        return es.B
+    return (K @ es.B) * es.k_tilde_inv_diag[None, :]
+
+
+def reproject(es_new: Eigenspace, es_old: Eigenspace,
+              m_b: torch.Tensor, V_b: torch.Tensor):
+    """Carry the variational state across a change of eigenspace:
+    ``V_b' = R V_b R^T``, ``m_b' = R m_b`` with R = B_new^T B_old
+    (reference: utils.py:1833-1841)."""
+    R = es_new.B.T @ es_old.B
+    return R @ m_b, (R @ V_b) @ R.T
+
+
+def _pad_dropped(M: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    return M + torch.diag(1.0 - keep.to(M.dtype))
+
+
+def masked_logdet_chol(M: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """log|M| on the kept subspace via Cholesky of ``M + diag(1 - keep)``.
+    NaN when the kept block is not positive definite (the reference's
+    raised Cholesky error, utils.py:1271-1304)."""
+    L, info = torch.linalg.cholesky_ex(_pad_dropped(M, keep))
+    ld = 2.0 * torch.sum(torch.log(torch.diagonal(L)))
+    return ld + _poison(info == 0, M.dtype)
+
+
+def masked_logdet_eigh(M: torch.Tensor, keep: torch.Tensor,
+                       eigval_tol: float = EIGVAL_TOL) -> torch.Tensor:
+    """Fallback log-determinant: eigh, keeping eigenvalues above the
+    relative threshold (reference's except-branch, utils.py:1282-1301).
+    NaN when M is non-finite."""
+    eigvals, _, finite = _eigh_safe(_pad_dropped(M, keep))
+    thresh = torch.clamp(eigvals[-1] * eigval_tol, min=eigval_tol)
+    big = eigvals > thresh
+    safe = torch.where(big, eigvals, torch.ones_like(eigvals))
+    return torch.sum(torch.log(safe)) + _poison(finite, M.dtype)
+
+
+def logdet_with_fallback(M: torch.Tensor, keep: torch.Tensor,
+                         eigval_tol: float = EIGVAL_TOL) -> torch.Tensor:
+    """Cholesky log-determinant, with the eigh route when the factorization
+    fails (reference: utils.py:1271-1304).  One host sync decides."""
+    ld = masked_logdet_chol(M, keep)
+    if bool(torch.isfinite(ld)):
+        return ld
+    return masked_logdet_eigh(M, keep, eigval_tol)
+
+
+def masked_inverse(M: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """Inverse of the kept block of M, zero-padded on dropped rows/cols
+    (reference: utils.py:2067).  NaN when the padded matrix is singular."""
+    keepf = keep.to(M.dtype)
+    inv, info = torch.linalg.inv_ex(_pad_dropped(M, keep))
+    inv = inv + _poison(info == 0, M.dtype)
+    return inv * keepf[:, None] * keepf[None, :]
