@@ -5,22 +5,29 @@
 Phases (none catches its own failure; any failure exits non-zero):
 
 1. Set-up: requires a CUDA device, prints the card's name and power limit
-   (nvidia-smi) and builds the hand-written Gram kernel
-   (gaussian_processes_tpu_torch/csrc/acos_gram.cu) from the checkout.
-2. Kernel: at the bench shapes (K_tilde 2100 x 2100 and K 3160 x 2100, at
-   contraction 6400 = the 80 x 80 crop window and 11664 = the full 108 x 108
-   grid), the kernel's output against its plain PyTorch version on the same
+   (nvidia-smi), builds the hand-written kernels
+   (gaussian_processes_tpu_torch/csrc/acos_gram.cu) from the checkout and
+   prints ptxas's register, spill and shared-memory lines for each.
+2. Kernels: at the main path's operands -- K_tilde 2100 x 2100 and
+   K 3160 x 2100 at contraction 6400 (the 80 x 80 crop window) and 11664
+   (the full 108 x 108 grid), and the prediction's K* 30 x 2100 at 11664 --
+   the Gram kernel's output against its plain PyTorch version on the same
    operands (max relative error <= 1e-5: the two sum up to 11664 float32
-   products in different orders), with median CUDA-event times of both; and
-   the theta-gradient through the kernel-forward autograd Function against
-   the plain autograd composite at a small shape.
+   products in different orders, the kernel in 3xTF32), the same bound on
+   K_tilde's diagonal alone (c -> 1, where the tensor cores' accumulation
+   is most at risk), the split pass bit for bit against its plain version,
+   with the planner's decomposition and median CUDA-event times of each;
+   and the theta-gradient through the kernel-forward autograd Function
+   against the plain autograd composite at a small shape.
 3. Reference: a small fit through the kernel (float32, on the card) against
    the same fit on the CPU in float64 through the plain path.
 4. Main path: the single-cell EM fit at bench.py's data and shape (nt 3160
    images of 108 x 108 px, ntilde 2100, 3 EM iterations of 10 E-, 10 M- and
    10 f-param steps), then the r^2 evaluation on 30 test images x 30
    repeats with 200 bootstrap draws.  Kernel launch counts are reset just
-   before and read just after.
+   before and read just after.  Then the same fit through the plain Gram
+   (backend="torch") on the card: the kernel fit's log-marginal must stay
+   within 1e-3 relative of it at every iteration.
 
 The last two lines of standard output are one JSON object with the kernel
 table and one with the device.
@@ -44,6 +51,7 @@ F_PARAMS0 = {"logA": math.log(0.01), "lambda0": 1.0}
 KERNEL_RTOL = 1e-5
 GRAD_RTOL = 1e-3       # float32 gradients, two summation orders
 REFERENCE_RTOL = 1e-3  # float32 fit on the card vs float64 fit on the CPU
+PTXAS_KEYS = ("entry function", "registers", "spill", "smem")
 
 
 def bench_data(np, seed=0):
@@ -105,10 +113,11 @@ def main():
     print(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
           f" (CUDA {torch.version.cuda})")
     use_full_fp32()
-    gram_cuda.load_library()
-    print(f"kernel build: {gram_cuda.build_seconds:.2f} s")
+    lib = gram_cuda.load_library()
+    print(f"kernel build: {gram_cuda.build_seconds:.2f} s; Gram block "
+          f"dynamic shared memory {lib.acos_gram_smem_bytes()} B")
     for line in gram_cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(key in line for key in PTXAS_KEYS):
             print("  ptxas:", line.strip())
 
     X, R, Xt, Rt = bench_data(np)
@@ -119,11 +128,15 @@ def main():
     theta = {k: torch.tensor(v, dtype=torch.float32, device=device)
              for k, v in THETA0.items()}
 
-    # ---- 2. kernel vs plain at the main path's operands ------------------
-    def main_path_operands(k_full_grid: bool):
-        """The (u1, s2, q11, q22, sigma0) the Gram hands the kernel for
-        K_tilde and K, at the crop window of the start theta or on the full
-        grid, recorded from one gram_matrices call."""
+    # ---- 2. kernels vs plain at the main path's operands ----------------
+    xt_test = torch.as_tensor(Xt, device=device)
+
+    def main_path_operands(where: str):
+        """The (u1, s2, q11, q22, sigma0) the Gram hands the kernel, recorded
+        from one gram_matrices call: K_tilde and K at the crop window of the
+        start theta ("crop") or on the full grid ("full"), or K* of the
+        prediction that evaluate makes (inference.py:37) at the start theta
+        ("predict"; its K_tilde is the full grid's)."""
         calls = []
         real = gram_cuda.acos_gram
 
@@ -134,22 +147,28 @@ def main():
         gram_cuda.acos_gram = record
         try:
             with torch.no_grad():
-                if k_full_grid:
-                    gram_matrices(theta, x, xtilde, N_PX, shared=False)
-                else:
+                if where == "crop":
                     i0, j0, w = crop_window_from_scalars(
                         THETA0["-2log2beta"], THETA0["eps_0x"],
                         THETA0["eps_0y"], N_PX)
                     gram_matrices_windowed(theta, x, xtilde, N_PX, False,
                                            i0, j0, w)
+                else:
+                    gram_matrices(theta, xt_test if where == "predict" else x,
+                                  xtilde, N_PX, shared=False)
         finally:
             gram_cuda.acos_gram = real
-        return calls
+        if where == "predict":
+            return [("K*", calls[1])]
+        return list(zip(("K_tilde", "K"), calls))
 
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     results = {}
-    for full in (False, True):
-        for name, ops in zip(("K_tilde", "K"), main_path_operands(full)):
+    split_err, split_checked = 0.0, 0
+    for where in ("crop", "full", "predict"):
+        for name, ops in main_path_operands(where):
             m, n, k = ops[0].shape[0], ops[1].shape[0], ops[0].shape[1]
+            plan = gram_cuda.plan_gram(m, n, k, sms)
             with torch.no_grad():
                 K_kernel = gram_cuda.acos_gram(*ops)
                 K_plain = gram_cuda.acos_gram_torch(*ops)
@@ -163,10 +182,39 @@ def main():
             print(f"kernel {name} {m}x{n} k={k}: max|dK|/max|K| = {rel:.3e} "
                   f"(max|dK| {max_abs:.3e}), kernel {ms:.3f} ms, "
                   f"plain {plain_ms:.3f} ms  [{smi}]")
+            print(f"  plan: {plan}")
             if not (finite and rel <= KERNEL_RTOL):
                 raise RuntimeError(f"kernel disagrees with its plain version "
                                    f"at {m}x{n} k={k}: {rel:.3e}")
+            if name == "K_tilde":
+                d_plain = K_plain.diagonal()
+                diag = float(torch.max(torch.abs(K_kernel.diagonal() - d_plain)
+                                       / torch.abs(d_plain)))
+                print(f"  K_tilde diagonal: max relative error {diag:.3e}")
+                if not diag <= KERNEL_RTOL:
+                    raise RuntimeError(f"K_tilde's diagonal disagrees at "
+                                       f"k={k}: {diag:.3e}")
             results[(name, k)] = (max_abs, ms, plain_ms)
+            # the split pass, bit for bit, on both operands
+            for a in ops[:2]:
+                split_checked += 1
+                with torch.no_grad():
+                    got = gram_cuda.tf32_split(a)
+                    want = gram_cuda.tf32_split_torch(a)
+                for g_, w_ in zip(got, want):
+                    split_err = max(split_err,
+                                    float(torch.max(torch.abs(g_ - w_))))
+                    if not torch.equal(g_, w_):
+                        raise RuntimeError(f"split pass disagrees with its "
+                                           f"plain version at "
+                                           f"{tuple(a.shape)}")
+            if (name, k) == ("K", 6400):
+                split_ms = cuda_ms(torch, lambda: gram_cuda.tf32_split(ops[0]))
+                split_plain_ms = cuda_ms(
+                    torch, lambda: gram_cuda.tf32_split_torch(ops[0]))
+                print(f"split pass {m}x{k}: bit-exact, kernel {split_ms:.3f} "
+                      f"ms, plain {split_plain_ms:.3f} ms  [{smi}]")
+    print(f"split pass bit-exact on {split_checked} operands")
 
     # theta-gradient through the kernel-forward Function vs the composite
     gx = torch.as_tensor(np.random.default_rng(2).standard_normal(
@@ -225,6 +273,7 @@ def main():
                     n_fparamstep=10, n_px_side=N_PX, track_variational=False)
     torch.cuda.synchronize()
     gram_cuda.launches = 0
+    gram_cuda.split_launches = 0
     t0 = time.perf_counter()
     res = fit(x, r, cfg, xtilde=xtilde, theta=THETA0, f_params=F_PARAMS0,
               profile=True)
@@ -237,6 +286,7 @@ def main():
     r2, sigma_r2 = float(r2), float(sigma_r2)
     torch.cuda.synchronize()
     launches_main = gram_cuda.launches
+    split_launches_main = gram_cuda.split_launches
 
     loss = res.track.logmarginal.double().cpu().numpy()
     print(f"fit init {res.timing['init']:.3f} s; per-iteration s "
@@ -248,7 +298,15 @@ def main():
           f"{bool(torch.all(torch.isfinite(rates)))}, shape "
           f"{tuple(rates.shape)}")
     print(f"acos_gram launches: fit {launches_fit}, fit + evaluate "
-          f"{launches_main}")
+          f"{launches_main}; split-pass launches {split_launches_main}")
+
+    # the same fit through the plain Gram, on the card
+    res_plain = fit(x, r, cfg, xtilde=xtilde, theta=THETA0,
+                    f_params=F_PARAMS0, backend="torch")
+    loss_plain = res_plain.track.logmarginal.double().cpu().numpy()
+    plain_err = float(np.max(np.abs(loss - loss_plain) / np.abs(loss_plain)))
+    print(f"logmarginal through the plain Gram: {loss_plain.tolist()}; max "
+          f"rel difference {plain_err:.3e}")
     checks = {
         "fit not failed": not res.failed,
         "losses finite": bool(np.all(np.isfinite(loss))),
@@ -257,21 +315,35 @@ def main():
                                       and tuple(rates.shape) == (30,)),
         "r2 finite": math.isfinite(r2) and math.isfinite(sigma_r2),
         "kernel launched on the main path": launches_main > 0,
+        "split pass launched on the main path": split_launches_main > 0,
+        "log-marginal within 1e-3 of the plain-Gram fit":
+            len(loss) == len(loss_plain) and plain_err <= REFERENCE_RTOL,
     }
     for what, ok in checks.items():
         if not ok:
             raise RuntimeError(f"main path check failed: {what}")
 
     max_abs, ms, plain_ms = results[("K", 6400)]
+    source = "gaussian_processes_tpu_torch/csrc/acos_gram.cu"
+    replaces = "gaussian_processes_tpu/ops/gram_pallas.py:80"
     print(json.dumps({"kernels": [{
         "name": "acos_gram",
         "route": "cuda",
-        "source": "gaussian_processes_tpu_torch/csrc/acos_gram.cu",
-        "replaces": "gaussian_processes_tpu/ops/gram_pallas.py:80",
+        "source": source,
+        "replaces": replaces,
         "launches": launches_main,
         "max_abs_err": max(v[0] for v in results.values()),
         "ms": ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "tf32_split",
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": split_launches_main,
+        "max_abs_err": split_err,
+        "ms": split_ms,
+        "plain_ms": split_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-// Fused arc-cosine Gram for Hopper (sm_90a), float32.
+// Fused arc-cosine Gram for Hopper (sm_90a): float32 in and out, the
+// contraction on the tensor cores in 3xTF32.
 //
 // Replaces: gaussian_processes_tpu/ops/gram_pallas.py::acos_gram_pallas (the
 // Pallas TPU kernel with body _gram_kernel, epilogue _acos_tile and the
@@ -9,176 +10,567 @@
 //   X1 = sqrt(q11 + s0^2), X2 = sqrt(q22 + s0^2), s0 = *sigma0
 //   c  = clip((q12 + s0^2) / (X1 X2 + 1e-7), -1, 1)
 //   K  = X1 X2 * (sqrt(1 - c^2) + (pi - acos c) c) / pi
-// and writes K (m, n) once.  q12 never exists in device memory.
 //
-// What bounds it: the contraction.  It takes 2 m n k flops against
-// (m + n) k 4 bytes of operands, i.e. m n / (2 (m + n)) flop per byte: about
-// 630 at the fit's K (m = 3160, n = 2100) and 525 at its K_tilde (2100 x
-// 2100), far above the card's flop-to-byte balance, so the kernel is bound
-// by float32 FMA issue rate (no TF32: the Gram feeds an eigendecomposition
-// and a Cholesky).
+// Three kernels, launched in order by tf32_split_f32 and acos_gram_f32:
 //
-// What the tiling does about it: each 256-thread block owns a 128 x 128
-// output tile and walks k in steps of 8.  Each step stages a 128 x 8 slice
-// of u1 and of s2 in shared memory, transposed so that k is the slow index;
-// every thread then keeps an 8 x 8 block of accumulators in registers and
-// reads 8 + 8 operands from shared memory for 64 FMAs.  Each operand loaded
-// from device memory is reused 128 times from shared memory and each shared
-// value 8 times from registers.  Ragged edges are masked on load (zero
-// fill) and on store; nothing is padded or copied by the caller.  The
-// epilogue runs in registers, with a real acosf (the Pallas kernel carried a
-// polynomial only because Mosaic had no acos).
+// 1. tf32_split_kernel (tf32_split_vec_kernel where k is a multiple of 4),
+//    once per operand: big = cvt.rna.tf32(a) and
+//    small = a - big (exact in float32), into one (2, rows, kp) buffer whose
+//    row stride kp = k rounded up to 4 floats (TMA wants 16-byte strides);
+//    the padding columns are zero.  NaN stays NaN (small = NaN - NaN), and
+//    inf becomes a NaN small part, so a poisoned operand poisons K.
+// 2. acos_gram_tf32x3_kernel: one 128 x 128 output tile per block, over one
+//    planned range of k.  Warpgroup 2 is the producer: one thread issues
+//    cp.async.bulk.tensor loads of the big and small 128 x 32 tiles of both
+//    operands (128 B rows, 128-byte swizzle) into a ring of 3 stages of
+//    64 KB, each with a full and an empty mbarrier.  Warpgroups 0 and 1 are
+//    the consumers, 64 rows each: for every 8 floats of k they issue
+//    wgmma.m64n128k8.f32.tf32.tf32 three times into one float32 accumulator,
+//    small*big, big*small, then big*big (small*small, 2^-22 relative, is
+//    dropped).  Both operands are K-major in shared memory, as TF32 wgmma
+//    requires, so nothing is transposed.  With one range of k the epilogue
+//    runs in registers; with several, each block writes its raw partial q12
+//    to a workspace (splits, m, n).
+// 3. acos_gram_reduce_kernel (split k only): sums the partials in split
+//    order and applies the same epilogue.
 //
-// Later work: wgmma with TMA-fed shared-memory rings, or 3xTF32 splitting,
-// would move this onto the tensor cores.
+// Accumulation interval: the tensor cores' float32 accumulation does not
+// round like fmaf, and at K_tilde's diagonal (c -> 1) every term has the
+// same sign, so a per-addition bias adds up over the 3 k/8 additions.  With
+// one accumulator for the whole range the diagonal missed the 1e-5 gate on
+// the card (1.4e-5 relative at k 6400 and 11664).  So the consumers start a
+// fresh accumulator every PROMOTE_EVERY = 4 k-blocks (128 floats of k, 48
+// wgmmas) and add it into a float32 register sum with fadd: 1.2e-6 and
+// 1.0e-6, at no time cost that the card could measure (every 16 blocks gave
+// 4.2e-6, every block 7.0e-7; H100 80GB HBM3 at 700 W, PERF.md).
+//
+// What bounds it, and what the design does about it: 3xTF32 makes the
+// contraction three TF32 tensor-core products, 6 m n k flops against the
+// card's 495 TFLOP/s of TF32, so tensor-core issue bounds the fit's shapes:
+// the main kernel ran at 300-350 TF32 TFLOP/s there (61-70% of peak), and
+// the two split passes took 0.11-0.25 ms beside it (H100 80GB HBM3 at
+// 700 W, PERF.md).  The split pass lets TMA load every operand tile as it
+// is, with no conversion in the main loop; the 3-stage ring keeps two
+// k-blocks of loads in flight while the consumers compute; the promotion
+// interval buys the accuracy for 64 fadds per thread every 4 k-blocks.  K_tilde's 289 tiles and K's
+// 425 fill 2.2 and 3.2 waves of 132 one-block SMs and the prediction's K*
+// (30 x 2100) only 17 blocks, so the planner in ops/gram_cuda.py
+// (plan_gram) splits k until the launched waves are at least 85% full
+// (2, 2 and 7 splits).  At K* the split pass's bytes (read k (m + n)
+// floats, write twice that) bound it instead: 0.10 of its 0.18 ms.
+//
+// The epilogue runs in registers with a real acosf (the Pallas kernel
+// carried a polynomial only because Mosaic had no acos); the clip is written
+// with comparisons so that a NaN stays NaN.  TMA zero-fills loads outside
+// the operands, so nothing is padded in m or n, and stores are masked to
+// (m, n).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 8;
-constexpr int TM = 8;
-constexpr int TN = 8;
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
-constexpr int PAD = 4;  // keeps rows 16-byte aligned for float4 reads
+constexpr int BM = 128;            // rows of u1 per block (two warpgroups)
+constexpr int BN = 128;            // rows of s2 per block (the wgmma's n)
+constexpr int BK = 32;             // floats of k per stage: one 128-B row
+constexpr int STAGES = 3;
+constexpr int PROMOTE_EVERY = 4;   // k-blocks per accumulator (see above)
+constexpr int CONSUMERS = 2;       // consumer warpgroups
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int TILE_BYTES = BM * BK * 4;        // 16 KB
+constexpr int STAGE_BYTES = 4 * TILE_BYTES;    // A big, A small, B big, B small
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
 constexpr float JITTER = 1e-7f;
 
-static_assert(BM == BN, "one tile loader serves both operands");
-static_assert(THREADS * 4 == BM * BK, "each thread stages 4 values per operand");
+static_assert(BM == BN, "one tensor-map box serves both operands");
+static_assert(BM == 64 * CONSUMERS, "each consumer warpgroup owns 64 rows");
 
-// Stage rows [row0, row0 + BM) x cols [k0, k0 + BK) of a row-major
-// (rows, K) matrix into dst[k][row], zero-filling outside the matrix.
-// Thread t loads 4 consecutive k of one row: two threads cover one row's
-// 32 bytes, so a warp reads 16 full 32-byte sectors.
-__device__ __forceinline__ void stage_tile(const float* __restrict__ src,
-                                           int rows, int K, int row0, int k0,
-                                           bool vec, float (*dst)[BM + PAD],
-                                           int tid) {
-  const int r = tid >> 1;
-  const int c = (tid & 1) * 4;
-  const int gr = row0 + r;
-  const int gc = k0 + c;
-  float v0 = 0.f, v1 = 0.f, v2 = 0.f, v3 = 0.f;
-  if (gr < rows) {
-    const float* p = src + static_cast<size_t>(gr) * K + gc;
-    if (vec) {
-      // K % 4 == 0 and gc % 4 == 0: the float4 lies wholly inside or outside
-      if (gc < K) {
-        const float4 t = *reinterpret_cast<const float4*>(p);
-        v0 = t.x; v1 = t.y; v2 = t.z; v3 = t.w;
-      }
-    } else {
-      if (gc < K) v0 = p[0];
-      if (gc + 1 < K) v1 = p[1];
-      if (gc + 2 < K) v2 = p[2];
-      if (gc + 3 < K) v3 = p[3];
-    }
-  }
-  dst[c + 0][r] = v0;
-  dst[c + 1][r] = v1;
-  dst[c + 2][r] = v2;
-  dst[c + 3][r] = v3;
+// Error codes of this file's own (cudaError_t values are >= 0).
+constexpr int ERR_NO_ENCODER = -1;    // cuTensorMapEncodeTiled not found
+constexpr int ERR_TENSOR_MAP = -2;    // cuTensorMapEncodeTiled refused
+constexpr int ERR_PLAN = -3;          // splits outside [1, k-blocks]
+
+// ---------------------------------------------------------------------------
+// Device helpers: mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(THREADS)
-acos_gram_kernel(const float* __restrict__ u1, const float* __restrict__ s2,
-                 const float* __restrict__ q11, const float* __restrict__ q22,
-                 const float* __restrict__ sigma0, float* __restrict__ out,
-                 int m, int n, int K, bool vec) {
-  __shared__ __align__(16) float As[BK][BM + PAD];
-  __shared__ __align__(16) float Bs[BK][BN + PAD];
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
 
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n\t.reg .b64 state;\n\t"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}" ::"r"(bar)
+      : "memory");
+}
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    stage_tile(u1, m, K, row0, k0, vec, As, tid);
-    stage_tile(s2, n, K, col0, k0, vec, Bs, tid);
-    __syncthreads();
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Wait until the phase of parity `parity` has completed.  A wait that has
+// not completed after 4 s traps (the launch then fails with an error)
+// instead of hanging the card: no stage of this kernel takes a millisecond.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try(bar, parity))
+    if (global_ns() - t0 > 4000000000ull) __trap();
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile with 128-B rows in the
+// 128-byte swizzle: start address >> 4, leading offset unused (1), stride
+// between 8-row groups 1024 B, layout type 1 (SWIZZLE_128B).  The tile base
+// is 1024-B aligned, so a step of 32 B along k is an add of 2.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma boundary.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * TM + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN + 4]);
-      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-      b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128 per warpgroup, float32) = A (64 x 8, TF32) * B (8 x 128, TF32)
+// + (scale_d ? d : 0); A and B from shared-memory descriptors.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "setp.ne.b32 p, %66, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// K entry from q12 and the two norms (sigma0^2 folded in).
+__device__ __forceinline__ float acos_entry(float q12, float x1, float x2,
+                                            float s02) {
+  const float X = x1 * x2;
+  float c = (q12 + s02) / (X + JITTER);
+  // written with comparisons so that a NaN stays NaN (fminf/fmaxf would
+  // replace it by a bound)
+  c = c < -1.f ? -1.f : (c > 1.f ? 1.f : c);
+  const float s = sqrtf(fmaxf(1.f - c * c, 0.f));
+  return X * ((s + (CUDART_PI_F - acosf(c)) * c) / CUDART_PI_F);
+}
+
+// ---------------------------------------------------------------------------
+// Kernels
+// ---------------------------------------------------------------------------
+
+// a (rows, k) -> big, small (rows, kp), zero in columns [k, kp).
+__global__ void tf32_split_kernel(const float* __restrict__ a,
+                                  float* __restrict__ big,
+                                  float* __restrict__ small, int rows, int k,
+                                  int kp) {
+  const size_t total = static_cast<size_t>(rows) * kp;
+  const size_t step = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < total; i += step) {
+    const size_t r = i / kp;
+    const int c = static_cast<int>(i - r * kp);
+    const float v = c < k ? a[r * k + c] : 0.f;
+    const float b = tf32_rna(v);
+    big[i] = b;
+    small[i] = v - b;
+  }
+}
+
+// The same for k == kp, four floats per thread and step.
+__global__ void tf32_split_vec_kernel(const float4* __restrict__ a,
+                                      float4* __restrict__ big,
+                                      float4* __restrict__ small,
+                                      size_t total4) {
+  const size_t step = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < total4; i += step) {
+    const float4 v = a[i];
+    const float4 b = make_float4(tf32_rna(v.x), tf32_rna(v.y), tf32_rna(v.z),
+                                 tf32_rna(v.w));
+    big[i] = b;
+    small[i] = make_float4(v.x - b.x, v.y - b.y, v.z - b.z, v.w - b.w);
+  }
+}
+
+// Grid (tiles of n, tiles of m, splits).  With one split, out is K (m, n);
+// with several, out is the workspace (splits, m, n) of raw partial q12.
+__global__ void __launch_bounds__(THREADS, 1)
+    acos_gram_tf32x3_kernel(const __grid_constant__ CUtensorMap a_big,
+                            const __grid_constant__ CUtensorMap a_small,
+                            const __grid_constant__ CUtensorMap b_big,
+                            const __grid_constant__ CUtensorMap b_small,
+                            const float* __restrict__ q11,
+                            const float* __restrict__ q22,
+                            const float* __restrict__ sigma0,
+                            float* __restrict__ out, int m, int n,
+                            int kblocks) {
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte-swizzled tiles want a 1024-B aligned base
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + STAGES * STAGE_BYTES;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (STAGES + s); };
+
+  const int split = blockIdx.z;
+  const int splits = gridDim.z;
+  const int kb0 = static_cast<int>(static_cast<long long>(split) * kblocks /
+                                   splits);
+  const int kb1 = static_cast<int>(static_cast<long long>(split + 1) *
+                                   kblocks / splits);
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), CONSUMERS);
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // ---- producer: one thread keeps the ring full ----
+    if (threadIdx.x == CONSUMERS * 128) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kb = kb0; kb < kb1; ++kb) {
+        mbar_wait(empty(stage), phase ^ 1u);
+        const uint32_t s = base + stage * STAGE_BYTES;
+        mbar_expect_tx(full(stage), STAGE_BYTES);
+        tma_load(s, &a_big, full(stage), kb * BK, m0);
+        tma_load(s + TILE_BYTES, &a_small, full(stage), kb * BK, m0);
+        tma_load(s + 2 * TILE_BYTES, &b_big, full(stage), kb * BK, n0);
+        tma_load(s + 3 * TILE_BYTES, &b_small, full(stage), kb * BK, n0);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+    return;
   }
 
-  // Epilogue in registers: norms with sigma0^2 folded in, clip, J factor.
+  // ---- consumers: 64 rows x 128 columns each ----
+  float acc[64], sum[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    acc[i] = 0.f;
+    sum[i] = 0.f;
+  }
+  const uint32_t a_rows = wg * 64 * (BK * 4);  // this warpgroup's 64 rows
+  int stage = 0;
+  uint32_t phase = 0;
+  int held = 0;  // k-blocks in acc since the last promotion
+  for (int kb = kb0; kb < kb1; ++kb) {
+    mbar_wait(full(stage), phase);
+    const uint32_t s = base + stage * STAGE_BYTES;
+    const uint64_t da_big = smem_desc(s + a_rows);
+    const uint64_t da_small = smem_desc(s + TILE_BYTES + a_rows);
+    const uint64_t db_big = smem_desc(s + 2 * TILE_BYTES);
+    const uint64_t db_small = smem_desc(s + 3 * TILE_BYTES);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const uint64_t step = static_cast<uint64_t>((kk * 8 * 4) >> 4);
+      wgmma_tf32(acc, da_small + step, db_big + step,
+                 (kk > 0 || held > 0) ? 1 : 0);
+      wgmma_tf32(acc, da_big + step, db_small + step, 1);
+      wgmma_tf32(acc, da_big + step, db_big + step, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(acc);
+    if (threadIdx.x % 128 == 0) mbar_arrive(empty(stage));
+    if (++held == PROMOTE_EVERY || kb + 1 == kb1) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sum[i] += acc[i];
+      held = 0;
+    }
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+
+  // Accumulator layout of m64nNk8: register 4 j + 2 i + c of thread t holds
+  // row 16 warp + t/4 % 8 + 8 i, column 8 j + 2 (t % 4) + c.
+  const int t = threadIdx.x % 128;
+  const int row0 = m0 + wg * 64 + (t / 32) * 16 + (t % 32) / 4;
+  const int col0 = n0 + 2 * (t % 4);
+  if (splits > 1) {
+    float* part = out + static_cast<size_t>(split) * m * n;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + 8 * i;
+      if (r >= m) continue;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = col0 + 8 * j + c;
+          if (col < n) part[static_cast<size_t>(r) * n + col] =
+              sum[4 * j + 2 * i + c];
+        }
+    }
+    return;
+  }
   const float s0 = *sigma0;
   const float s02 = s0 * s0;
-  float x1[TM], x2[TN];
+  float x1[2];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gi = row0 + ty * TM + i;
-    x1[i] = gi < m ? sqrtf(q11[gi] + s02) : 1.f;
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + 8 * i;
+    x1[i] = r < m ? sqrtf(q11[r] + s02) : 1.f;
   }
 #pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const int gj = col0 + tx * TN + j;
-    x2[j] = gj < n ? sqrtf(q22[gj] + s02) : 1.f;
-  }
+  for (int j = 0; j < 16; ++j)
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gi = row0 + ty * TM + i;
-    if (gi >= m) continue;
-    float* orow = out + static_cast<size_t>(gi) * n;
+    for (int c = 0; c < 2; ++c) {
+      const int col = col0 + 8 * j + c;
+      if (col >= n) continue;
+      const float x2 = sqrtf(q22[col] + s02);
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gj = col0 + tx * TN + j;
-      if (gj >= n) continue;
-      const float X = x1[i] * x2[j];
-      float c = (acc[i][j] + s02) / (X + JITTER);
-      // written with comparisons so that a NaN stays NaN (fminf/fmaxf
-      // would replace it by a bound)
-      c = c < -1.f ? -1.f : (c > 1.f ? 1.f : c);
-      const float s = sqrtf(fmaxf(1.f - c * c, 0.f));
-      const float J = (s + (CUDART_PI_F - acosf(c)) * c) / CUDART_PI_F;
-      orow[gj] = X * J;
+      for (int i = 0; i < 2; ++i) {
+        const int r = row0 + 8 * i;
+        if (r < m)
+          out[static_cast<size_t>(r) * n + col] =
+              acos_entry(sum[4 * j + 2 * i + c], x1[i], x2, s02);
+      }
     }
+}
+
+// K[i, j] from the partial sums ws[0..splits)[i, j], added in split order.
+__global__ void acos_gram_reduce_kernel(const float* __restrict__ ws,
+                                        int splits,
+                                        const float* __restrict__ q11,
+                                        const float* __restrict__ q22,
+                                        const float* __restrict__ sigma0,
+                                        float* __restrict__ out, int m,
+                                        int n) {
+  const size_t total = static_cast<size_t>(m) * n;
+  const size_t step = static_cast<size_t>(gridDim.x) * blockDim.x;
+  const float s0 = *sigma0;
+  const float s02 = s0 * s0;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < total; i += step) {
+    float q = ws[i];
+    for (int s = 1; s < splits; ++s) q += ws[s * total + i];
+    const size_t r = i / n;
+    const size_t c = i - r * n;
+    out[i] = acos_entry(q, sqrtf(q11[r] + s02), sqrtf(q22[c] + s02), s02);
   }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched through the CUDA runtime (no -lcuda).
+EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault) != cudaSuccess)
+      p = nullptr;
+#endif
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// Tensor map of one (rows, kp) float32 plane, 128 x 32 boxes, 128-B swizzle,
+// zero fill outside.
+bool encode_plane(EncodeTiledFn enc, CUtensorMap* map, const float* plane,
+                  int rows, int kp) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kp),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(kp) * 4};
+  const cuuint32_t box[2] = {BK, BM};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+             const_cast<float*>(plane), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int grid_for(size_t work) {
+  const size_t blocks = (work + 255) / 256;
+  return static_cast<int>(blocks < 4096 ? (blocks > 0 ? blocks : 1) : 4096);
 }
 
 }  // namespace
 
-// Plain C interface (loaded with ctypes).  Launches on `stream`, allocates
-// nothing, and returns cudaGetLastError() as an int (0 = launched).
-extern "C" int acos_gram_f32(const float* u1, const float* s2,
-                             const float* q11, const float* q22,
-                             const float* sigma0, float* out, int m, int n,
-                             int k, void* stream) {
-  const bool vec = (k % 4 == 0) &&
-                   (reinterpret_cast<uintptr_t>(u1) % 16 == 0) &&
-                   (reinterpret_cast<uintptr_t>(s2) % 16 == 0);
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  acos_gram_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      u1, s2, q11, q22, sigma0, out, m, n, k, vec);
+// Plain C interface (loaded with ctypes).  Each function launches on
+// `stream`, allocates nothing, and returns 0 when every launch was accepted,
+// else a cudaError_t (> 0) or one of this file's codes (< 0).
+
+// a (rows, k) -> dst (2, rows, kp): big plane, then small plane.
+extern "C" int tf32_split_f32(const float* a, float* dst, int rows, int k,
+                              int kp, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* big = dst;
+  float* small = dst + static_cast<size_t>(rows) * kp;
+  const size_t total = static_cast<size_t>(rows) * kp;
+  if (k == kp && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
+    tf32_split_vec_kernel<<<grid_for(total / 4), 256, 0, st>>>(
+        reinterpret_cast<const float4*>(a), reinterpret_cast<float4*>(big),
+        reinterpret_cast<float4*>(small), total / 4);
+  } else {
+    tf32_split_kernel<<<grid_for(total), 256, 0, st>>>(a, big, small, rows, k,
+                                                       kp);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
+// K (m, n) from the split operands a (2, m, kp) and b (2, n, kp).  With
+// splits > 1, ws holds (splits, m, n) floats; otherwise it is not touched.
+extern "C" int acos_gram_f32(const float* a, const float* b, const float* q11,
+                             const float* q22, const float* sigma0,
+                             float* out, float* ws, int m, int n, int kp,
+                             int splits, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int kblocks = (kp + BK - 1) / BK;
+  if (splits < 1 || splits > kblocks) return ERR_PLAN;
+  EncodeTiledFn enc = encoder();
+  if (enc == nullptr) return ERR_NO_ENCODER;
+  CUtensorMap ab, as, bb, bs;
+  if (!encode_plane(enc, &ab, a, m, kp) ||
+      !encode_plane(enc, &as, a + static_cast<size_t>(m) * kp, m, kp) ||
+      !encode_plane(enc, &bb, b, n, kp) ||
+      !encode_plane(enc, &bs, b + static_cast<size_t>(n) * kp, n, kp))
+    return ERR_TENSOR_MAP;
+  cudaError_t e = cudaFuncSetAttribute(
+      acos_gram_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, splits);
+  acos_gram_tf32x3_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
+      ab, as, bb, bs, q11, q22, sigma0, splits > 1 ? ws : out, m, n, kblocks);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  acos_gram_reduce_kernel<<<grid_for(static_cast<size_t>(m) * n), 256, 0,
+                            st>>>(ws, splits, q11, q22, sigma0, out, m, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared memory of one Gram block, in bytes.
+extern "C" int acos_gram_smem_bytes() { return SMEM_BYTES; }
+
 extern "C" const char* acos_gram_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  switch (code) {
+    case ERR_NO_ENCODER:
+      return "cuTensorMapEncodeTiled not found through the CUDA runtime";
+    case ERR_TENSOR_MAP:
+      return "cuTensorMapEncodeTiled refused an operand's tensor map";
+    case ERR_PLAN:
+      return "splits outside [1, number of 32-float blocks of k]";
+    default:
+      return cudaGetErrorString(static_cast<cudaError_t>(code));
+  }
 }

@@ -1,5 +1,5 @@
-"""The fused arc-cosine Gram kernel: wrapper, plain version and gradient
-(counterpart of ``gaussian_processes_tpu/ops/gram_pallas.py``).
+"""The fused arc-cosine Gram kernel: wrapper, work planner, plain versions
+and gradient (counterpart of ``gaussian_processes_tpu/ops/gram_pallas.py``).
 
 ``acos_gram(u1, s2, q11, q22, sigma0)`` returns
 
@@ -7,10 +7,14 @@
 
 with X1 = sqrt(q11 + s0^2), X2 = sqrt(q22 + s0^2) and
 J(c) = (sqrt(1 - c^2) + (pi - acos c) c) / pi.  On a CUDA tensor the forward
-is the hand-written kernel in ``csrc/acos_gram.cu`` (float32 only); on a CPU
-tensor it is ``acos_gram_torch``, the plain PyTorch version of the same
-function.  There is no fallback from one to the other: a CUDA tensor the
-kernel cannot take raises.
+is the hand-written kernel in ``csrc/acos_gram.cu`` (float32 only): a split
+pass writes each operand as a TF32 "big" part and a float32 remainder
+(``tf32_split``), and a TMA + wgmma kernel sums big*big + big*small +
+small*big on the tensor cores (3xTF32), over the split of k that
+``plan_gram`` picks, with the epilogue fused.  On a CPU tensor the forward is
+``acos_gram_torch``, the plain PyTorch version of the same function.  There
+is no fallback from one to the other: a CUDA tensor the kernel cannot take
+raises.
 
 The gradient is ``AcosGram.backward``: plain PyTorch on either device.  It
 recomputes ``q12 = u1 @ s2.T``, forms dK/dc with the analytic
@@ -18,14 +22,18 @@ dJ/dc = (pi - acos c) / pi (autodiff of J gives inf - inf at |c| = 1), and
 passes half the gradient where the clip is exactly at a bound, as
 ``jnp.clip`` and ``torch.maximum`` do.
 
-The kernel is built at first use with ``nvcc`` into ``build/kernels/`` at
-the repository root, keyed by a hash of the source, and loaded with
-``ctypes``.  ``launches`` counts kernel launches.
+The kernels are built at first use with ``nvcc`` into ``build/kernels/`` at
+the repository root, keyed by a hash of the source and flags, and loaded
+with ``ctypes``.  ``launches`` counts Grams computed by the kernel (one per
+``acos_gram`` call on the card, whatever helper kernels it runs);
+``split_launches`` counts launches of the split pass.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import math
 import os
@@ -34,7 +42,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -45,8 +53,21 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-# Kernel launches since import (or since the caller last reset it).
+# The kernel's tiling (csrc/acos_gram.cu): one block computes a BM x BN tile
+# of K over a range of k in blocks of BK floats, one block per SM.
+BM = BN = 128
+BK = 32
+# The planner splits k until the launched waves are this full ...
+TARGET_FILL = 0.85
+# ... but into at most MAX_SPLITS ranges of at least MIN_KBLOCKS_PER_SPLIT
+# blocks of k each.
+MAX_SPLITS = 16
+MIN_KBLOCKS_PER_SPLIT = 4
+
+# Grams computed by the kernel since import (or since the caller reset it),
+# and launches of the split pass.
 launches = 0
+split_launches = 0
 # Seconds the last build took (None until this process built or loaded it),
 # and the compiler's register/spill report of that build.
 build_seconds: Optional[float] = None
@@ -95,14 +116,120 @@ def load_library():
             if os.path.exists(tmp):
                 os.unlink(tmp)
     lib = ctypes.CDLL(str(so_path))
-    lib.acos_gram_f32.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.acos_gram_f32.restype = ctypes.c_int
-    lib.acos_gram_error_string.argtypes = [ctypes.c_int]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.tf32_split_f32.argtypes = [ptr, ptr, i32, i32, i32, ptr]
+    lib.tf32_split_f32.restype = i32
+    lib.acos_gram_f32.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+    lib.acos_gram_f32.restype = i32
+    lib.acos_gram_error_string.argtypes = [i32]
     lib.acos_gram_error_string.restype = ctypes.c_char_p
+    lib.acos_gram_smem_bytes.argtypes = []
+    lib.acos_gram_smem_bytes.restype = i32
     build_seconds = time.perf_counter() - t0
     _lib = lib
     return lib
+
+
+# ---------------------------------------------------------------------------
+# Work decomposition
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GramPlan:
+    """How the kernel covers K (m, n) over k: a grid of BM x BN tiles, each
+    computed by ``splits`` blocks over consecutive ranges of k-blocks; with
+    splits > 1 the partial sums meet in a second pass."""
+    m: int
+    n: int
+    k: int
+    sms: int
+    splits: int
+
+    @property
+    def tiles_m(self) -> int:
+        return -(-self.m // BM)
+
+    @property
+    def tiles_n(self) -> int:
+        return -(-self.n // BN)
+
+    @property
+    def kblocks(self) -> int:
+        return -(-self.k // BK)
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        """The launch grid, (tiles of n, tiles of m, splits)."""
+        return self.tiles_n, self.tiles_m, self.splits
+
+    @property
+    def units(self) -> int:
+        return self.tiles_m * self.tiles_n * self.splits
+
+    @property
+    def waves(self) -> int:
+        return -(-self.units // self.sms)
+
+    @property
+    def fill(self) -> float:
+        """Share of the launched waves' block slots that hold work."""
+        return self.units / (self.waves * self.sms)
+
+    def k_range(self, split: int) -> Tuple[int, int]:
+        """[lo, hi) of k computed by blocks with this split index (the
+        kernel's own integer formula, in whole blocks of BK)."""
+        lo = split * self.kblocks // self.splits
+        hi = (split + 1) * self.kblocks // self.splits
+        return lo * BK, min(hi * BK, self.k)
+
+    def __str__(self) -> str:
+        return (f"{self.tiles_m} x {self.tiles_n} tiles of {BM} x {BN}, k "
+                f"{self.k} in {self.splits} split(s) of "
+                f"{self.kblocks / self.splits:.1f} blocks of {BK}: "
+                f"{self.units} blocks in {self.waves} wave(s) of {self.sms} "
+                f"({self.fill:.3f} full)")
+
+
+@functools.lru_cache(maxsize=256)
+def plan_gram(m: int, n: int, k: int, sms: int = 132) -> GramPlan:
+    """The smallest split of k whose waves are at least TARGET_FILL full,
+    among splits that leave every range MIN_KBLOCKS_PER_SPLIT blocks of k
+    (at most MAX_SPLITS); where none reaches it, the fullest (the smallest
+    of equals)."""
+    if min(m, n, k, sms) < 1:
+        raise ValueError(f"plan_gram: sizes must be positive, got m={m} "
+                         f"n={n} k={k} sms={sms}")
+    kblocks = -(-k // BK)
+    most = max(1, min(MAX_SPLITS, kblocks // MIN_KBLOCKS_PER_SPLIT))
+    best = GramPlan(m, n, k, sms, 1)
+    for s in range(1, most + 1):
+        plan = GramPlan(m, n, k, sms, s)
+        if plan.fill >= TARGET_FILL:
+            return plan
+        if plan.fill > best.fill:
+            best = plan
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def acos_epilogue_torch(q12: torch.Tensor, q11: torch.Tensor,
+                        q22: torch.Tensor, sigma0: torch.Tensor
+                        ) -> torch.Tensor:
+    """K from the cross form q12 (m, n) and the norms: the kernel's
+    epilogue in plain PyTorch."""
+    s02 = sigma0 * sigma0
+    X1X2 = torch.sqrt(q11 + s02)[:, None] * torch.sqrt(q22 + s02)[None, :]
+    c = torch.clamp((q12 + s02) / (X1X2 + COSDELTA_JITTER), -1.0, 1.0)
+    s = torch.sqrt(torch.clamp(1.0 - c * c, min=0.0))
+    return X1X2 * ((s + (math.pi - torch.acos(c)) * c) / math.pi)
 
 
 def acos_gram_torch(u1: torch.Tensor, s2: torch.Tensor, q11: torch.Tensor,
@@ -110,12 +237,27 @@ def acos_gram_torch(u1: torch.Tensor, s2: torch.Tensor, q11: torch.Tensor,
     """The plain PyTorch version of the kernel: ``u1 @ s2.T`` and the same
     epilogue.  The forward reference for the kernel, and the forward of
     ``AcosGram`` on CPU tensors (not differentiated itself)."""
-    s02 = sigma0 * sigma0
-    X1X2 = torch.sqrt(q11 + s02)[:, None] * torch.sqrt(q22 + s02)[None, :]
-    c = torch.clamp((u1 @ s2.T + s02) / (X1X2 + COSDELTA_JITTER), -1.0, 1.0)
-    s = torch.sqrt(torch.clamp(1.0 - c * c, min=0.0))
-    return X1X2 * ((s + (math.pi - torch.acos(c)) * c) / math.pi)
+    return acos_epilogue_torch(u1 @ s2.T, q11, q22, sigma0)
 
+
+def tf32_split_torch(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the split pass: (big, small) with big = a
+    rounded to TF32 (10 mantissa bits; to nearest, ties away from zero, as
+    ``cvt.rna.tf32.f32``) and small = a - big, exact in float32.  NaN stays
+    NaN in both; inf gives big = inf and small = NaN."""
+    if a.dtype != torch.float32:
+        raise TypeError(f"tf32_split takes float32, got {a.dtype}")
+    bits = a.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    # add half a TF32 ulp to the magnitude bits, then drop the low 13
+    r = (bits + 0x1000) & 0xFFFFE000
+    r = torch.where(r >= 2 ** 31, r - 2 ** 32, r).to(torch.int32)
+    big = torch.where(torch.isnan(a), a, r.view(torch.float32))
+    return big, a - big
+
+
+# ---------------------------------------------------------------------------
+# Launches
+# ---------------------------------------------------------------------------
 
 def _check(u1, s2, q11, q22, sigma0):
     tensors = (u1, s2, q11, q22, sigma0)
@@ -135,26 +277,77 @@ def _check(u1, s2, q11, q22, sigma0):
     if q11.shape != (m,) or q22.shape != (n,) or sigma0.numel() != 1:
         raise ValueError("acos_gram: q11 must be (m,), q22 (n,), sigma0 one "
                          "element")
-    if min(m, n, k) < 1 or max(m, n, k) >= 2 ** 31:
+    if (min(m, n, k) < 1 or max(m, n, k) >= 2 ** 31
+            or -(-m // BM) > 65535):
         raise ValueError(f"acos_gram: unsupported sizes m={m} n={n} k={k}")
     return m, n, k
 
 
-def _launch(u1, s2, q11, q22, sigma0) -> torch.Tensor:
-    global launches
-    m, n, k = _check(u1, s2, q11, q22, sigma0)
-    lib = load_library()
-    out = torch.empty((m, n), dtype=torch.float32, device=u1.device)
-    with torch.cuda.device(u1.device):
-        stream = torch.cuda.current_stream(u1.device).cuda_stream
-        rc = lib.acos_gram_f32(u1.data_ptr(), s2.data_ptr(), q11.data_ptr(),
-                               q22.data_ptr(), sigma0.data_ptr(),
-                               out.data_ptr(), m, n, k, stream)
+def _raise_on(lib, rc: int, what: str):
     if rc != 0:
         msg = lib.acos_gram_error_string(rc).decode()
-        raise RuntimeError(f"acos_gram kernel launch failed: {msg} ({rc})")
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({rc})")
+
+
+def _split_into(lib, a: torch.Tensor, kp: int, stream: int) -> torch.Tensor:
+    """Launch the split pass on a (rows, k): returns (2, rows, kp), the big
+    plane then the small one, zero in columns [k, kp)."""
+    global split_launches
+    rows, k = a.shape
+    dst = torch.empty((2, rows, kp), dtype=torch.float32, device=a.device)
+    _raise_on(lib, lib.tf32_split_f32(a.data_ptr(), dst.data_ptr(), rows, k,
+                                      kp, stream), "tf32_split")
+    split_launches += 1
+    return dst
+
+
+def tf32_split(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) of a float32 (rows, k) matrix: on a CUDA tensor the
+    split kernel (views into its padded buffer), on a CPU tensor
+    ``tf32_split_torch``."""
+    if not a.is_cuda:
+        return tf32_split_torch(a)
+    if a.dtype != torch.float32:
+        raise TypeError(f"tf32_split kernel takes float32, got {a.dtype}")
+    if a.dim() != 2 or not a.is_contiguous():
+        raise ValueError("tf32_split kernel takes a contiguous (rows, k) "
+                         "matrix")
+    lib = load_library()
+    k = a.shape[1]
+    with torch.cuda.device(a.device):
+        buf = _split_into(lib, a, -(-k // 4) * 4,
+                          torch.cuda.current_stream(a.device).cuda_stream)
+    return buf[0, :, :k], buf[1, :, :k]
+
+
+def _run(out, ws, plan: GramPlan, u1, s2, q11, q22, sigma0) -> torch.Tensor:
+    """Split both operands and launch the Gram into ``out`` (m, n), with
+    ``ws`` (plan.splits, m, n) for the partial sums when plan.splits > 1."""
+    global launches
+    lib = load_library()
+    kp = -(-plan.k // 4) * 4
+    with torch.cuda.device(u1.device):
+        stream = torch.cuda.current_stream(u1.device).cuda_stream
+        a = _split_into(lib, u1, kp, stream)
+        b = _split_into(lib, s2, kp, stream)
+        rc = lib.acos_gram_f32(a.data_ptr(), b.data_ptr(), q11.data_ptr(),
+                               q22.data_ptr(), sigma0.data_ptr(),
+                               out.data_ptr(), ws.data_ptr(), plan.m, plan.n,
+                               kp, plan.splits, stream)
+    _raise_on(lib, rc, "acos_gram")
     launches += 1
     return out
+
+
+def _launch(u1, s2, q11, q22, sigma0) -> torch.Tensor:
+    m, n, k = _check(u1, s2, q11, q22, sigma0)
+    plan = plan_gram(m, n, k, _sm_count(u1.device))
+    out = torch.empty((m, n), dtype=torch.float32, device=u1.device)
+    ws = out
+    if plan.splits > 1:
+        ws = torch.empty((plan.splits, m, n), dtype=torch.float32,
+                         device=u1.device)
+    return _run(out, ws, plan, u1, s2, q11, q22, sigma0)
 
 
 class AcosGram(torch.autograd.Function):
