@@ -12,21 +12,28 @@ rows and V_new stays exactly zero there.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 
 def estep_update(r: torch.Tensor, a: torch.Tensor, m_b: torch.Tensor,
                  f_mean: torch.Tensor, k_tilde_b_diag: torch.Tensor,
-                 f_params: Dict[str, torch.Tensor]
+                 f_params: Dict[str, torch.Tensor],
+                 weight: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One Newton update of (m_b, V_b).  ``a`` is KKtilde_inv_b.  A failed
+    """One Newton update of (m_b, V_b).  ``a`` is KKtilde_inv_b; ``weight``
+    (0/1) masks padded training points out of the Newton sums.  A failed
     factorization (non-finite or indefinite system) returns NaN, which the
     fit's rollback catches."""
     A = torch.exp(f_params["logA"])
-    g = A * (a.T @ (r - f_mean))
-    G = A * A * (a.T @ (a * f_mean[:, None]))
+    resid = r - f_mean
+    fw = f_mean
+    if weight is not None:
+        resid = resid * weight
+        fw = fw * weight
+    g = A * (a.T @ resid)
+    G = A * A * (a.T @ (a * fw[:, None]))
     s = torch.sqrt(k_tilde_b_diag)
     eye = torch.eye(k_tilde_b_diag.shape[0], dtype=a.dtype, device=a.device)
     M = eye + s[:, None] * G * s[None, :]

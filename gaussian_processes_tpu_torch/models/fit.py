@@ -21,6 +21,12 @@ covering window gives the same Gram up to rounding.
 
 Every Gram goes through ``ops/kernels._gram_core``: on CUDA tensors through
 the fused kernel (``ops/gram_cuda``), forward and hand-written backward.
+
+Pad-and-mask (the active loop's fixed-capacity buffers): 0/1
+``sample_weight`` and ``inducing_weight`` zero the inactive rows and
+columns of the Grams and mask those points out of the E-step sums, the
+closed-form lambda0 and the expected log-likelihood, so the fit on the
+active points runs inside buffers of a fixed shape.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..config import FitConfig, use_full_fp32
-from ..ops.kernels import (crop_images, crop_window_from_scalars,
+from ..ops.kernels import (crop_images, crop_window_for_theta,
                            gram_matrices, gram_matrices_precropped,
                            gram_matrices_windowed, local_envelope)
 from ..ops.stabilize import (Eigenspace, compute_eigenspace, masked_inverse,
@@ -122,6 +128,16 @@ class FitResult:
                                     alpha_threshold=self.config.alpha_threshold)
         return mask
 
+    @property
+    def kernel_state(self) -> KernelState:
+        """The final kernels + eigenspace, reusable as ``fit(...,
+        init_kernel=)`` (the reference's ``init_kernel`` warm start,
+        utils.py:1674-1694)."""
+        es = Eigenspace(self.B, self.eigvals, self.keep, self.k_tilde_b_diag,
+                        self.k_tilde_inv_diag)
+        return KernelState(self.K_tilde, self.K, self.Kvec, es, self.K_b,
+                           self.a)
+
     def values_track(self) -> Dict[str, Any]:
         """Reference-shaped values_track dict (utils.py:1713-1727)."""
         t = self.track
@@ -140,53 +156,71 @@ class FitResult:
 # ---------------------------------------------------------------------------
 
 def _masked_grams(theta: Theta, x, xtilde, shared: bool, cfg: FitConfig,
-                  win: Window = None, backend: Optional[str] = None):
-    """(K_tilde, K, Kvec), on the crop window when one is given."""
+                  win: Window = None, backend: Optional[str] = None,
+                  wt=None, wi=None):
+    """(K_tilde, K, Kvec), on the crop window when one is given, with the
+    pad weights applied."""
     if win is not None:
-        return gram_matrices_windowed(theta, x, xtilde, cfg.n_px_side, shared,
-                                      win[0], win[1], win[2],
-                                      cfg.alpha_threshold, backend)
-    return gram_matrices(theta, x, xtilde, cfg.n_px_side, shared,
-                         cfg.alpha_threshold, backend)
+        grams = gram_matrices_windowed(theta, x, xtilde, cfg.n_px_side,
+                                       shared, win[0], win[1], win[2],
+                                       cfg.alpha_threshold, backend)
+    else:
+        grams = gram_matrices(theta, x, xtilde, cfg.n_px_side, shared,
+                              cfg.alpha_threshold, backend)
+    return _apply_pad_weights(*grams, shared, wt, wi)
+
+
+def _apply_pad_weights(K_tilde, K, Kvec, shared: bool, wt=None, wi=None):
+    """Zero the inactive inducing rows/columns of K_tilde and the inactive
+    training rows of K and Kvec: the eigh keep-mask, the E-step and the
+    moments then see only the active subproblem, at an unchanged shape."""
+    if wi is not None:
+        K_tilde = K_tilde * (wi[:, None] * wi[None, :])
+        K = K_tilde if shared else K * wi[None, :]
+    if wt is not None:
+        K = K_tilde if shared else K * wt[:, None]
+        Kvec = Kvec * wt
+    return K_tilde, K, Kvec
 
 
 def _build_kernel_state(theta: Theta, x, xtilde, shared: bool,
                         cfg: FitConfig, win: Window = None,
-                        backend: Optional[str] = None) -> KernelState:
+                        backend: Optional[str] = None,
+                        wt=None, wi=None) -> KernelState:
     K_tilde, K, Kvec = _masked_grams(theta, x, xtilde, shared, cfg, win,
-                                     backend)
+                                     backend, wt, wi)
     es = compute_eigenspace(K_tilde, cfg.eigval_tol)
     K_b = K @ es.B
     a = es.B if shared else K_b * es.k_tilde_inv_diag[None, :]
     return KernelState(K_tilde, K, Kvec, es, K_b, a)
 
 
-def _fparam_objective(logA, r, lambda_m, lambda_var):
+def _fparam_objective(logA, r, lambda_m, lambda_var, wt=None):
     """Profiled negative ELL: lambda0 at its closed-form optimum for the
     trial logA (reference: utils.py:1892-1934)."""
-    lam0 = lambda0_given_logA(logA, r, lambda_m, lambda_var)
+    lam0 = lambda0_given_logA(logA, r, lambda_m, lambda_var, weight=wt)
     f_params = {"logA": logA, "lambda0": lam0}
     f_mean = mean_f_given_lambda_moments(f_params, lambda_m, lambda_var)
-    return -poisson_ell(r, f_mean, lambda_m, f_params)
+    return -poisson_ell(r, f_mean, lambda_m, f_params, weight=wt)
 
 
 def _estep_block(r, kern: KernelState, m_b, V_b, f_params, lambda_m,
-                 lambda_var, cfg: FitConfig):
+                 lambda_var, cfg: FitConfig, wt=None):
     """n_estep Newton updates on (m_b, V_b), each followed by an L-BFGS
     update of logA with closed-form lambda0 (reference:
     utils.py:1859-1943)."""
     for _ in range(cfg.n_estep):
         f_mean = mean_f_given_lambda_moments(f_params, lambda_m, lambda_var)
         m_b, V_b = estep_update(r, kern.a, m_b, f_mean,
-                                kern.es.k_tilde_b_diag, f_params)
+                                kern.es.k_tilde_b_diag, f_params, weight=wt)
         lambda_m, lambda_var = lambda_moments(kern.a, kern.K_b, kern.Kvec,
                                               m_b, V_b)
         logA, _ = lbfgs_minimize(
             partial(_fparam_objective, r=r, lambda_m=lambda_m,
-                    lambda_var=lambda_var),
+                    lambda_var=lambda_var, wt=wt),
             f_params["logA"], cfg.n_fparamstep,
             max_linesearch_steps=cfg.max_linesearch_steps)
-        lam0 = lambda0_given_logA(logA, r, lambda_m, lambda_var)
+        lam0 = lambda0_given_logA(logA, r, lambda_m, lambda_var, weight=wt)
         f_params = {"logA": logA, "lambda0": lam0}
     return m_b, V_b, f_params, lambda_m, lambda_var
 
@@ -194,7 +228,7 @@ def _estep_block(r, kern: KernelState, m_b, V_b, f_params, lambda_m,
 def _mstep_objective(theta: Theta, x, xtilde, r, es: Eigenspace, m_b, V_b,
                      f_params, shared: bool, cfg: FitConfig, lower, upper,
                      win: Window = None, xcrop=None,
-                     backend: Optional[str] = None):
+                     backend: Optional[str] = None, wt=None, wi=None):
     """Negative log-marginal as a function of theta with the eigenspace B
     fixed (reference closure: utils.py:2017-2112).  Out-of-bounds trial
     points return +inf (utils.py:2020-2028); the loss is evaluated on the
@@ -203,12 +237,13 @@ def _mstep_objective(theta: Theta, x, xtilde, r, es: Eigenspace, m_b, V_b,
     ok = theta_in_bounds(theta, lower, upper)
     theta_c = clip_theta(theta, lower, upper)
     if xcrop is not None and win is not None:
-        K_tilde, K, Kvec = gram_matrices_precropped(
+        K_tilde, K, Kvec = _apply_pad_weights(*gram_matrices_precropped(
             theta_c, xcrop[0], xcrop[1], cfg.n_px_side, shared,
-            win[0], win[1], win[2], cfg.alpha_threshold, backend)
+            win[0], win[1], win[2], cfg.alpha_threshold, backend),
+            shared, wt, wi)
     else:
         K_tilde, K, Kvec = _masked_grams(theta_c, x, xtilde, shared, cfg,
-                                         win, backend)
+                                         win, backend, wt, wi)
     B = es.B
     K_tilde_b = B.T @ (K_tilde @ B)
     K_tilde_b = 0.5 * (K_tilde_b + K_tilde_b.T)
@@ -217,7 +252,7 @@ def _mstep_objective(theta: Theta, x, xtilde, r, es: Eigenspace, m_b, V_b,
     a = B if shared else K_b @ K_tilde_inv_b
     lambda_m, lambda_var = lambda_moments(a, K_b, Kvec, m_b, V_b)
     f_mean = mean_f_given_lambda_moments(f_params, lambda_m, lambda_var)
-    ell = poisson_ell(r, f_mean, lambda_m, f_params)
+    ell = poisson_ell(r, f_mean, lambda_m, f_params, weight=wt)
     # log|V| is constant in theta: omitted.  Cholesky-only logdet: a
     # non-PSD trial K_tilde_b gives NaN -> inf loss -> rejected step.
     kl = kl_divergence(m_b, V_b, es, K_tilde_b=K_tilde_b,
@@ -245,12 +280,16 @@ def _track_update(track: Track, i: int, ell, kl, theta, f_params,
 
 def _fit_init(x, r, xtilde, theta0: Theta, f_params0: FParams, m0, V0,
               has_V: bool, shared: bool, cfg: FitConfig, win: Window = None,
-              backend: Optional[str] = None) -> Carry:
+              backend: Optional[str] = None, wt=None, wi=None,
+              kern0: Optional[KernelState] = None) -> Carry:
     """Kernels, eigenspace, variational state and tracking
-    (reference: utils.py:1667-1791)."""
+    (reference: utils.py:1667-1791).  ``kern0`` is a precomputed
+    KernelState (the reference's ``init_kernel`` warm start,
+    utils.py:1674-1694) that skips the initial Gram + eigh."""
     dtype, device = x.dtype, x.device
     ntilde = xtilde.shape[0]
-    kern = _build_kernel_state(theta0, x, xtilde, shared, cfg, win, backend)
+    kern = kern0 if kern0 is not None else _build_kernel_state(
+        theta0, x, xtilde, shared, cfg, win, backend, wt, wi)
     es = kern.es
     m_b = es.B.T @ m0
     if has_V:
@@ -265,7 +304,7 @@ def _fit_init(x, r, xtilde, theta0: Theta, f_params0: FParams, m0, V0,
     lambda_m, lambda_var = lambda_moments(kern.a, kern.K_b, kern.Kvec,
                                           m_b, V_b)
     f_mean = mean_f_given_lambda_moments(f_params0, lambda_m, lambda_var)
-    ell0 = poisson_ell(r, f_mean, lambda_m, f_params0)
+    ell0 = poisson_ell(r, f_mean, lambda_m, f_params0, weight=wt)
     kl0 = kl_divergence(m_b, V_b, es, logdet_V=ld_V0)
 
     maxiter = cfg.maxiter
@@ -288,7 +327,7 @@ def _fit_init(x, r, xtilde, theta0: Theta, f_params0: FParams, m0, V0,
 def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
                    cfg: FitConfig, bounds, win: Window = None,
                    do_mstep: bool = True,
-                   backend: Optional[str] = None) -> Carry:
+                   backend: Optional[str] = None, wt=None, wi=None) -> Carry:
     """One EM iteration (reference loop body: utils.py:1794-2125); a no-op
     once the fit has failed."""
     if c.failed:
@@ -301,23 +340,24 @@ def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
     # (utils.py:1801-1841).
     if cfg.n_mstep > 0:
         kern_new = _build_kernel_state(theta, x, xtilde, shared, cfg, win,
-                                       backend)
+                                       backend, wt, wi)
         m_b, V_b = reproject(kern_new.es, kern.es, m_b, V_b)
         kern = kern_new
 
     # moments + closed-form lambda0 at iteration start (utils.py:1870-1874)
     lambda_m, lambda_var = lambda_moments(kern.a, kern.K_b, kern.Kvec,
                                           m_b, V_b)
-    lam0 = lambda0_given_logA(f_params["logA"], r, lambda_m, lambda_var)
+    lam0 = lambda0_given_logA(f_params["logA"], r, lambda_m, lambda_var,
+                              weight=wt)
     f_params = {"logA": f_params["logA"], "lambda0": lam0}
 
     if cfg.n_estep > 0:
         m_b, V_b, f_params, lambda_m, lambda_var = _estep_block(
-            r, kern, m_b, V_b, f_params, lambda_m, lambda_var, cfg)
+            r, kern, m_b, V_b, f_params, lambda_m, lambda_var, cfg, wt)
 
     # loss decomposition (utils.py:1953-1991)
     f_mean = mean_f_given_lambda_moments(f_params, lambda_m, lambda_var)
-    ell = poisson_ell(r, f_mean, lambda_m, f_params)
+    ell = poisson_ell(r, f_mean, lambda_m, f_params, weight=wt)
     kl = kl_divergence(m_b, V_b, kern.es)
     theta_start = theta
 
@@ -334,7 +374,7 @@ def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
         obj = partial(_mstep_objective, x=x, xtilde=xtilde, r=r, es=kern.es,
                       m_b=m_b, V_b=V_b, f_params=f_params, shared=shared,
                       cfg=cfg, lower=lower, upper=upper, win=win, xcrop=xcrop,
-                      backend=backend)
+                      backend=backend, wt=wt, wi=wi)
         theta, _ = lbfgs_minimize(obj, theta, cfg.n_mstep,
                                   max_linesearch_steps=cfg.max_linesearch_steps)
 
@@ -377,6 +417,9 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
         f_params: Optional[Dict[str, Any]] = None,
         m: Optional[torch.Tensor] = None,
         V: Optional[torch.Tensor] = None,
+        sample_weight: Optional[torch.Tensor] = None,
+        inducing_weight: Optional[torch.Tensor] = None,
+        init_kernel: Optional[KernelState] = None,
         generator: Optional[torch.Generator] = None,
         backend: Optional[str] = None,
         profile: bool = False) -> FitResult:
@@ -386,9 +429,18 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
     device and in x's dtype.  ``xtilde``/``theta``/``f_params``/``m``/``V``
     are the reference's warm starts (utils.py:1651-1704).  Without
     ``xtilde`` the inducing rows are a permutation drawn from ``generator``
-    (a CPU ``torch.Generator``).  ``backend`` ("cuda" or "torch") overrides
-    the Gram backend chosen from the device.  ``profile`` records host
-    wall-clock per iteration (after a device synchronize) in ``timing``.
+    (a CPU ``torch.Generator``).
+
+    ``sample_weight`` (nt,) / ``inducing_weight`` (ntilde,) are 0/1 masks
+    for the active loop's fixed-capacity buffers: masked points are
+    excluded from the fit exactly (with a shared inducing set one mask
+    serves both).  ``init_kernel`` is a precomputed KernelState (e.g.
+    ``prev.kernel_state`` at the same theta and xtilde) that skips the
+    initial Gram + eigh.
+
+    ``backend`` ("cuda" or "torch") overrides the Gram backend chosen from
+    the device.  ``profile`` records host wall-clock per iteration (after a
+    device synchronize) in ``timing``.
     """
     cfg = cfg or FitConfig()
     dtype, device = x.dtype, x.device
@@ -428,14 +480,20 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
     m0 = (torch.zeros(n, dtype=dtype, device=device) if m is None
           else m.to(dtype=dtype, device=device))
     V0 = V.to(dtype=dtype, device=device) if has_V else None
+    wt = (None if sample_weight is None
+          else sample_weight.to(dtype=dtype, device=device))
+    wi = (None if inducing_weight is None
+          else inducing_weight.to(dtype=dtype, device=device))
+    if shared and (wt is not None or wi is not None):
+        # one buffer, one mask
+        wt = wt if wt is not None else wi
+        wi = wi if wi is not None else wt
 
     def window(th: Theta) -> Window:
         if not cfg.crop_window:
             return None
-        lb, ex, ey = torch.stack([th["-2log2beta"], th["eps_0x"],
-                                  th["eps_0y"]]).tolist()
-        i0, j0, w = crop_window_from_scalars(
-            lb, ex, ey, cfg.n_px_side, cfg.alpha_threshold, cfg.crop_margin,
+        i0, j0, w = crop_window_for_theta(
+            th, cfg.n_px_side, cfg.alpha_threshold, cfg.crop_margin,
             cfg.crop_bucket)
         return None if w >= cfg.n_px_side else (i0, j0, w)
 
@@ -443,10 +501,8 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
         """The window still covers the margin-1.0 alpha mask of th."""
         if win is None:
             return True
-        fi0, fj0, fw = crop_window_from_scalars(
-            *torch.stack([th["-2log2beta"], th["eps_0x"],
-                          th["eps_0y"]]).tolist(),
-            cfg.n_px_side, cfg.alpha_threshold, 1.0, 1)
+        fi0, fj0, fw = crop_window_for_theta(th, cfg.n_px_side,
+                                             cfg.alpha_threshold, 1.0, 1)
         i0, j0, w = win
         return (fi0 >= i0 and fj0 >= j0
                 and fi0 + fw <= i0 + w and fj0 + fw <= j0 + w)
@@ -461,7 +517,7 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
     with torch.no_grad():
         t0 = clock() if profile else 0.0
         carry = _fit_init(x, r, xtilde, theta0, fp0, m0, V0, has_V, shared,
-                          cfg, window(theta0), backend)
+                          cfg, window(theta0), backend, wt, wi, init_kernel)
         if profile:
             timing["init"] = clock() - t0
         for i in range(1, cfg.maxiter):
@@ -469,7 +525,7 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
             win = window(carry.theta)
             carry = _fit_iteration(i, carry, x, r, xtilde, shared, cfg,
                                    bounds, win, do_mstep=(i < cfg.maxiter - 1),
-                                   backend=backend)
+                                   backend=backend, wt=wt, wi=wi)
             if profile:
                 timing["per_iteration"].append(clock() - ti)
             if not carry.failed and not covers(win, carry.theta):
@@ -487,7 +543,10 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
                     "the RF alpha mask of the resulting theta; re-running "
                     f"the fit with {how}")
                 return fit(x, r, grown, xtilde=xtilde, theta=theta,
-                           f_params=f_params, m=m, V=V, backend=backend,
+                           f_params=f_params, m=m, V=V,
+                           sample_weight=sample_weight,
+                           inducing_weight=inducing_weight,
+                           init_kernel=init_kernel, backend=backend,
                            profile=profile)
         carry = _fit_finalize(carry, cfg)
         if profile:

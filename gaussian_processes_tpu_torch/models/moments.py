@@ -36,20 +36,29 @@ def mean_f_given_lambda_moments(f_params: FParams, lambda_m: torch.Tensor,
 
 
 def lambda0_given_logA(logA: torch.Tensor, r: torch.Tensor,
-                       lambda_m: torch.Tensor,
-                       lambda_var: torch.Tensor) -> torch.Tensor:
+                       lambda_m: torch.Tensor, lambda_var: torch.Tensor,
+                       weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Closed-form optimal lambda0 = log sum(r) - logsumexp(A lam_m +
-    0.5 A^2 lam_var) (reference: utils.py:1215-1229)."""
+    0.5 A^2 lam_var) (reference: utils.py:1215-1229).  ``weight`` (0/1)
+    masks padded training points out of both sums."""
     A = torch.exp(logA)
     z = A * lambda_m + 0.5 * A * A * lambda_var
+    if weight is not None:
+        z = torch.where(weight > 0, z, float("-inf"))
+        r = r * weight
     return torch.log(torch.sum(r)) - torch.logsumexp(z, dim=0)
 
 
 def poisson_ell(r: torch.Tensor, f_mean: torch.Tensor, lambda_m: torch.Tensor,
-                f_params: FParams) -> torch.Tensor:
+                f_params: FParams,
+                weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Expected Poisson log-likelihood A r^T lambda_m + lambda0 sum(r) -
-    sum(f) (reference: utils.py:1231-1243; log r! dropped there too)."""
+    sum(f) (reference: utils.py:1231-1243; log r! dropped there too).
+    ``weight`` (0/1) masks padded training points."""
     A = torch.exp(f_params["logA"])
+    if weight is not None:
+        r = r * weight
+        f_mean = f_mean * weight
     return (A * torch.dot(r, lambda_m) + f_params["lambda0"] * torch.sum(r)
             - torch.sum(f_mean))
 

@@ -141,6 +141,17 @@ def crop_window_from_scalars(lb: float, eps_x: float, eps_y: float,
     return i0, j0, w
 
 
+def crop_window_for_theta(theta: Theta, n_px_side: int,
+                          alpha_threshold: float = ALPHA_THRESHOLD,
+                          margin: float = 1.25, bucket: int = 16):
+    """``crop_window_from_scalars`` at theta's tensors: one host transfer of
+    the three scalars it needs."""
+    lb, ex, ey = torch.stack([theta["-2log2beta"], theta["eps_0x"],
+                              theta["eps_0y"]]).tolist()
+    return crop_window_from_scalars(lb, ex, ey, n_px_side, alpha_threshold,
+                                    margin, bucket)
+
+
 def crop_images(x: torch.Tensor, i0: int, j0: int, w: int,
                 n_px_side: int) -> torch.Tensor:
     """Crop flattened images (nt, n^2) to the (w, w) window -> (nt, w^2),

@@ -144,3 +144,18 @@ def masked_inverse(M: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
     inv, info = torch.linalg.inv_ex(_pad_dropped(M, keep))
     inv = inv + _poison(info == 0, M.dtype)
     return inv * keepf[:, None] * keepf[None, :]
+
+
+def block_matrix_inverse(orig_inv: torch.Tensor,
+                         new_column: torch.Tensor) -> torch.Tensor:
+    """Inverse of the (N+1, N+1) matrix [[K, b], [b^T, d]] from inv(K) and
+    new_column = [b; d] by the block (Sherman-Morrison) update: the
+    reference's rank-1 growth of K_tilde (utils.py:1055-1070)."""
+    b = new_column[:-1]
+    d = new_column[-1]
+    e = orig_inv @ b
+    g = 1.0 / (d - b @ e)
+    top = torch.cat([orig_inv + g * torch.outer(e, e), (-g * e)[:, None]],
+                    dim=1)
+    bottom = torch.cat([-g * e, g[None]])[None, :]
+    return torch.cat([top, bottom], dim=0)

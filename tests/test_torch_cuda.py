@@ -160,3 +160,99 @@ def test_nothing_written_outside_out(dev, m, n, k):
     assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-5
     if plan.splits == 1:
         assert bool((ws == sentinel).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(3160, 258, 6400), (258, 258, 6400),
+                                   (3160, 258, 11664), (30, 258, 11664)])
+def test_kernel_at_the_active_loops_shapes(dev, m, n, k):
+    """The pool's K* and the refit's K_tilde at the 258-point capacity
+    buffer, whose last 8 rows are padding (zero): those rows come out
+    finite, and the whole Gram agrees with the plain version."""
+    u1, s2, q11, q22, s0 = _operands(dev, m, n, k, 7)
+    s2[-8:] = 0.0
+    q22[-8:] = 0.0
+    if m == n:
+        u1, q11 = s2, q22
+    K = gram_cuda.acos_gram(u1, s2, q11, q22, s0)
+    ref = gram_cuda.acos_gram_torch(u1, s2, q11, q22, s0)
+    assert bool(torch.isfinite(K).all())
+    assert float((K - ref).abs().max() / ref.abs().max()) <= 1e-5
+    if m == n:
+        d = ref.diagonal()
+        assert float(((K.diagonal() - d).abs() / d.abs()).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_lambertw_float32_on_card_matches_float64(dev):
+    from gaussian_processes_tpu_torch.ops.lambertw import lambertw
+    z = torch.cat([torch.zeros(1, dtype=torch.float64),
+                   torch.logspace(-12, -1, 40, dtype=torch.float64),
+                   torch.linspace(0.0, 5.0, 101, dtype=torch.float64),
+                   torch.logspace(1, 37, 120, dtype=torch.float64)])
+    want = lambertw(z)
+    got = lambertw(z.float().to(dev)).cpu().double()
+    assert bool(torch.isfinite(got).all())
+    err = (got - want).abs() / want.abs().clamp(min=1e-30)
+    assert float(err[want > 0].max()) <= 1e-6
+    assert float(got[0]) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,pick", [("nan", 777), ("tie", 900)])
+def test_select_and_grow_issues_no_host_sync(dev, case, pick):
+    """The pipelined loop's pick, growth and warm start run with CUDA's
+    sync debugging set to raise on any host synchronization.  The pick is
+    the first NaN among the unused rows (a NaN counts as the maximum; the
+    NaN at row 5 lies in the used start set), or the first of two tied
+    maxima."""
+    from gaussian_processes_tpu_torch.models.active import _select_and_grow
+    gen = torch.Generator().manual_seed(3)
+    npool, cap, nx = 3160, 258, 64
+    u = torch.rand(npool, generator=gen).to(dev)
+    u[5] = float("nan")       # used: masked out
+    if case == "nan":
+        u[777] = float("nan")
+        u[1500] = float("nan")
+    else:
+        u[1200] = 2.0
+    u[900] = 2.0
+    used = torch.zeros(npool, dtype=torch.bool, device=dev)
+    used[:250] = True
+    X_pool = torch.randn(npool, nx, generator=gen).to(dev)
+    R_pool = torch.rand(npool, generator=gen).to(dev)
+    x_buf = torch.zeros(cap, nx, device=dev)
+    r_buf = torch.zeros(cap, device=dev)
+    B = torch.randn(cap, cap, generator=gen).to(dev)
+    m_b = torch.randn(cap, generator=gen).to(dev)
+    V_b = torch.eye(cap, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = _select_and_grow(u, X_pool, R_pool, x_buf, r_buf, used, B, m_b,
+                               V_b, 250)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    x_buf, r_buf, used, m_o, V_o, best, ubest = out
+    assert best.is_cuda and best.dim() == 0
+    assert int(best) == pick
+    assert bool(torch.isnan(ubest)) == (case == "nan")
+    assert bool(used[pick]) and int(used.sum()) == 251
+    assert torch.equal(x_buf[250], X_pool[pick])
+    assert float(V_o[250, 250]) == 1.0
+
+
+@pytest.mark.cuda
+def test_argmax_on_card_matches_numpy(dev):
+    """The pipelined loop's pick is torch.argmax on the card: np.argmax's
+    rule (the first maximum; the first NaN wins) at the pool's length, with
+    NaN and ties at several places."""
+    import numpy as np
+    rng = np.random.default_rng(11)
+    for nans, ties in (((), ()), ((3,), ()), ((2000, 40), ()),
+                       ((3159,), ()), ((), (17, 3000)), ((1500,), (10,))):
+        u = rng.random(3160).astype(np.float32)
+        u[list(ties)] = 5.0
+        u[list(nans)] = np.nan
+        got = torch.argmax(torch.as_tensor(u, device=dev))
+        assert got.is_cuda and int(got) == int(np.argmax(u))

@@ -26,9 +26,10 @@ def _modules():
 def test_every_module_is_listed():
     names = _modules()
     for expected in ("config", "params", "data", "convert", "ops.kernels",
-                     "ops.gram_cuda", "ops.stabilize", "models.moments",
-                     "models.estep", "models.fit", "models.inference",
-                     "optim.lbfgs"):
+                     "ops.gram_cuda", "ops.stabilize", "ops.lambertw",
+                     "models.moments", "models.estep", "models.fit",
+                     "models.inference", "models.acquisition",
+                     "models.active", "optim.lbfgs"):
         assert f"gaussian_processes_tpu_torch.{expected}" in names
 
 
