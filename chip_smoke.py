@@ -46,6 +46,41 @@ Phases (none catches its own failure; any failure exits non-zero):
    Then the scorer on (a)'s round-0 fit through the kernel against the
    plain Gram (backend="torch") on the card.
 
+7. The batched kernel at the population's shapes: one chunk of (cell,
+   line-search trial) items of the M-step's ladder (as many as
+   ``parallel/population.ladder_items`` gives the card's memory, at most
+   16 cells x 6 trials), K_tilde 512 x 512 and K 3160 x 512 at contraction
+   11664 (the full frame), one launch each, against the plain batched
+   version (max relative error <= 1e-5, the same on every item's K_tilde
+   diagonal) and each item against the 2-D kernel call on its operands;
+   ``out=`` writes a row block and nothing around it.  Plan, CUDA-event
+   medians of kernel, plain and the cuBLAS product alone.
+8. Population at full width: benchmarks/bench_population.py's data and
+   shape (nt 3160 images of 108 x 108 px, 16 cells with receptive fields
+   of sigma 0.1 at centres uniform in +-0.3, ntilde 512 drawn by a numpy
+   permutation, 6 EM iterations of 10/10/10 steps).  ``fit_population``
+   through the kernel, launch counts reset before and read after; every
+   lane finite and not failed; lanes 0 and 1 against the single-cell
+   ``fit`` with the Armijo search on the full frame, and the whole
+   population against the same population through the plain Gram, each
+   log-marginal within 1e-3 relative at every iteration; then
+   ``fit_cells_sequential`` on 2 cells with the zoom search.  Seconds per
+   cell of both routes beside their final log-marginals, and the stream
+   synchronizations of one population EM iteration (torch.profiler).  Then
+   the bench's 41-cell recording in one population (3 EM iterations):
+   every lane finite and not failed, and the peak device memory of both
+   populations, which the chunks of Grams keep from growing with the
+   cells.
+9. The large-ntilde path: benchmarks/bench_large_ntilde.py's shape (n =
+   50,000 images of 48 x 48 px, its theta, jitter 1.0).  ``large_gram``
+   (row blocks of 8192 through the kernel's ``out=``) with 3 sampled row
+   blocks against the plain version (<= 1e-5), ``large_cholesky``, each
+   timed by CUDA events closed by a value readback; then
+   ``large_posterior_mean`` with y and 8 test images from the seed, its
+   residual ||(K + I) alpha - y|| / ||y|| accumulated by row blocks in
+   float64 (bound LARGE_RESIDUAL) and its normwise backward error
+   (bound LARGE_BACKWARD).
+
 The last two lines of standard output are one JSON object with the kernel
 table and one with the device.
 """
@@ -75,6 +110,31 @@ TIE_RTOL = 1e-5        # two picks whose utilities agree this well tie
 GRAD_RTOL = 1e-3       # float32 gradients, two summation orders
 REFERENCE_RTOL = 1e-3  # float32 fit on the card vs float64 fit on the CPU
 PTXAS_KEYS = ("entry function", "registers", "spill", "smem")
+# the population (benchmarks/bench_population.py:33-37, 53-73)
+POP_NTILDE, POP_CELLS, POP_TRIALS = 512, 16, 6
+POP_STEPS = dict(maxiter=6, n_estep=10, n_mstep=10, n_fparamstep=10)
+POP_THETA = {"sigma_0": 1.0, "eps_0x": 1e-4, "eps_0y": 1e-4,
+             "-2log2beta": -2 * math.log(0.2), "-log2rho2": -math.log(0.02),
+             "Amp": 1.0}
+POP_RTOL = 1e-3        # float32 lanes: batched vs single-cell, kernel vs plain
+POP_SEQ_CELLS = 2
+# the lab's recording (benchmarks/bench_population.py:3-5, 57-59): its 41
+# cells in one population, depth cut to 3 EM iterations
+POP_RECORDING_CELLS, POP_RECORDING_ITERS = 41, 3
+# the large-ntilde path (benchmarks/bench_large_ntilde.py:33, 52-60, 79)
+LARGE_N, LARGE_PX, LARGE_NB, LARGE_JITTER = 50_000, 48, 8192, 1.0
+LARGE_THETA = {"sigma_0": 1.0, "eps_0x": 0.0, "eps_0y": 0.0,
+               "-2log2beta": -2 * math.log(2 * 0.25),
+               "-log2rho2": -math.log(2 * 0.1 ** 2), "Amp": 1.0}
+# ||(K + I) alpha - y|| / ||y|| of the float32 factor and solves: 3.4e-3 on
+# the first card run (K's entries average ~70, so lambda_max ~ 3e6 against
+# lambda_min >= 1); the bound is 3x that.  The normwise backward error,
+# ||r|| / (||K + I||_F ||alpha|| + ||y||), was 4.9e-9: a backward-stable
+# float32 solve stays within a few float32 epsilons (1.2e-7), bound 1e-6.
+LARGE_RESIDUAL = 1e-2
+LARGE_BACKWARD = 1e-6
+# peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds' rates
+TF32_FLOPS, HBM_BYTES = 495e12, 3.35e12
 
 
 def bench_data(np, seed=0):
@@ -107,6 +167,517 @@ def cuda_ms(torch, fn, reps=20, warmup=3):
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def gram_bound(batch, m, n, k):
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for a Gram -- the three TF32 products (2 m n k FLOPs each, per item) at
+    the dense TF32 peak, or reading u1, s2, q11, q22, sigma0 once and
+    writing K once (float32) at the HBM rate, whichever is larger."""
+    ops_ms = 3 * 2 * batch * m * n * k / TF32_FLOPS * 1e3
+    bytes_ms = 4 * batch * (m * k + n * k + m + n + 1 + m * n) / HBM_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                             "bytes")
+
+
+def split_bound(rows, k):
+    """The split pass: read a (rows, k) float32 operand once, write its two
+    planes once (bytes-bound: one subtraction and one rounding a float)."""
+    return 4 * rows * k * 3 / HBM_BYTES * 1e3, "bytes"
+
+
+def reset_counts(gram_cuda):
+    gram_cuda.launches = gram_cuda.batched_launches = 0
+    gram_cuda.items = gram_cuda.split_launches = 0
+    gram_cuda.shape_launches.clear()
+
+
+def read_counts(gram_cuda):
+    """Launches of the 2-D Gram, of the batched Gram, the Grams (items) the
+    batched launches computed, launches of the split pass, and the Gram's
+    launches by (batch, m, n, k)."""
+    return {"gram": gram_cuda.launches - gram_cuda.batched_launches,
+            "batched": gram_cuda.batched_launches, "items": gram_cuda.items,
+            "split": gram_cuda.split_launches,
+            "shapes": dict(gram_cuda.shape_launches)}
+
+
+def add_counts(total, counts):
+    for key, v in counts.items():
+        if key == "shapes":
+            shapes = total.setdefault(key, {})
+            for shape, c in v.items():
+                shapes[shape] = shapes.get(shape, 0) + c
+        else:
+            total[key] = total.get(key, 0) + v
+
+
+def recorded_operands(torch, gram_cuda, build):
+    """The (u1, s2, q11, q22, sigma0) of every Gram that ``build()`` hands
+    the kernel wrapper, in call order."""
+    calls = []
+    real = gram_cuda.acos_gram
+
+    def record(*args):
+        calls.append([a.detach() for a in args])
+        return real(*args)
+
+    gram_cuda.acos_gram = record
+    try:
+        with torch.no_grad():
+            build()
+    finally:
+        gram_cuda.acos_gram = real
+    return calls
+
+
+def syncs_by_op(prof):
+    """Host-synchronizing CUDA runtime calls in a torch.profiler run, by the
+    call and the ATen op under which it ran."""
+    out = {}
+    for e in prof.events():
+        if "Synchronize" in e.name:
+            op = e.cpu_parent
+            while op is not None and op.cpu_parent is not None and not (
+                    op.name.startswith("aten::linalg")):
+                op = op.cpu_parent
+            key = f"{e.name} <- {op.name if op is not None else '(top)'}"
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def population_data(np):
+    """benchmarks/bench_population.py's stimuli, the 41 cells' responses
+    of its recording and ntilde rows (a numpy permutation: no stream
+    reproduces jax.random.permutation)."""
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((NT, N_PX * N_PX)).astype(np.float32)
+    lin = np.linspace(-1, 1, N_PX)
+    yy, xx = np.meshgrid(lin, lin, indexing="ij")
+    R = np.zeros((POP_RECORDING_CELLS, NT), np.float32)
+    for c in range(POP_RECORDING_CELLS):
+        cx, cy = rng.uniform(-0.3, 0.3, 2)
+        w = np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * 0.1 ** 2)).ravel()
+        w /= np.linalg.norm(w)
+        R[c] = rng.poisson(np.exp(0.8 * X @ w))
+    idx = np.random.default_rng(0).permutation(NT)[:POP_NTILDE]
+    return X, R, idx
+
+
+def phase7_batched(torch, np, device, smi, x, xtilde):
+    """The batched kernel at the population ladder's shapes (see the module
+    docstring); returns K's (max_abs, ms, plain_ms, batch) for the JSON."""
+    from gaussian_processes_tpu_torch.ops import gram_cuda
+    from gaussian_processes_tpu_torch.ops.kernels import gram_matrices
+    from gaussian_processes_tpu_torch.parallel.population import ladder_items
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    k = N_PX * N_PX
+    batch = min(POP_CELLS * POP_TRIALS,
+                ladder_items(NT, POP_NTILDE, k, device))
+    # each item a ladder trial: the start theta moved by step 0.5**t along
+    # a seeded direction
+    rng = np.random.default_rng(7)
+    dirs = rng.standard_normal((batch, len(POP_THETA))) * 0.05
+    steps = 0.5 ** (np.arange(batch) % POP_TRIALS)
+    theta = {key: torch.tensor(v + steps * dirs[:, i], dtype=torch.float32,
+                               device=device)
+             for i, (key, v) in enumerate(POP_THETA.items())}
+    calls = recorded_operands(torch, gram_cuda, lambda: gram_matrices(
+        theta, x, xtilde, N_PX, shared=False))
+    print(f"batched kernel: {batch} (cell, trial) items in one chunk "
+          f"(ladder_items on this card)")
+    out = {}
+    for name, ops in zip(("K_tilde", "K"), calls):
+        b, m, kk = ops[0].shape
+        n = ops[1].shape[1]
+        plan = gram_cuda.plan_gram(m, n, kk, sms, b)
+        with torch.no_grad():
+            K_kernel = gram_cuda.acos_gram(*ops)
+            K_plain = gram_cuda.acos_gram_torch(*ops)
+            torch.cuda.synchronize()
+            max_abs = float(torch.max(torch.abs(K_kernel - K_plain)))
+            rel = max_abs / float(torch.max(torch.abs(K_plain)))
+            ms = cuda_ms(torch, lambda: gram_cuda.acos_gram(*ops), reps=10)
+            plain_ms = cuda_ms(torch, lambda: gram_cuda.acos_gram_torch(*ops),
+                               reps=10)
+            lib_ms = cuda_ms(torch, lambda: torch.matmul(ops[0],
+                                                         ops[1].mT), reps=10)
+        bound_ms, bound_by = gram_bound(b, m, n, kk)
+        print(f"batched kernel {name} {b} x {m}x{n} k={kk}: max|dK|/max|K| = "
+              f"{rel:.3e} (max|dK| {max_abs:.3e}), kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, cuBLAS FP32 product alone {lib_ms:.3f} ms,"
+              f" bound {bound_ms:.3f} ms ({bound_by})  [{smi}]")
+        print(f"  plan: {plan}")
+        if not (bool(torch.all(torch.isfinite(K_kernel)))
+                and rel <= KERNEL_RTOL):
+            raise RuntimeError(f"batched kernel disagrees with its plain "
+                               f"version at {name}: {rel:.3e}")
+        if name == "K_tilde":
+            d_plain = K_plain.diagonal(dim1=-2, dim2=-1)
+            diag = float(torch.max(torch.abs(K_kernel.diagonal(
+                dim1=-2, dim2=-1) - d_plain) / torch.abs(d_plain)))
+            print(f"  every item's K_tilde diagonal: max relative error "
+                  f"{diag:.3e}")
+            if not diag <= KERNEL_RTOL:
+                raise RuntimeError(f"a batched K_tilde diagonal disagrees: "
+                                   f"{diag:.3e}")
+        # each item against the 2-D kernel on its operands
+        one_plan = gram_cuda.plan_gram(m, n, kk, sms)
+        worst, equal = 0.0, 0
+        with torch.no_grad():
+            for i in range(b):
+                K_one = gram_cuda.acos_gram(*(t[i] for t in ops))
+                worst = max(worst, float(torch.max(torch.abs(
+                    K_one - K_kernel[i])) / torch.max(torch.abs(K_one))))
+                equal += bool(torch.equal(K_one, K_kernel[i]))
+        print(f"  items vs the 2-D kernel call: {equal} of {b} bit for bit "
+              f"(2-D plan: {one_plan.splits} split(s), batched "
+              f"{plan.splits}), max relative difference {worst:.3e}")
+        if not worst <= KERNEL_RTOL or (one_plan.splits == plan.splits
+                                         and equal != b):
+            raise RuntimeError(f"batched {name} disagrees with its items' "
+                               f"2-D calls")
+        out[name] = (max_abs, ms, plain_ms, lib_ms, bound_ms, bound_by, b)
+    # out=: item 0's K written as rows 128..128+m of a larger buffer
+    ops = [t[0] for t in calls[1]]
+    m, n = ops[0].shape[0], ops[1].shape[0]
+    sentinel = -12345.0
+    buf = torch.full((m + 256, n), sentinel, device=device)
+    with torch.no_grad():
+        gram_cuda.acos_gram(*ops, out=buf[128:128 + m])
+        K_one = gram_cuda.acos_gram(*ops)
+    torch.cuda.synchronize()
+    untouched = bool((buf[:128] == sentinel).all()
+                     and (buf[128 + m:] == sentinel).all())
+    same = bool(torch.equal(buf[128:128 + m], K_one))
+    print(f"out= row block {m}x{n} inside a ({m + 256}, {n}) buffer: rows "
+          f"outside untouched {untouched}, block equal to the 2-D call "
+          f"{same}")
+    if not (untouched and same):
+        raise RuntimeError("acos_gram(out=) wrote outside its rows or "
+                           "differs from the 2-D call")
+    return out
+
+
+def phase8_population(torch, np, device, smi, totals):
+    """The population at full width (see the module docstring); adds the
+    counted paths' launches to ``totals``."""
+    from gaussian_processes_tpu_torch.config import FitConfig
+    from gaussian_processes_tpu_torch.models import fit as F
+    from gaussian_processes_tpu_torch.ops import gram_cuda
+    from gaussian_processes_tpu_torch.ops.kernels import crop_window_for_theta
+    from gaussian_processes_tpu_torch.params import theta_bounds
+    from gaussian_processes_tpu_torch.parallel import population as P
+
+    X, R, idx = population_data(np)
+    x = torch.as_tensor(X, device=device)
+    r_all = torch.as_tensor(R, device=device)
+    r = r_all[:POP_CELLS]
+    xtilde = x[torch.as_tensor(idx, device=device)]
+    cfg = FitConfig(ntilde=POP_NTILDE, n_px_side=N_PX,
+                    track_variational=False, **POP_STEPS)
+    th0 = {k: torch.tensor(v, device=device) for k, v in POP_THETA.items()}
+    win = crop_window_for_theta(th0, N_PX, cfg.alpha_threshold,
+                                cfg.crop_margin * 1.5, cfg.crop_bucket)
+    print(f"population: {POP_CELLS} cells, nt {NT}, ntilde {POP_NTILDE}, "
+          f"{cfg.maxiter} EM iterations of {cfg.n_estep}/{cfg.n_mstep}/"
+          f"{cfg.n_fparamstep}; window at margin {cfg.crop_margin * 1.5} "
+          f"(i0, j0, w) = {win}")
+    if win[2] < N_PX:
+        raise RuntimeError("the population window is not the full frame: "
+                           "the single-cell comparison below assumes it")
+    out = phase7_batched(torch, np, device, smi, x, xtilde)
+
+    def population(rs, pcfg, **kw):
+        """fit_population's carry, seconds and peak device memory above
+        what was allocated before it (GiB)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        t0 = time.perf_counter()
+        c, _ = P.fit_population(x, rs, pcfg, xtilde=xtilde, thetas=POP_THETA,
+                                f_params=F_PARAMS0, **kw)
+        torch.cuda.synchronize()
+        return (c, time.perf_counter() - t0,
+                (torch.cuda.max_memory_allocated(device) - base) / 2 ** 30)
+
+    chunk = P.ladder_items(NT, POP_NTILDE, N_PX * N_PX, device)
+    reset_counts(gram_cuda)
+    carry, pop_s, pop_gib = population(r, cfg)
+    counts = read_counts(gram_cuda)
+    add_counts(totals, counts)
+    lm = carry.track.logmarginal.double().cpu().numpy()
+    print(f"fit_population (kernel): {pop_s:.3f} s, {pop_s / POP_CELLS:.3f} "
+          f"s/cell; final log-marginal of cells 0-1 {lm[:2, -1].tolist()}, "
+          f"mean over the {POP_CELLS} cells {lm[:, -1].mean():.4f}; peak "
+          f"device memory {pop_gib:.2f} GiB (chunks of Grams: {chunk} items,"
+          f" the gradient call {chunk // F.GRAD_CHUNK_DIVISOR})  [{smi}]")
+    print(f"  Gram launches: batched {counts['batched']} ({counts['items']} "
+          f"items), 2-D {counts['gram']}; split-pass launches "
+          f"{counts['split']}")
+    print(f"  log-marginal, first and last iteration per cell: "
+          f"{[(round(a, 3), round(b, 3)) for a, b in lm[:, [0, -1]]]}")
+    finite = (np.all(np.isfinite(lm))
+              and bool(torch.isfinite(carry.m_b).all())
+              and all(bool(torch.isfinite(v).all())
+                      for v in carry.theta.values()))
+    checks = {"every lane finite": finite,
+              "no lane failed": not bool(carry.failed.any()),
+              "every lane's log-marginal improved": bool(np.all(
+                  lm[:, -1] > lm[:, 0])),
+              "batched kernel launched": counts["batched"] > 0}
+
+    # lanes 0 and 1 against the single-cell fit with the Armijo search
+    one = dataclasses.replace(cfg, linesearch="armijo", crop_window=False)
+    lane_err = 0.0
+    for c in range(2):
+        res = F.fit(x, r[c], one, xtilde=xtilde, theta=POP_THETA,
+                    f_params=F_PARAMS0)
+        ref = res.track.logmarginal.double().cpu().numpy()
+        err = float(np.max(np.abs(lm[c] - ref) / np.abs(ref)))
+        lane_err = max(lane_err, err)
+        print(f"  lane {c} vs single-cell Armijo fit: {lm[c].tolist()} vs "
+              f"{ref.tolist()}, max rel {err:.3e}")
+    checks[f"lanes 0-1 within {POP_RTOL} of single-cell fits"] = (
+        lane_err <= POP_RTOL)
+
+    # the same population through the plain Gram
+    t0 = time.perf_counter()
+    carry_p, _ = P.fit_population(x, r, cfg, xtilde=xtilde,
+                                  thetas=POP_THETA, f_params=F_PARAMS0,
+                                  backend="torch")
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    lm_p = carry_p.track.logmarginal.double().cpu().numpy()
+    plain_err = float(np.max(np.abs(lm - lm_p) / np.abs(lm_p)))
+    print(f"fit_population (plain Gram): {plain_s:.3f} s; log-marginal max "
+          f"rel difference from the kernel's {plain_err:.3e}  [{smi}]")
+    checks[f"population within {POP_RTOL} of the plain-Gram population"] = (
+        plain_err <= POP_RTOL)
+
+    # sequential, the zoom search
+    torch.cuda.synchronize()
+    reset_counts(gram_cuda)
+    t0 = time.perf_counter()
+    seq = P.fit_cells_sequential(x, r[:POP_SEQ_CELLS], cfg, xtilde=xtilde,
+                                 thetas=POP_THETA, f_params=F_PARAMS0)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    counts = read_counts(gram_cuda)
+    add_counts(totals, counts)
+    seq_final = [float(res.track.logmarginal[-1]) for res in seq]
+    print(f"fit_cells_sequential ({POP_SEQ_CELLS} cells, zoom): {seq_s:.3f} "
+          f"s, {seq_s / POP_SEQ_CELLS:.3f} s/cell; final log-marginal of "
+          f"cells 0-1 {seq_final} (the population's {lm[:2, -1].tolist()}: "
+          f"the two searches stop at different optima); Gram launches "
+          f"{counts['gram']}  [{smi}]")
+    for c, res in enumerate(seq):
+        lm_s = res.track.logmarginal.double().cpu().numpy()
+        print(f"  cell {c}: log-marginal {lm_s.tolist()}")
+        checks[f"sequential cell {c} finite, not failed, improved"] = (
+            not res.failed and bool(np.all(np.isfinite(lm_s)))
+            and bool(lm_s[-1] > lm_s[0]))
+
+    # the lab's 41-cell recording in one population
+    rec_cfg = dataclasses.replace(cfg, maxiter=POP_RECORDING_ITERS)
+    reset_counts(gram_cuda)
+    rec, rec_s, rec_gib = population(r_all, rec_cfg)
+    add_counts(totals, read_counts(gram_cuda))
+    lm_r = rec.track.logmarginal.double().cpu().numpy()
+    print(f"fit_population, the {POP_RECORDING_CELLS}-cell recording, "
+          f"{POP_RECORDING_ITERS} EM iterations: {rec_s:.3f} s, "
+          f"{rec_s / POP_RECORDING_CELLS:.3f} s/cell; mean final "
+          f"log-marginal {lm_r[:, -1].mean():.4f}; peak device memory "
+          f"{rec_gib:.2f} GiB (the {POP_CELLS}-cell population's "
+          f"{pop_gib:.2f})  [{smi}]")
+    checks[f"the {POP_RECORDING_CELLS}-cell recording finite, not failed, "
+           f"improved"] = (
+        bool(np.all(np.isfinite(lm_r))) and not bool(rec.failed.any())
+        and bool(np.all(lm_r[:, -1] > lm_r[:, 0])))
+
+    # stream synchronizations in one population EM iteration
+    from torch.profiler import ProfilerActivity, profile
+    pcfg = P._vmap_safe_config(cfg)
+    thetas = P._per_cell(POP_THETA, POP_CELLS, torch.float32, device)
+    fps = P._per_cell(F_PARAMS0, POP_CELLS, torch.float32, device)
+    stim = F.cell_stimuli(x, xtilde, False, pcfg)
+    max_items = P.ladder_items(NT, POP_NTILDE, N_PX * N_PX, device)
+    with torch.no_grad():
+        c0 = F._fit_init_cells(stim, r, thetas, fps, False, pcfg,
+                               max_items=max_items)
+
+    def iteration():
+        with torch.no_grad():
+            F._fit_iteration_cells(1, c0, stim, r, False, pcfg,
+                                   theta_bounds(), max_items=max_items)
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iteration()
+    it_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        iteration()
+    syncs = syncs_by_op(prof)
+    n_sync = sum(syncs.values()) - 1     # less the closing synchronize
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name] = (by_kernel.get(e.name, 0)
+                                 + e.time_range.elapsed_us() / 1e6)
+    device_s = sum(by_kernel.values())
+    print(f"one population EM iteration: {it_s:.3f} s unprofiled, ladder "
+          f"chunk {max_items} items; under torch.profiler {device_s:.3f} s "
+          f"of device time (busy {device_s / it_s:.2f} of the unprofiled "
+          f"wall), host synchronizations {n_sync}, by call and op (the "
+          f"closing one included): {syncs}  [{smi}]")
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    print("  device time by kernel: " + "; ".join(
+        f"{name[:70]} {sec:.3f} s" for name, sec in top))
+    # why the M-step and E-step invert through cholesky_ex and
+    # solve_triangular: host syncs of one call of each batched op at the
+    # ladder's shape
+    g = torch.Generator(device=device).manual_seed(0)
+    A = torch.randn(30, POP_NTILDE, POP_NTILDE, device=device, generator=g)
+    S = A @ A.mT + POP_NTILDE * torch.eye(POP_NTILDE, device=device)
+    L = torch.linalg.cholesky_ex(S)[0]
+    ops = {"cholesky_ex": lambda: torch.linalg.cholesky_ex(S),
+           "solve_triangular": lambda: torch.linalg.solve_triangular(
+               L, S, upper=False),
+           "cholesky_solve": lambda: torch.cholesky_solve(S, L),
+           "inv_ex": lambda: torch.linalg.inv_ex(S),
+           "eigh": lambda: torch.linalg.eigh(S)}
+    per_op = {}
+    for name, fn in ops.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as op_prof:
+            fn()
+        per_op[name] = sum(1 for e in op_prof.events()
+                           if "Synchronize" in e.name)
+    print(f"host synchronizations of one batched call at 30 x "
+          f"{POP_NTILDE} x {POP_NTILDE}: {per_op}")
+    for what, ok in checks.items():
+        if not ok:
+            raise RuntimeError(f"population check failed: {what}")
+    return out
+
+
+def phase9_large(torch, np, device, smi, totals):
+    """The large-ntilde path (see the module docstring); adds its launches
+    to ``totals``."""
+    from gaussian_processes_tpu_torch.ops import gram_cuda
+    from gaussian_processes_tpu_torch.parallel import large as L
+
+    n, k = LARGE_N, LARGE_PX * LARGE_PX
+    rng = np.random.default_rng(0)
+    xt_np = np.empty((n, k), np.float32)
+    for i in range(0, n, 8192):
+        j = min(i + 8192, n)
+        xt_np[i:j] = rng.standard_normal((j - i, k)).astype(np.float32)
+    xt = torch.as_tensor(xt_np, device=device)
+    del xt_np
+    theta = {key: torch.tensor(v, device=device)
+             for key, v in LARGE_THETA.items()}
+
+    def timed(fn, readback):
+        """fn()'s result and its CUDA-event seconds, the end event read
+        after a value readback of the result."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        res = fn()
+        end.record()
+        float(readback(res))
+        return res, start.elapsed_time(end) / 1e3
+
+    def diag_sample(A):
+        return A.diagonal()[::max(n // 64, 1)].sum()
+
+    ut_amp, st, qd = L._gram_prep(theta, xt, LARGE_PX)
+    s0 = theta["sigma_0"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    # twice: the first (cold) run also pays the 10 GB allocation and the
+    # solver's set-up
+    for run in ("cold", "warm"):
+        reset_counts(gram_cuda)
+        K, gram_s = timed(lambda: L.large_gram(theta, xt, LARGE_PX,
+                                               nb=LARGE_NB), diag_sample)
+        counts = read_counts(gram_cuda)
+        print(f"large_gram n={n} ({LARGE_PX}x{LARGE_PX} px, k {k}), row "
+              f"blocks of {LARGE_NB}, {run}: {gram_s:.3f} s, "
+              f"{counts['gram']} Gram launches  [{smi}]")
+        if run == "cold":
+            worst = 0.0
+            with torch.no_grad():
+                last = (n - 1) // LARGE_NB
+                for r0 in (0, last // 2 * LARGE_NB, last * LARGE_NB):
+                    r1 = min(r0 + LARGE_NB, n)
+                    ref = gram_cuda.acos_gram_torch(ut_amp[r0:r1], st,
+                                                    qd[r0:r1], qd, s0)
+                    rel = float(torch.max(torch.abs(K[r0:r1] - ref))
+                                / torch.max(torch.abs(ref)))
+                    worst = max(worst, rel)
+                    print(f"  row block [{r0}, {r1}) vs plain: max rel "
+                          f"{rel:.3e}")
+                    del ref
+            if not worst <= KERNEL_RTOL:
+                raise RuntimeError(f"large_gram disagrees with the plain "
+                                   f"Gram: {worst:.3e}")
+        Lf, chol_s = timed(lambda: L.large_cholesky(K, jitter=LARGE_JITTER),
+                           diag_sample)
+        d = Lf.diagonal()
+        if not bool(torch.isfinite(d).all() & (d > 0).all()):
+            raise RuntimeError("large_cholesky: non-finite or non-positive "
+                               "diagonal")
+        print(f"large_cholesky n={n}, {run}: {chol_s:.3f} s, "
+              f"{n ** 3 / 3 / chol_s / 1e12:.2f} TFLOP/s (n^3/3)  [{smi}]")
+        del K, Lf, d
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    print(f"peak device memory of the Gram and the Cholesky: {peak:.2f} GiB")
+
+    y = torch.as_tensor(np.random.default_rng(1).standard_normal(n)
+                        .astype(np.float32), device=device)
+    xstar = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (8, k)).astype(np.float32), device=device)
+    torch.cuda.synchronize()
+    reset_counts(gram_cuda)
+    t0 = time.perf_counter()
+    mu, alpha = L.large_posterior_mean(theta, xt, y, xstar, LARGE_PX,
+                                       noise_var=LARGE_JITTER)
+    torch.cuda.synchronize()
+    post_s = time.perf_counter() - t0
+    counts = read_counts(gram_cuda)
+    add_counts(totals, counts)
+    # (K + I) alpha - y and ||K + I||_F, by row blocks, in float64
+    a64, y64 = alpha.double(), y.double()
+    res2 = fro2 = 0.0
+    with torch.no_grad():
+        for r0 in range(0, n, LARGE_NB):
+            r1 = min(r0 + LARGE_NB, n)
+            Kb = gram_cuda.acos_gram(ut_amp[r0:r1], st, qd[r0:r1], qd,
+                                     s0).double()
+            Kb.diagonal(offset=r0).add_(LARGE_JITTER)
+            res2 += float(torch.sum((Kb @ a64 - y64[r0:r1]) ** 2))
+            fro2 += float(torch.sum(Kb * Kb))
+            del Kb
+    residual = math.sqrt(res2) / float(torch.linalg.norm(y64))
+    backward = math.sqrt(res2) / (math.sqrt(fro2) * float(
+        torch.linalg.norm(a64)) + float(torch.linalg.norm(y64)))
+    print(f"large_posterior_mean: {post_s:.3f} s; mu* {mu.tolist()}; "
+          f"||(K + I) alpha - y|| / ||y|| = {residual:.3e} (bound "
+          f"{LARGE_RESIDUAL}), normwise backward error {backward:.3e} (bound "
+          f"{LARGE_BACKWARD}); Gram launches {counts['gram']}  [{smi}]")
+    ok = (bool(torch.isfinite(mu).all()) and bool(torch.isfinite(alpha).all())
+          and (LARGE_RESIDUAL is None or residual <= LARGE_RESIDUAL)
+          and (LARGE_BACKWARD is None or backward <= LARGE_BACKWARD)
+          and counts["gram"] > 0)
+    if not ok:
+        raise RuntimeError("the large path's posterior mean failed its "
+                           "checks")
 
 
 def main():
@@ -159,24 +730,6 @@ def main():
     # ---- 2. kernels vs plain at the main path's operands ----------------
     xt_test = torch.as_tensor(Xt, device=device)
 
-    def recorded_operands(build):
-        """The (u1, s2, q11, q22, sigma0) of every Gram that ``build()``
-        hands the kernel wrapper, in call order."""
-        calls = []
-        real = gram_cuda.acos_gram
-
-        def record(*args):
-            calls.append([a.detach() for a in args])
-            return real(*args)
-
-        gram_cuda.acos_gram = record
-        try:
-            with torch.no_grad():
-                build()
-        finally:
-            gram_cuda.acos_gram = real
-        return calls
-
     crop = crop_window_from_scalars(THETA0["-2log2beta"], THETA0["eps_0x"],
                                     THETA0["eps_0y"], N_PX)
 
@@ -186,10 +739,10 @@ def main():
         makes (inference.py:37) at the start theta ("predict"; its K_tilde
         is the full grid's)."""
         if where == "crop":
-            calls = recorded_operands(lambda: gram_matrices_windowed(
+            calls = recorded_operands(torch, gram_cuda, lambda: gram_matrices_windowed(
                 theta, x, xtilde, N_PX, False, *crop))
         else:
-            calls = recorded_operands(lambda: gram_matrices(
+            calls = recorded_operands(torch, gram_cuda, lambda: gram_matrices(
                 theta, xt_test if where == "predict" else x, xtilde, N_PX,
                 shared=False))
         if where == "predict":
@@ -214,10 +767,14 @@ def main():
             rel = max_abs / float(torch.max(torch.abs(K_plain)))
             ms = cuda_ms(torch, lambda: gram_cuda.acos_gram(*ops))
             plain_ms = cuda_ms(torch, lambda: gram_cuda.acos_gram_torch(*ops))
+            lib_ms = cuda_ms(torch, lambda: torch.matmul(ops[0], ops[1].T))
+        bound_ms, bound_by = gram_bound(1, m, n, k)
         finite = bool(torch.all(torch.isfinite(K_kernel)))
         print(f"kernel {name} {m}x{n} k={k}: max|dK|/max|K| = {rel:.3e} "
               f"(max|dK| {max_abs:.3e}), kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms  [{smi}]")
+              f"plain {plain_ms:.3f} ms, cuBLAS FP32 product alone "
+              f"{lib_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})  "
+              f"[{smi}]")
         print(f"  plan: {plan}")
         if not (finite and rel <= KERNEL_RTOL):
             raise RuntimeError(f"kernel disagrees with its plain version "
@@ -313,9 +870,9 @@ def main():
     # ---- 4. the main path ------------------------------------------------
     cfg = FitConfig(ntilde=NTILDE, maxiter=3, n_estep=10, n_mstep=10,
                     n_fparamstep=10, n_px_side=N_PX, track_variational=False)
+    totals = {}
     torch.cuda.synchronize()
-    gram_cuda.launches = 0
-    gram_cuda.split_launches = 0
+    reset_counts(gram_cuda)
     t0 = time.perf_counter()
     res = fit(x, r, cfg, xtilde=xtilde, theta=THETA0, f_params=F_PARAMS0,
               profile=True)
@@ -329,6 +886,7 @@ def main():
     torch.cuda.synchronize()
     launches_main = gram_cuda.launches
     split_launches_main = gram_cuda.split_launches
+    add_counts(totals, read_counts(gram_cuda))
 
     loss = res.track.logmarginal.double().cpu().numpy()
     print(f"fit init {res.timing['init']:.3f} s; per-iteration s "
@@ -369,13 +927,13 @@ def main():
     x_cap = torch.zeros((CAPACITY, N_PX * N_PX), device=device)
     x_cap[:N_START] = x[:N_START]
     loop_operands = [
-        ("K_tilde cap", recorded_operands(lambda: gram_matrices_windowed(
+        ("K_tilde cap", recorded_operands(torch, gram_cuda, lambda: gram_matrices_windowed(
             theta, x_cap, x_cap, N_PX, True, *crop))[0]),
-        ("K* pool", recorded_operands(lambda: gram_matrices_windowed(
+        ("K* pool", recorded_operands(torch, gram_cuda, lambda: gram_matrices_windowed(
             theta, x, x_cap, N_PX, False, *crop))[1]),
-        ("K* pool", recorded_operands(lambda: gram_matrices(
+        ("K* pool", recorded_operands(torch, gram_cuda, lambda: gram_matrices(
             theta, x, x_cap, N_PX, shared=False))[1]),
-        ("K* test", recorded_operands(lambda: gram_matrices(
+        ("K* test", recorded_operands(torch, gram_cuda, lambda: gram_matrices(
             theta, xt_test, x_cap, N_PX, shared=False))[1]),
     ]
     for name, ops in loop_operands:
@@ -404,14 +962,14 @@ def main():
     out, launches_loop, split_launches_loop = {}, {}, {}
     for arm, (loop, select, extra) in arms.items():
         torch.cuda.synchronize()
-        gram_cuda.launches = 0
-        gram_cuda.split_launches = 0
+        reset_counts(gram_cuda)
         t0 = time.perf_counter()
         o = loop(x, r, select=select, **loop_kw, **extra)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches_loop[arm] = gram_cuda.launches
         split_launches_loop[arm] = gram_cuda.split_launches
+        add_counts(totals, read_counts(gram_cuda))
         out[arm] = o
         print(f"loop ({arm}) {loop.__name__}, {select}: {wall:.3f} s, "
               f"{wall / (N_ADD + 1):.3f} s per round over {N_ADD + 1} refits"
@@ -504,30 +1062,63 @@ def main():
         raise RuntimeError("the scorer through the kernel disagrees with the "
                            "scorer through the plain Gram")
 
-    launches_total = launches_main + sum(launches_loop.values())
-    split_launches_total = (split_launches_main
-                            + sum(split_launches_loop.values()))
+    # ---- 7-8. the batched kernel and the population ----------------------
+    batched = phase8_population(torch, np, device, smi, totals)
+    # ---- 9. the large-ntilde path ------------------------------------------
+    phase9_large(torch, np, device, smi, totals)
+
+    shapes = totals.pop("shapes", {})
+    print(f"launches over the main paths (phases 4, 6, 8, 9): {totals}")
+    print("Gram launches on the main paths by (batch, m, n, k): "
+          + ", ".join(f"{shape}: {c}" for shape, c in sorted(
+              shapes.items(), key=lambda kv: -kv[1])))
+    for key, what in (("gram", "2-D Gram"), ("batched", "batched Gram"),
+                      ("split", "split pass")):
+        if totals.get(key, 0) <= 0:
+            raise RuntimeError(f"the {what} kernel was not launched on the "
+                               f"main paths")
     max_abs, ms, plain_ms = results[("K", 6400)]
+    _, b_ms, b_plain_ms, _, b_bound, b_by, _ = batched["K"]
     source = "gaussian_processes_tpu_torch/csrc/acos_gram.cu"
     replaces = "gaussian_processes_tpu/ops/gram_pallas.py:80"
+    gram_ms, gram_by = gram_bound(1, NT, NTILDE, 6400)
+    sp_ms, sp_by = split_bound(NT, 6400)
     print(json.dumps({"kernels": [{
         "name": "acos_gram",
         "route": "cuda",
         "source": source,
         "replaces": replaces,
-        "launches": launches_total,
+        "launches": totals["gram"],
         "max_abs_err": max(v[0] for v in results.values()),
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": gram_ms,
+        "bound_by": gram_by,
+        "library_ms": None,
+    }, {
+        "name": "acos_gram_batched",
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": totals["batched"],
+        "max_abs_err": max(v[0] for v in batched.values()),
+        "ms": b_ms,
+        "plain_ms": b_plain_ms,
+        "bound_ms": b_bound,
+        "bound_by": b_by,
+        "library_ms": None,
     }, {
         "name": "tf32_split",
         "route": "cuda",
         "source": source,
         "replaces": replaces,
-        "launches": split_launches_total,
+        "launches": totals["split"],
         "max_abs_err": split["err"],
         "ms": split_ms,
         "plain_ms": split_plain_ms,
+        "bound_ms": sp_ms,
+        "bound_by": sp_by,
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

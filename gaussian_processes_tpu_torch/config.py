@@ -36,6 +36,21 @@ ALPHA_THRESHOLD = 1.0e-3
 COSDELTA_JITTER = 1.0e-7
 
 
+def resolve_device(x, device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else the
+    device of ``x`` when it is a tensor, else (numpy input) the CUDA card.
+    There is no fallback to the CPU: without a card, numpy input and no
+    ``device`` raise."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(x, torch.Tensor):
+        return x.device
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device for numpy input: pass device="
+                           "\"cpu\" (or a CPU tensor) to run on the CPU")
+    return torch.device("cuda")
+
+
 def use_full_fp32() -> None:
     """Turn TF32 off for CUDA matmuls and convolutions (float32 products
     then keep ~7 decimal digits instead of TF32's ~3)."""
@@ -67,6 +82,18 @@ class FitConfig:
     crop_bucket: int = 16
     # Strong-Wolfe zoom line-search trial budget per L-BFGS step.
     max_linesearch_steps: int = 15
+    # Inner L-BFGS line search at both call sites (E-step f-params and
+    # M-step): "zoom" (strong Wolfe, optim/lbfgs.lbfgs_minimize) or
+    # "armijo" (a fixed ladder of ``armijo_trials`` step sizes evaluated as
+    # one batched call, optim/lbfgs.lbfgs_minimize_armijo; the population
+    # fit's branch-free search).
+    linesearch: str = "zoom"
+    armijo_trials: int = 6
+
+    def __post_init__(self):
+        if self.linesearch not in ("zoom", "armijo"):
+            raise ValueError(f"linesearch must be 'zoom' or 'armijo', got "
+                             f"{self.linesearch!r}")
 
     def resolve_ntilde(self, nt: int) -> int:
         if self.ntilde is not None:

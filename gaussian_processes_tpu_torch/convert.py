@@ -5,12 +5,13 @@ Everything crosses as numpy arrays, so this module needs neither package's
 arrays: ``np.asarray`` of a JAX array is the JAX side's export, and the
 ``*_to_numpy`` functions are this side's.  theta and f-params are dicts of
 scalars; the fitted state is the eight arrays a prediction needs
-(``FittedState``).
+(``FittedState``).  A population fit's cell-stacked carry converts cell by
+cell (``population_states_from_numpy``).
 """
 
 from __future__ import annotations
 
-from typing import Mapping, NamedTuple
+from typing import List, Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -65,3 +66,45 @@ def state_from_numpy(state: Mapping[str, object], dtype=torch.float64,
         fields[name] = torch.as_tensor(
             arr, dtype=torch.bool if name == "keep" else dtype, device=device)
     return FittedState(**fields)
+
+
+class CellState(NamedTuple):
+    """One cell of a population fit: what a prediction needs."""
+    state: FittedState
+    theta: dict
+    f_params: dict
+
+
+def population_states_from_numpy(carry, xtilde, dtype=torch.float64,
+                                 device=None) -> List[CellState]:
+    """Each cell's state from a cell-stacked population carry: the JAX
+    package's ``fit_population`` carry (numpy-convertible arrays with a
+    leading cell axis: ``theta``, ``f_params``, ``m_b``, ``V_b`` and
+    ``kern.es``'s ``B``, ``eigvals``, ``keep``, ``k_tilde_b_diag``,
+    ``k_tilde_inv_diag``), or the port's own.  ``xtilde`` is the inducing
+    set all cells share (the carry does not hold it)."""
+    def arr(v):
+        return np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor)
+                          else v)
+
+    es = carry.kern.es
+    fields = {"m_b": carry.m_b, "V_b": carry.V_b, "B": es.B,
+              "keep": es.keep, "eigvals": es.eigvals,
+              "k_tilde_b_diag": es.k_tilde_b_diag,
+              "k_tilde_inv_diag": es.k_tilde_inv_diag}
+    fields = {k: arr(v) for k, v in fields.items()}
+    theta = {k: arr(v) for k, v in carry.theta.items()}
+    f_params = {k: arr(v) for k, v in carry.f_params.items()}
+    xt = arr(xtilde)
+    out = []
+    for c in range(fields["m_b"].shape[0]):
+        state = state_from_numpy(
+            dict({k: v[c] for k, v in fields.items()}, xtilde=xt), dtype,
+            device)
+        out.append(CellState(
+            state,
+            theta_from_numpy({k: v[c] for k, v in theta.items()}, dtype,
+                             device),
+            f_params_from_numpy({k: v[c] for k, v in f_params.items()},
+                                dtype, device)))
+    return out

@@ -5,7 +5,8 @@
 // Pallas TPU kernel with body _gram_kernel, epilogue _acos_tile and the
 // arccos polynomial _acos_poly).
 //
-// Computes, for u1 (m, k) and s2 (n, k), both row-major (an "NT" product):
+// Computes, for each item of a batch of u1 (m, k) and s2 (n, k), both
+// row-major (an "NT" product), with the item's own q11, q22 and sigma0:
 //   q12[i, j] = sum_t u1[i, t] * s2[j, t]
 //   X1 = sqrt(q11 + s0^2), X2 = sqrt(q22 + s0^2), s0 = *sigma0
 //   c  = clip((q12 + s0^2) / (X1 X2 + 1e-7), -1, 1)
@@ -14,13 +15,13 @@
 // Three kernels, launched in order by tf32_split_f32 and acos_gram_f32:
 //
 // 1. tf32_split_kernel (tf32_split_vec_kernel where k is a multiple of 4),
-//    once per operand: big = cvt.rna.tf32(a) and
+//    once per operand, over all items' rows at once: big = cvt.rna.tf32(a) and
 //    small = a - big (exact in float32), into one (2, rows, kp) buffer whose
 //    row stride kp = k rounded up to 4 floats (TMA wants 16-byte strides);
 //    the padding columns are zero.  NaN stays NaN (small = NaN - NaN), and
 //    inf becomes a NaN small part, so a poisoned operand poisons K.
-// 2. acos_gram_tf32x3_kernel: one 128 x 128 output tile per block, over one
-//    planned range of k.  Warpgroup 2 is the producer: one thread issues
+// 2. acos_gram_tf32x3_kernel: one 128 x 128 output tile of one item per
+//    block, over one planned range of k; grid z runs over items x splits.  Warpgroup 2 is the producer: one thread issues
 //    cp.async.bulk.tensor loads of the big and small 128 x 32 tiles of both
 //    operands (128 B rows, 128-byte swizzle) into a ring of 3 stages of
 //    64 KB, each with a full and an empty mbarrier.  Warpgroups 0 and 1 are
@@ -30,7 +31,7 @@
 //    dropped).  Both operands are K-major in shared memory, as TF32 wgmma
 //    requires, so nothing is transposed.  With one range of k the epilogue
 //    runs in registers; with several, each block writes its raw partial q12
-//    to a workspace (splits, m, n).
+//    to a workspace (batch, splits, m, n).
 // 3. acos_gram_reduce_kernel (split k only): sums the partials in split
 //    order and applies the same epilogue.
 //
@@ -61,9 +62,12 @@
 //
 // The epilogue runs in registers with a real acosf (the Pallas kernel
 // carried a polynomial only because Mosaic had no acos); the clip is written
-// with comparisons so that a NaN stays NaN.  TMA zero-fills loads outside
-// the operands, so nothing is padded in m or n, and stores are masked to
-// (m, n).
+// with comparisons so that a NaN stays NaN.  The operands' tensor maps are
+// three-dimensional (k, rows, item), so a tile that runs past row m or n of
+// its item is zero-filled by TMA instead of reading the next item: nothing
+// is padded in m or n, and stores are masked to (m, n).  The output is
+// written in place through its pointer, so a contiguous row block of a
+// larger matrix (the large-ntilde path's K[r0:r0+nb]) is a valid target.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -149,11 +153,13 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 }
 
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int row) {
+                                         uint32_t bar, int col, int row,
+                                         int item) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+      "r"(item)
       : "memory");
 }
 
@@ -277,8 +283,9 @@ __global__ void tf32_split_vec_kernel(const float4* __restrict__ a,
   }
 }
 
-// Grid (tiles of n, tiles of m, splits).  With one split, out is K (m, n);
-// with several, out is the workspace (splits, m, n) of raw partial q12.
+// Grid (tiles of n, tiles of m, batch x splits).  With one split, out is K
+// (batch, m, n); with several, out is the workspace (batch, splits, m, n) of
+// raw partial q12.  q11 is (batch, m), q22 (batch, n), sigma0 (batch,).
 __global__ void __launch_bounds__(THREADS, 1)
     acos_gram_tf32x3_kernel(const __grid_constant__ CUtensorMap a_big,
                             const __grid_constant__ CUtensorMap a_small,
@@ -288,7 +295,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                             const float* __restrict__ q22,
                             const float* __restrict__ sigma0,
                             float* __restrict__ out, int m, int n,
-                            int kblocks) {
+                            int kblocks, int splits) {
   extern __shared__ uint8_t smem_raw[];
   // 128-byte-swizzled tiles want a 1024-B aligned base
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -296,8 +303,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   auto full = [&](int s) { return bars + 8u * s; };
   auto empty = [&](int s) { return bars + 8u * (STAGES + s); };
 
-  const int split = blockIdx.z;
-  const int splits = gridDim.z;
+  const int item = blockIdx.z / splits;
+  const int split = blockIdx.z - item * splits;
   const int kb0 = static_cast<int>(static_cast<long long>(split) * kblocks /
                                    splits);
   const int kb1 = static_cast<int>(static_cast<long long>(split + 1) *
@@ -324,10 +331,11 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_wait(empty(stage), phase ^ 1u);
         const uint32_t s = base + stage * STAGE_BYTES;
         mbar_expect_tx(full(stage), STAGE_BYTES);
-        tma_load(s, &a_big, full(stage), kb * BK, m0);
-        tma_load(s + TILE_BYTES, &a_small, full(stage), kb * BK, m0);
-        tma_load(s + 2 * TILE_BYTES, &b_big, full(stage), kb * BK, n0);
-        tma_load(s + 3 * TILE_BYTES, &b_small, full(stage), kb * BK, n0);
+        tma_load(s, &a_big, full(stage), kb * BK, m0, item);
+        tma_load(s + TILE_BYTES, &a_small, full(stage), kb * BK, m0, item);
+        tma_load(s + 2 * TILE_BYTES, &b_big, full(stage), kb * BK, n0, item);
+        tma_load(s + 3 * TILE_BYTES, &b_small, full(stage), kb * BK, n0,
+                 item);
         if (++stage == STAGES) {
           stage = 0;
           phase ^= 1u;
@@ -385,8 +393,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int t = threadIdx.x % 128;
   const int row0 = m0 + wg * 64 + (t / 32) * 16 + (t % 32) / 4;
   const int col0 = n0 + 2 * (t % 4);
+  const size_t mn = static_cast<size_t>(m) * n;
   if (splits > 1) {
-    float* part = out + static_cast<size_t>(split) * m * n;
+    float* part = out + (static_cast<size_t>(item) * splits + split) * mn;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = row0 + 8 * i;
@@ -402,7 +411,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     return;
   }
-  const float s0 = *sigma0;
+  q11 += static_cast<size_t>(item) * m;
+  q22 += static_cast<size_t>(item) * n;
+  out += item * mn;
+  const float s0 = sigma0[item];
   const float s02 = s0 * s0;
   float x1[2];
 #pragma unroll
@@ -427,25 +439,31 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
 }
 
-// K[i, j] from the partial sums ws[0..splits)[i, j], added in split order.
+// K[b, i, j] from the partial sums ws[b, 0..splits)[i, j], added in split
+// order.
 __global__ void acos_gram_reduce_kernel(const float* __restrict__ ws,
                                         int splits,
                                         const float* __restrict__ q11,
                                         const float* __restrict__ q22,
                                         const float* __restrict__ sigma0,
                                         float* __restrict__ out, int m,
-                                        int n) {
-  const size_t total = static_cast<size_t>(m) * n;
+                                        int n, int batch) {
+  const size_t mn = static_cast<size_t>(m) * n;
+  const size_t total = mn * batch;
   const size_t step = static_cast<size_t>(gridDim.x) * blockDim.x;
-  const float s0 = *sigma0;
-  const float s02 = s0 * s0;
   for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < total; i += step) {
-    float q = ws[i];
-    for (int s = 1; s < splits; ++s) q += ws[s * total + i];
-    const size_t r = i / n;
-    const size_t c = i - r * n;
-    out[i] = acos_entry(q, sqrtf(q11[r] + s02), sqrtf(q22[c] + s02), s02);
+    const size_t b = i / mn;
+    const size_t e = i - b * mn;
+    const float* part = ws + b * splits * mn + e;
+    float q = part[0];
+    for (int s = 1; s < splits; ++s) q += part[s * mn];
+    const size_t r = e / n;
+    const size_t c = e - r * n;
+    const float s0 = sigma0[b];
+    const float s02 = s0 * s0;
+    out[i] = acos_entry(q, sqrtf(q11[b * m + r] + s02),
+                        sqrtf(q22[b * n + c] + s02), s02);
   }
 }
 
@@ -482,16 +500,20 @@ EncodeTiledFn encoder() {
   return fn;
 }
 
-// Tensor map of one (rows, kp) float32 plane, 128 x 32 boxes, 128-B swizzle,
-// zero fill outside.
+// Tensor map of one (batch, rows, kp) float32 plane, boxes of one item's
+// 128 x 32, 128-B swizzle, zero fill outside (past row `rows` of an item
+// too: the item is the map's outermost dimension).
 bool encode_plane(EncodeTiledFn enc, CUtensorMap* map, const float* plane,
-                  int rows, int kp) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kp),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(kp) * 4};
-  const cuuint32_t box[2] = {BK, BM};
-  const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                  int rows, int kp, int batch) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(kp),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(kp) * 4,
+      static_cast<cuuint64_t>(kp) * static_cast<cuuint64_t>(rows) * 4};
+  const cuuint32_t box[3] = {BK, BM, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
              const_cast<float*>(plane), dims, strides, box, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -528,34 +550,42 @@ extern "C" int tf32_split_f32(const float* a, float* dst, int rows, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K (m, n) from the split operands a (2, m, kp) and b (2, n, kp).  With
-// splits > 1, ws holds (splits, m, n) floats; otherwise it is not touched.
+// K (batch, m, n) from the split operands a (2, batch, m, kp) and b (2,
+// batch, n, kp), with q11 (batch, m), q22 (batch, n) and sigma0 (batch,).
+// With splits > 1, ws holds (batch, splits, m, n) floats; otherwise it is
+// not touched.  out may be any contiguous (batch, m, n) target.
 extern "C" int acos_gram_f32(const float* a, const float* b, const float* q11,
                              const float* q22, const float* sigma0,
                              float* out, float* ws, int m, int n, int kp,
-                             int splits, void* stream) {
+                             int splits, int batch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int kblocks = (kp + BK - 1) / BK;
-  if (splits < 1 || splits > kblocks) return ERR_PLAN;
+  if (splits < 1 || splits > kblocks || batch < 1 ||
+      static_cast<long long>(batch) * splits > 65535)
+    return ERR_PLAN;
   EncodeTiledFn enc = encoder();
   if (enc == nullptr) return ERR_NO_ENCODER;
   CUtensorMap ab, as, bb, bs;
-  if (!encode_plane(enc, &ab, a, m, kp) ||
-      !encode_plane(enc, &as, a + static_cast<size_t>(m) * kp, m, kp) ||
-      !encode_plane(enc, &bb, b, n, kp) ||
-      !encode_plane(enc, &bs, b + static_cast<size_t>(n) * kp, n, kp))
+  const size_t a_plane = static_cast<size_t>(batch) * m * kp;
+  const size_t b_plane = static_cast<size_t>(batch) * n * kp;
+  if (!encode_plane(enc, &ab, a, m, kp, batch) ||
+      !encode_plane(enc, &as, a + a_plane, m, kp, batch) ||
+      !encode_plane(enc, &bb, b, n, kp, batch) ||
+      !encode_plane(enc, &bs, b + b_plane, n, kp, batch))
     return ERR_TENSOR_MAP;
   cudaError_t e = cudaFuncSetAttribute(
       acos_gram_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, splits);
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, batch * splits);
   acos_gram_tf32x3_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
-      ab, as, bb, bs, q11, q22, sigma0, splits > 1 ? ws : out, m, n, kblocks);
+      ab, as, bb, bs, q11, q22, sigma0, splits > 1 ? ws : out, m, n, kblocks,
+      splits);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
-  acos_gram_reduce_kernel<<<grid_for(static_cast<size_t>(m) * n), 256, 0,
-                            st>>>(ws, splits, q11, q22, sigma0, out, m, n);
+  acos_gram_reduce_kernel<<<grid_for(static_cast<size_t>(batch) * m * n), 256,
+                            0, st>>>(ws, splits, q11, q22, sigma0, out, m, n,
+                                     batch);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -569,7 +599,8 @@ extern "C" const char* acos_gram_error_string(int code) {
     case ERR_TENSOR_MAP:
       return "cuTensorMapEncodeTiled refused an operand's tensor map";
     case ERR_PLAN:
-      return "splits outside [1, number of 32-float blocks of k]";
+      return "splits outside [1, number of 32-float blocks of k], or batch "
+             "x splits above 65535";
     default:
       return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

@@ -35,7 +35,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..config import FitConfig
+from ..config import FitConfig, resolve_device
 from ..ops.kernels import crop_window_for_theta, gram_matrices
 from .acquisition import score_candidates
 from .fit import FitResult, fit
@@ -103,7 +103,7 @@ def _start_buffers(X_pool, R_pool, start_idx, n_add: int, exclude_idx,
                    device):
     """Pool tensors on ``device``, the capacity buffers holding the start
     set, and the host mask of pool rows never to pick."""
-    X_pool = torch.as_tensor(X_pool, device=device)
+    X_pool = torch.as_tensor(X_pool, device=resolve_device(X_pool, device))
     R_pool = torch.as_tensor(R_pool, dtype=X_pool.dtype, device=X_pool.device)
     start_idx = np.asarray(start_idx)
     n_start = len(start_idx)
@@ -140,7 +140,8 @@ def active_loop(X_pool, R_pool, start_idx, n_add: int,
 
     X_pool: (npool, nx) candidate stimuli; R_pool: (npool,) responses (the
     simulated experiment's answers); both go to ``device`` (default: X_pool's
-    own, or the CPU for numpy input) in X_pool's dtype.  ``select`` is
+    own, or the CUDA card for numpy input; numpy input without ``device``
+    and without a card raises) in X_pool's dtype.  ``select`` is
     "utility" (information maximisation, the scorer on the crop window of
     the fitted theta) or "random" (the reference's A/B control,
     one_cell_active_training.ipynb:cell19/23), whose picks come from
@@ -329,7 +330,8 @@ def active_loop_pipelined(X_pool, R_pool, start_idx, n_add: int,
     both be given, as in the reference's simulated experiment.
 
     ``round_times`` as in ``active_loop`` ("refit" and "select"); its
-    synchronizes add host syncs the loop otherwise avoids.
+    synchronizes add host syncs the loop otherwise avoids.  ``device`` as
+    in ``active_loop``.
     """
     _check_select(select)
     X_pool, R_pool, start_idx, x_buf, r_buf, used_h = _start_buffers(

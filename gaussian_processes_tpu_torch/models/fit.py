@@ -35,7 +35,7 @@ import dataclasses
 import time
 import warnings
 from functools import partial
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,9 +43,9 @@ from ..config import FitConfig, use_full_fp32
 from ..ops.kernels import (crop_images, crop_window_for_theta,
                            gram_matrices, gram_matrices_precropped,
                            gram_matrices_windowed, local_envelope)
-from ..ops.stabilize import (Eigenspace, compute_eigenspace, masked_inverse,
-                             reproject)
-from ..optim.lbfgs import lbfgs_minimize
+from ..ops.stabilize import (Eigenspace, _eigvalsh_safe, compute_eigenspace,
+                             masked_inverse_spd, mv, reproject)
+from ..optim.lbfgs import lbfgs_minimize, lbfgs_minimize_armijo
 from ..params import (THETA_KEYS, clip_theta, default_f_params,
                       generate_theta, theta_bounds, theta_in_bounds)
 from .estep import estep_update
@@ -187,12 +187,57 @@ def _build_kernel_state(theta: Theta, x, xtilde, shared: bool,
                         cfg: FitConfig, win: Window = None,
                         backend: Optional[str] = None,
                         wt=None, wi=None) -> KernelState:
-    K_tilde, K, Kvec = _masked_grams(theta, x, xtilde, shared, cfg, win,
-                                     backend, wt, wi)
+    return _kernel_state(*_masked_grams(theta, x, xtilde, shared, cfg, win,
+                                        backend, wt, wi), shared, cfg)
+
+
+def _kernel_state(K_tilde, K, Kvec, shared: bool,
+                  cfg: FitConfig) -> KernelState:
+    """Eigenspace and projections of the Grams (of one cell or a stack)."""
     es = compute_eigenspace(K_tilde, cfg.eigval_tol)
     K_b = K @ es.B
-    a = es.B if shared else K_b * es.k_tilde_inv_diag[None, :]
+    a = es.B if shared else K_b * es.k_tilde_inv_diag[..., None, :]
     return KernelState(K_tilde, K, Kvec, es, K_b, a)
+
+
+def _one_lane(fun):
+    """A single-cell objective as the one-lane objective that
+    ``lbfgs_minimize_armijo`` takes: one call per trial of the ladder."""
+    def lanes(p):
+        if isinstance(p, dict):
+            trials = next(iter(p.values())).shape[1]
+            vals = [fun({k: v[0, t] for k, v in p.items()})
+                    for t in range(trials)]
+        else:
+            vals = [fun(p[0, t]) for t in range(p.shape[1])]
+        return torch.stack(vals)[None]
+    return lanes
+
+
+def _minimize(cfg: FitConfig, fun, x0, num_steps: int, lanes: bool = False):
+    """The inner L-BFGS of both call sites, by ``cfg.linesearch`` (JAX
+    ``models/fit.py::_minimize``): the zoom search, or the batched Armijo
+    ladder run as one lane.  ``lanes``: x0 carries a leading cell axis and
+    ``fun`` takes the (cells, trials) form of ``lbfgs_minimize_armijo``
+    (the cell-batched program, which has the Armijo search only)."""
+    if cfg.linesearch == "armijo":
+        if lanes:
+            return lbfgs_minimize_armijo(fun, x0, num_steps,
+                                         ls_trials=cfg.armijo_trials)
+        if isinstance(x0, dict):
+            x, f = lbfgs_minimize_armijo(_one_lane(fun),
+                                         {k: v[None] for k, v in x0.items()},
+                                         num_steps,
+                                         ls_trials=cfg.armijo_trials)
+            return {k: v[0] for k, v in x.items()}, f[0]
+        x, f = lbfgs_minimize_armijo(_one_lane(fun), x0[None], num_steps,
+                                     ls_trials=cfg.armijo_trials)
+        return x[0], f[0]
+    if lanes:
+        raise ValueError("the cell-batched fit runs the Armijo search only: "
+                         "linesearch='armijo'")
+    return lbfgs_minimize(fun, x0, num_steps,
+                          max_linesearch_steps=cfg.max_linesearch_steps)
 
 
 def _fparam_objective(logA, r, lambda_m, lambda_var, wt=None):
@@ -205,21 +250,24 @@ def _fparam_objective(logA, r, lambda_m, lambda_var, wt=None):
 
 
 def _estep_block(r, kern: KernelState, m_b, V_b, f_params, lambda_m,
-                 lambda_var, cfg: FitConfig, wt=None):
+                 lambda_var, cfg: FitConfig, wt=None, lanes: bool = False):
     """n_estep Newton updates on (m_b, V_b), each followed by an L-BFGS
     update of logA with closed-form lambda0 (reference:
-    utils.py:1859-1943)."""
+    utils.py:1859-1943).  ``lanes``: every argument carries a leading cell
+    axis and the f-param L-BFGS is batched over cells (its trial axis
+    against (L, 1, nt) moments)."""
+    trial_axis = (lambda t: t[:, None]) if lanes else (lambda t: t)
     for _ in range(cfg.n_estep):
         f_mean = mean_f_given_lambda_moments(f_params, lambda_m, lambda_var)
         m_b, V_b = estep_update(r, kern.a, m_b, f_mean,
                                 kern.es.k_tilde_b_diag, f_params, weight=wt)
         lambda_m, lambda_var = lambda_moments(kern.a, kern.K_b, kern.Kvec,
                                               m_b, V_b)
-        logA, _ = lbfgs_minimize(
-            partial(_fparam_objective, r=r, lambda_m=lambda_m,
-                    lambda_var=lambda_var, wt=wt),
-            f_params["logA"], cfg.n_fparamstep,
-            max_linesearch_steps=cfg.max_linesearch_steps)
+        logA, _ = _minimize(
+            cfg, partial(_fparam_objective, r=trial_axis(r),
+                         lambda_m=trial_axis(lambda_m),
+                         lambda_var=trial_axis(lambda_var), wt=wt),
+            f_params["logA"], cfg.n_fparamstep, lanes)
         lam0 = lambda0_given_logA(logA, r, lambda_m, lambda_var, weight=wt)
         f_params = {"logA": logA, "lambda0": lam0}
     return m_b, V_b, f_params, lambda_m, lambda_var
@@ -244,11 +292,20 @@ def _mstep_objective(theta: Theta, x, xtilde, r, es: Eigenspace, m_b, V_b,
     else:
         K_tilde, K, Kvec = _masked_grams(theta_c, x, xtilde, shared, cfg,
                                          win, backend, wt, wi)
+    loss = _mstep_loss(K_tilde, K, Kvec, es, m_b, V_b, f_params, r, shared,
+                       wt)
+    return torch.where(ok & torch.isfinite(loss), loss, float("inf"))
+
+
+def _mstep_loss(K_tilde, K, Kvec, es: Eigenspace, m_b, V_b, f_params, r,
+                shared: bool, wt=None):
+    """The M-step's negative log-marginal from the trial Grams, with the
+    eigenspace fixed (of one cell, or of a stack of items)."""
     B = es.B
-    K_tilde_b = B.T @ (K_tilde @ B)
-    K_tilde_b = 0.5 * (K_tilde_b + K_tilde_b.T)
+    K_tilde_b = B.mT @ (K_tilde @ B)
+    K_tilde_b = 0.5 * (K_tilde_b + K_tilde_b.mT)
     K_b = K @ B
-    K_tilde_inv_b = masked_inverse(K_tilde_b, es.keep)
+    K_tilde_inv_b = masked_inverse_spd(K_tilde_b, es.keep)
     a = B if shared else K_b @ K_tilde_inv_b
     lambda_m, lambda_var = lambda_moments(a, K_b, Kvec, m_b, V_b)
     f_mean = mean_f_given_lambda_moments(f_params, lambda_m, lambda_var)
@@ -258,8 +315,7 @@ def _mstep_objective(theta: Theta, x, xtilde, r, es: Eigenspace, m_b, V_b,
     kl = kl_divergence(m_b, V_b, es, K_tilde_b=K_tilde_b,
                        K_tilde_inv_b=K_tilde_inv_b, skip_logdet_V=True,
                        chol_only=True)
-    loss = -(ell - kl)
-    return torch.where(ok & torch.isfinite(loss), loss, float("inf"))
+    return -(ell - kl)
 
 
 def _track_update(track: Track, i: int, ell, kl, theta, f_params,
@@ -375,8 +431,7 @@ def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
                       m_b=m_b, V_b=V_b, f_params=f_params, shared=shared,
                       cfg=cfg, lower=lower, upper=upper, win=win, xcrop=xcrop,
                       backend=backend, wt=wt, wi=wi)
-        theta, _ = lbfgs_minimize(obj, theta, cfg.n_mstep,
-                                  max_linesearch_steps=cfg.max_linesearch_steps)
+        theta, _ = _minimize(cfg, obj, theta, cfg.n_mstep)
 
     # Rollback on numerical failure (utils.py:2127-2189): keep the state
     # this iteration started from and freeze.
@@ -393,17 +448,16 @@ def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
 
 
 def _fit_finalize(c: Carry, cfg: FitConfig) -> Carry:
-    """Final V_b symmetry / PSD repair (utils.py:2243-2248)."""
-    V_b = 0.5 * (c.V_b + c.V_b.T)
+    """Final V_b symmetry / PSD repair (utils.py:2243-2248), of one cell or
+    of each cell of a stack."""
+    V_b = 0.5 * (c.V_b + c.V_b.mT)
     keepf = c.kern.es.keep.to(V_b.dtype)
-    padded = V_b + torch.diag(1.0 - keepf)
-    finite = torch.all(torch.isfinite(padded))
-    eye = torch.eye(V_b.shape[0], dtype=V_b.dtype, device=V_b.device)
-    ev = torch.linalg.eigvalsh(torch.where(finite, padded, eye))
-    min_eig = torch.where(finite, torch.min(ev), float("nan"))
-    V_b = torch.where(min_eig <= 0,
-                      V_b + eye * cfg.eigval_tol * keepf[:, None]
-                      * keepf[None, :], V_b)
+    ev, finite = _eigvalsh_safe(V_b + torch.diag_embed(1.0 - keepf))
+    min_eig = torch.where(finite, ev.amin(-1), float("nan"))
+    eye = torch.eye(V_b.shape[-1], dtype=V_b.dtype, device=V_b.device)
+    V_b = torch.where((min_eig <= 0)[..., None, None],
+                      V_b + eye * cfg.eigval_tol * keepf[..., :, None]
+                      * keepf[..., None, :], V_b)
     return c._replace(V_b=V_b)
 
 
@@ -562,3 +616,284 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
         k_tilde_inv_diag=es.k_tilde_inv_diag, K_tilde=kern.K_tilde,
         K=kern.K, Kvec=kern.Kvec, K_b=kern.K_b, a=kern.a, track=carry.track,
         failed=carry.failed, failed_at=carry.failed_at, timing=timing)
+
+
+# ---------------------------------------------------------------------------
+# The whole-fit program on a cell axis (the JAX ``_fit_program`` as
+# ``parallel/population.py`` vmaps it)
+# ---------------------------------------------------------------------------
+#
+# Every tensor of the carry has a leading cell axis: theta and f-params are
+# dicts of (L,) tensors, m_b (L, ntilde), the track (L, maxiter, ...),
+# failed (L,) and failed_at (L,).  The program is branch-free in the data:
+# kernels and eigenspace are rebuilt every iteration, both inner
+# optimizations are the batched Armijo L-BFGS, and rollback and freeze are
+# per-cell selections.  The crop window is fixed for the whole program:
+# per-cell corners with one shared side.
+
+Cells = Tuple[torch.Tensor, torch.Tensor, Optional[Tuple[Any, Any, int]]]
+
+
+def cell_stimuli(x, xtilde, shared: bool, cfg: FitConfig,
+                 win=None) -> Cells:
+    """The program's theta-independent stimuli: (x, xtilde, None) on the
+    full frame, or each cell's crop at its corner ``win = (i0s, j0s, w)``:
+    (xc (L, nt, w^2), xtc (L, ntilde, w^2), win), cropped once."""
+    if win is None:
+        return x, xtilde, None
+    i0s, j0s, w = win
+    xc = crop_images(x, i0s, j0s, w, cfg.n_px_side)
+    xtc = xc if shared else crop_images(xtilde, i0s, j0s, w, cfg.n_px_side)
+    return xc, xtc, win
+
+
+# An item's value and gradient hold about twice the device memory of its
+# value alone (the backward's planes beside the forward's saved ones), so
+# the M-step's gradient call runs in chunks of half the ladder's items.
+GRAD_CHUNK_DIVISOR = 2
+
+
+def _chunks(n: int, max_items: Optional[int]) -> List[slice]:
+    """Slices of at most ``max_items`` items that cover range(n) (one slice
+    when max_items is None)."""
+    size = n if max_items is None else max(1, max_items)
+    return [slice(s0, min(s0 + size, n)) for s0 in range(0, n, size)]
+
+
+def _cell_grams(theta: Theta, stim: Cells, lane, shared: bool,
+                cfg: FitConfig, backend: Optional[str] = None,
+                max_items: Optional[int] = None):
+    """(K_tilde, K, Kvec) of a stack of items at theta (B,): item b belongs
+    to cell ``lane[b]`` (None: item b is cell b).  The items run in chunks
+    of at most ``max_items`` (the memory budget of one chunk of Grams; None:
+    one chunk)."""
+    x, xtilde, win = stim
+    parts = []
+    for sl in _chunks(theta["Amp"].shape[0], max_items):
+        th = {k: v[sl] for k, v in theta.items()}
+        if win is None:
+            parts.append(gram_matrices(th, x, xtilde, cfg.n_px_side, shared,
+                                       cfg.alpha_threshold, backend))
+            continue
+        i0, j0, w = win
+        cells = sl if lane is None else lane[sl]
+        xc = x[cells]
+        xtc = xc if shared else xtilde[cells]
+        parts.append(gram_matrices_precropped(
+            th, xc, xtc, cfg.n_px_side, shared, i0[cells], j0[cells], w,
+            cfg.alpha_threshold, backend))
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+class _Precomputed(torch.autograd.Function):
+    """``value`` (items,) whose gradient with respect to each input (items,)
+    is the matching precomputed one, item by item (each item's value
+    depends on its own entry of each input alone)."""
+
+    @staticmethod
+    def forward(ctx, value, *inputs_then_grads):
+        ctx.save_for_backward(*inputs_then_grads[len(inputs_then_grads) // 2:])
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = ctx.saved_tensors
+        return (None, *(g * d for d in grads), *(None for _ in grads))
+
+
+def _gradient_now(loss: torch.Tensor, inputs: Theta) -> torch.Tensor:
+    """``loss`` (items,) with its gradient with respect to ``inputs`` taken
+    at once: the result has the same values and hands that gradient back to
+    the caller's backward, so the graph behind ``loss`` (the Grams' saved
+    planes) is freed now instead of living until then."""
+    xs = list(inputs.values())
+    grads = torch.autograd.grad(loss.sum(), xs, allow_unused=True)
+    grads = [torch.zeros_like(x) if d is None else d
+             for x, d in zip(xs, grads)]
+    return _Precomputed.apply(loss.detach(), *xs, *grads)
+
+
+def _mstep_objective_cells(theta: Theta, stim: Cells, r, es: Eigenspace,
+                           m_b, V_b, f_params, shared: bool, cfg: FitConfig,
+                           lower, upper, backend: Optional[str] = None,
+                           max_items: Optional[int] = None):
+    """The M-step objective of every (cell, trial) item: theta a dict of
+    (L, T) tensors, the other arguments the cells' (L, ...) state; returns
+    (L, T).  The L x T items run in chunks of at most ``max_items`` (the
+    memory budget of one chunk of Grams); under autograd, in chunks of
+    ``max_items // GRAD_CHUNK_DIVISOR``, each chunk's gradient taken before
+    the next chunk is built."""
+    L, T = theta["Amp"].shape
+    n = L * T
+    flat = {k: v.reshape(n) for k, v in theta.items()}
+    lane = torch.arange(n, device=m_b.device) // T
+    grad = torch.is_grad_enabled()
+    if grad and max_items is not None:
+        max_items = max_items // GRAD_CHUNK_DIVISOR
+    out = []
+    for sl in _chunks(n, max_items):
+        ln = lane[sl]
+        th = {k: v[sl] for k, v in flat.items()}
+        ok = theta_in_bounds(th, lower, upper)
+        grams = _cell_grams(clip_theta(th, lower, upper), stim, ln, shared,
+                            cfg, backend)
+        es_i = Eigenspace(*(t[ln] for t in es))
+        loss = _mstep_loss(*grams, es_i, m_b[ln], V_b[ln],
+                           {k: v[ln] for k, v in f_params.items()}, r[ln],
+                           shared)
+        loss = torch.where(ok & torch.isfinite(loss), loss, float("inf"))
+        if grad and loss.requires_grad:
+            loss = _gradient_now(loss, th)
+        out.append(loss)
+    return torch.cat(out).reshape(L, T)
+
+
+def _track_update_cells(track: Track, i: int, ell, kl, theta, f_params,
+                        es: Eigenspace, m_b, V_b, cfg: FitConfig,
+                        commit=None) -> None:
+    """Write row i of each cell's track in place; a cell where ``commit``
+    (L,) is False keeps its old row."""
+    def put(buf, val):
+        val = val.to(buf.dtype)
+        if commit is not None:
+            val = torch.where(commit.view(-1, *[1] * (val.dim() - 1)), val,
+                              buf[:, i])
+        buf[:, i] = val
+
+    put(track.logmarginal, ell - kl)
+    put(track.loglikelihood, ell)
+    put(track.KL, kl)
+    for k in THETA_KEYS:
+        put(track.theta[k], theta[k])
+    put(track.logA, f_params["logA"])
+    put(track.lambda0, f_params["lambda0"])
+    put(track.n_eigen, es.keep.sum(-1))
+    if cfg.track_variational:
+        put(track.m_b, m_b)
+        put(track.V_b, V_b)
+
+
+def _where_cells(mask, a, b):
+    """Per cell: ``a`` where mask (L,), else ``b``, over tensors, dicts and
+    named tuples alike."""
+    if isinstance(a, torch.Tensor):
+        return torch.where(mask.view(-1, *[1] * (a.dim() - 1)), a, b)
+    if isinstance(a, dict):
+        return {k: _where_cells(mask, a[k], b[k]) for k in a}
+    parts = [_where_cells(mask, u, v) for u, v in zip(a, b)]
+    return type(a)(*parts) if hasattr(a, "_fields") else tuple(parts)
+
+
+def _fit_init_cells(stim: Cells, rs, theta0: Theta, f_params0: FParams,
+                    shared: bool, cfg: FitConfig,
+                    backend: Optional[str] = None,
+                    max_items: Optional[int] = None) -> Carry:
+    """``_fit_init`` for every cell at once, from m = 0 and V = K_tilde."""
+    L, ntilde = rs.shape[0], stim[1].shape[-2]
+    dtype, device = rs.dtype, rs.device
+    kern = _kernel_state(*_cell_grams(theta0, stim, None, shared, cfg,
+                                      backend, max_items), shared, cfg)
+    es = kern.es
+    m_b = mv(es.B.mT, torch.zeros((L, ntilde), dtype=dtype, device=device))
+    V_b = torch.diag_embed(es.k_tilde_b_diag)
+    ld_V0 = torch.sum(torch.log(torch.where(
+        es.keep, es.eigvals, torch.ones_like(es.eigvals))), dim=-1)
+    lambda_m, lambda_var = lambda_moments(kern.a, kern.K_b, kern.Kvec,
+                                          m_b, V_b)
+    f_mean = mean_f_given_lambda_moments(f_params0, lambda_m, lambda_var)
+    ell0 = poisson_ell(rs, f_mean, lambda_m, f_params0)
+    kl0 = kl_divergence(m_b, V_b, es, logdet_V=ld_V0)
+
+    maxiter = cfg.maxiter
+    nvar = ntilde if cfg.track_variational else 0
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros((L, maxiter) + shape, dtype=dt, device=device)
+
+    track = Track(
+        logmarginal=zeros(), loglikelihood=zeros(), KL=zeros(),
+        theta={k: zeros() for k in THETA_KEYS}, logA=zeros(),
+        lambda0=zeros(), n_eigen=zeros(dt=torch.int32),
+        m_b=zeros(nvar), V_b=zeros(nvar, nvar))
+    _track_update_cells(track, 0, ell0, kl0, theta0, f_params0, es, m_b,
+                        V_b, cfg)
+    return Carry(theta0, f_params0, m_b, V_b, kern, lambda_m, lambda_var,
+                 track, torch.zeros(L, dtype=torch.bool, device=device),
+                 torch.full((L,), -1, dtype=torch.int32, device=device))
+
+
+def _fit_iteration_cells(i: int, c: Carry, stim: Cells, rs, shared: bool,
+                         cfg: FitConfig, bounds, do_mstep: bool = True,
+                         backend: Optional[str] = None,
+                         max_items: Optional[int] = None) -> Carry:
+    """One EM iteration of every cell (JAX ``_fit_iteration`` under vmap):
+    no host branch on the data.  A cell whose iteration is not finite
+    reverts to the state it started from and is marked failed at i; a
+    failed cell stays frozen."""
+    lower, upper = bounds
+    theta, f_params = c.theta, c.f_params
+    m_b, V_b, kern = c.m_b, c.V_b, c.kern
+
+    if cfg.n_mstep > 0:
+        kern_new = _kernel_state(*_cell_grams(theta, stim, None, shared, cfg,
+                                              backend, max_items),
+                                 shared, cfg)
+        m_b, V_b = reproject(kern_new.es, kern.es, m_b, V_b)
+        kern = kern_new
+
+    lambda_m, lambda_var = lambda_moments(kern.a, kern.K_b, kern.Kvec,
+                                          m_b, V_b)
+    lam0 = lambda0_given_logA(f_params["logA"], rs, lambda_m, lambda_var)
+    f_params = {"logA": f_params["logA"], "lambda0": lam0}
+    if cfg.n_estep > 0:
+        m_b, V_b, f_params, lambda_m, lambda_var = _estep_block(
+            rs, kern, m_b, V_b, f_params, lambda_m, lambda_var, cfg,
+            lanes=True)
+
+    f_mean = mean_f_given_lambda_moments(f_params, lambda_m, lambda_var)
+    ell = poisson_ell(rs, f_mean, lambda_m, f_params)
+    kl = kl_divergence(m_b, V_b, kern.es)
+    theta_start = theta
+
+    if cfg.n_mstep > 0 and do_mstep:
+        obj = partial(_mstep_objective_cells, stim=stim, r=rs, es=kern.es,
+                      m_b=m_b, V_b=V_b, f_params=f_params, shared=shared,
+                      cfg=cfg, lower=lower, upper=upper, backend=backend,
+                      max_items=max_items)
+        theta, _ = _minimize(cfg, obj, theta, cfg.n_mstep, lanes=True)
+
+    finite = (torch.isfinite(ell - kl) & torch.isfinite(m_b).all(-1)
+              & torch.isfinite(V_b).flatten(-2).all(-1)
+              & torch.isfinite(torch.stack([theta[k] for k in THETA_KEYS],
+                                           -1)).all(-1))
+    commit = finite & ~c.failed
+    _track_update_cells(c.track, i, ell, kl, theta_start, f_params, kern.es,
+                        m_b, V_b, cfg, commit)
+    new = Carry(theta, f_params, m_b, V_b, kern, lambda_m, lambda_var,
+                c.track, c.failed, c.failed_at)
+    out = _where_cells(commit, new[:7], c[:7])
+    failed_now = ~finite & ~c.failed
+    return Carry(*out, c.track, c.failed | failed_now,
+                 torch.where(failed_now, i, c.failed_at).to(torch.int32))
+
+
+def fit_cells_program(stim: Cells, rs, theta0: Theta, f_params0: FParams,
+                      shared: bool, cfg: FitConfig, bounds,
+                      backend: Optional[str] = None,
+                      max_items: Optional[int] = None) -> Carry:
+    """The whole EM fit of every cell (JAX ``_fit_program`` vmapped over
+    cells, at full rank): init, maxiter - 1 iterations (the last without an
+    M-step), finalize.  ``max_items`` bounds the items of one chunk of Grams
+    (None: every item at once).  Returns the cell-stacked carry."""
+    with torch.no_grad():
+        carry = _fit_init_cells(stim, rs, theta0, f_params0, shared, cfg,
+                                backend, max_items)
+        for i in range(1, cfg.maxiter):
+            carry = _fit_iteration_cells(i, carry, stim, rs, shared, cfg,
+                                         bounds,
+                                         do_mstep=(i < cfg.maxiter - 1),
+                                         backend=backend,
+                                         max_items=max_items)
+        return _fit_finalize(carry, cfg)

@@ -1,7 +1,11 @@
 """Posterior moments, firing-rate link, Poisson expected log-likelihood, KL
 (counterpart of ``gaussian_processes_tpu/models/moments.py``; formulas of
 Spatial_GP_repo/utils.py:1072-1337).  Hyperparameter gradients come from
-autograd."""
+autograd.
+
+Every function also takes a leading cell axis (vectors (L, n), matrices
+(L, n, n), f-params (L,)), and the f-param functions further batch axes in
+the f-params (the line-search trials, (L, T) against (L, 1, nt) moments)."""
 
 from __future__ import annotations
 
@@ -9,8 +13,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..ops.stabilize import (Eigenspace, logdet_with_fallback,
-                             masked_logdet_chol)
+from ..ops.stabilize import (Eigenspace, dot, logdet_with_fallback,
+                             masked_logdet_chol, mv)
 
 FParams = Dict[str, torch.Tensor]
 
@@ -21,8 +25,8 @@ def lambda_moments(a: torch.Tensor, K_b: torch.Tensor, Kvec: torch.Tensor,
     """Marginal posterior mean/variance of lambda at the training points:
     lambda_m = a m ;  lambda_var = Kvec + sum(-K_b . a + a . (a V), axis=1)
     (reference: utils.py:1072-1124)."""
-    lambda_m = a @ m_b
-    lambda_var = Kvec + torch.sum(-K_b * a + a * (a @ V_b), dim=1)
+    lambda_m = mv(a, m_b)
+    lambda_var = Kvec + torch.sum(-K_b * a + a * (a @ V_b), dim=-1)
     return lambda_m, lambda_var
 
 
@@ -30,9 +34,9 @@ def mean_f_given_lambda_moments(f_params: FParams, lambda_m: torch.Tensor,
                                 lambda_var: torch.Tensor) -> torch.Tensor:
     """<f> = exp(A lambda_m + 0.5 A^2 lambda_var + lambda0)
     (reference: utils.py:1126-1141)."""
-    A = torch.exp(f_params["logA"])
+    A = torch.exp(f_params["logA"])[..., None]
     return torch.exp(A * lambda_m + 0.5 * A * A * lambda_var
-                     + f_params["lambda0"])
+                     + f_params["lambda0"][..., None])
 
 
 def lambda0_given_logA(logA: torch.Tensor, r: torch.Tensor,
@@ -41,12 +45,12 @@ def lambda0_given_logA(logA: torch.Tensor, r: torch.Tensor,
     """Closed-form optimal lambda0 = log sum(r) - logsumexp(A lam_m +
     0.5 A^2 lam_var) (reference: utils.py:1215-1229).  ``weight`` (0/1)
     masks padded training points out of both sums."""
-    A = torch.exp(logA)
+    A = torch.exp(logA)[..., None]
     z = A * lambda_m + 0.5 * A * A * lambda_var
     if weight is not None:
         z = torch.where(weight > 0, z, float("-inf"))
         r = r * weight
-    return torch.log(torch.sum(r)) - torch.logsumexp(z, dim=0)
+    return torch.log(torch.sum(r, dim=-1)) - torch.logsumexp(z, dim=-1)
 
 
 def poisson_ell(r: torch.Tensor, f_mean: torch.Tensor, lambda_m: torch.Tensor,
@@ -59,8 +63,8 @@ def poisson_ell(r: torch.Tensor, f_mean: torch.Tensor, lambda_m: torch.Tensor,
     if weight is not None:
         r = r * weight
         f_mean = f_mean * weight
-    return (A * torch.dot(r, lambda_m) + f_params["lambda0"] * torch.sum(r)
-            - torch.sum(f_mean))
+    return (A * dot(r, lambda_m) + f_params["lambda0"] * torch.sum(r, dim=-1)
+            - torch.sum(f_mean, dim=-1))
 
 
 def kl_divergence(m_b: torch.Tensor, V_b: torch.Tensor, es: Eigenspace,
@@ -84,13 +88,14 @@ def kl_divergence(m_b: torch.Tensor, V_b: torch.Tensor, es: Eigenspace,
     keep = es.keep
     if K_tilde_inv_b is None:
         kinv = es.k_tilde_inv_diag
-        quad = torch.dot(m_b, kinv * m_b)
-        tr = torch.dot(torch.diagonal(V_b), kinv)
+        quad = dot(m_b, kinv * m_b)
+        tr = dot(torch.diagonal(V_b, dim1=-2, dim2=-1), kinv)
         safe = torch.where(keep, es.eigvals, torch.ones_like(es.eigvals))
-        logdet_K = torch.sum(torch.log(safe))
+        logdet_K = torch.sum(torch.log(safe), dim=-1)
     else:
-        quad = torch.dot(m_b, K_tilde_inv_b @ m_b)
-        tr = torch.trace(V_b @ K_tilde_inv_b)
+        quad = dot(m_b, mv(K_tilde_inv_b, m_b))
+        tr = torch.diagonal(V_b @ K_tilde_inv_b, dim1=-2,
+                            dim2=-1).sum(-1)
         if chol_only:
             logdet_K = masked_logdet_chol(K_tilde_b, keep)
         else:

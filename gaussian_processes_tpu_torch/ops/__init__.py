@@ -3,6 +3,6 @@ from .kernels import (
     pixel_coords, smooth_factor,
 )
 from .stabilize import (
-    Eigenspace, compute_eigenspace, logdet_with_fallback, masked_inverse,
+    Eigenspace, compute_eigenspace, logdet_with_fallback, masked_inverse_spd,
     project_gram, reproject,
 )

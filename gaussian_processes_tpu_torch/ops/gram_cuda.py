@@ -5,7 +5,13 @@ and gradient (counterpart of ``gaussian_processes_tpu/ops/gram_pallas.py``).
 
     K = X1X2 * J(clip((u1 @ s2.T + s0^2) / (X1X2 + 1e-7), -1, 1))
 
-with X1 = sqrt(q11 + s0^2), X2 = sqrt(q22 + s0^2) and
+for u1 (m, k), s2 (n, k), q11 (m,), q22 (n,) and one sigma0, or for each
+item of a batch: u1 (B, m, k), s2 (B, n, k), q11 (B, m), q22 (B, n) and
+sigma0 (B,) give K (B, m, n) in one launch (the population fit's (cell,
+line-search trial) items).  ``out=`` takes a contiguous target of K's shape,
+such as a row block ``K[r0:r0 + nb]`` of a row-major (n, n) buffer, and the
+kernel writes straight into it (no gradient then).  Here
+X1 = sqrt(q11 + s0^2), X2 = sqrt(q22 + s0^2) and
 J(c) = (sqrt(1 - c^2) + (pi - acos c) c) / pi.  On a CUDA tensor the forward
 is the hand-written kernel in ``csrc/acos_gram.cu`` (float32 only): a split
 pass writes each operand as a TF32 "big" part and a float32 remainder
@@ -24,13 +30,16 @@ passes half the gradient where the clip is exactly at a bound, as
 
 The kernels are built at first use with ``nvcc`` into ``build/kernels/`` at
 the repository root, keyed by a hash of the source and flags, and loaded
-with ``ctypes``.  ``launches`` counts Grams computed by the kernel (one per
-``acos_gram`` call on the card, whatever helper kernels it runs);
-``split_launches`` counts launches of the split pass.
+with ``ctypes``.  ``launches`` counts launches of the Gram kernel (one per
+``acos_gram`` call on the card, whatever helper kernels it runs),
+``batched_launches`` those of them with a batch axis, ``items`` the Grams
+they computed (the batch sizes summed), ``shape_launches`` the launches by
+(batch, m, n, k), and ``split_launches`` launches of the split pass.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -63,11 +72,17 @@ TARGET_FILL = 0.85
 # blocks of k each.
 MAX_SPLITS = 16
 MIN_KBLOCKS_PER_SPLIT = 4
+# The grid's z dimension (items x splits) is at most this.
+MAX_GRID_Z = 65535
 
-# Grams computed by the kernel since import (or since the caller reset it),
-# and launches of the split pass.
+# Launches of the Gram kernel since import (or since the caller reset
+# them), those with a batch axis, the Grams they computed, launches of the
+# split pass, and the Gram's launches by (batch, m, n, k).
 launches = 0
+batched_launches = 0
+items = 0
 split_launches = 0
+shape_launches = collections.Counter()
 # Seconds the last build took (None until this process built or loaded it),
 # and the compiler's register/spill report of that build.
 build_seconds: Optional[float] = None
@@ -119,7 +134,7 @@ def load_library():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.tf32_split_f32.argtypes = [ptr, ptr, i32, i32, i32, ptr]
     lib.tf32_split_f32.restype = i32
-    lib.acos_gram_f32.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+    lib.acos_gram_f32.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
     lib.acos_gram_f32.restype = i32
     lib.acos_gram_error_string.argtypes = [i32]
     lib.acos_gram_error_string.restype = ctypes.c_char_p
@@ -136,14 +151,16 @@ def load_library():
 
 @dataclasses.dataclass(frozen=True)
 class GramPlan:
-    """How the kernel covers K (m, n) over k: a grid of BM x BN tiles, each
-    computed by ``splits`` blocks over consecutive ranges of k-blocks; with
-    splits > 1 the partial sums meet in a second pass."""
+    """How the kernel covers K (batch, m, n) over k: for each item a grid of
+    BM x BN tiles, each computed by ``splits`` blocks over consecutive
+    ranges of k-blocks; with splits > 1 the partial sums meet in a second
+    pass."""
     m: int
     n: int
     k: int
     sms: int
     splits: int
+    batch: int = 1
 
     @property
     def tiles_m(self) -> int:
@@ -159,12 +176,12 @@ class GramPlan:
 
     @property
     def grid(self) -> Tuple[int, int, int]:
-        """The launch grid, (tiles of n, tiles of m, splits)."""
-        return self.tiles_n, self.tiles_m, self.splits
+        """The launch grid, (tiles of n, tiles of m, batch x splits)."""
+        return self.tiles_n, self.tiles_m, self.batch * self.splits
 
     @property
     def units(self) -> int:
-        return self.tiles_m * self.tiles_n * self.splits
+        return self.batch * self.tiles_m * self.tiles_n * self.splits
 
     @property
     def waves(self) -> int:
@@ -183,7 +200,8 @@ class GramPlan:
         return lo * BK, min(hi * BK, self.k)
 
     def __str__(self) -> str:
-        return (f"{self.tiles_m} x {self.tiles_n} tiles of {BM} x {BN}, k "
+        each = f"{self.batch} items of " if self.batch > 1 else ""
+        return (f"{each}{self.tiles_m} x {self.tiles_n} tiles of {BM} x {BN}, k "
                 f"{self.k} in {self.splits} split(s) of "
                 f"{self.kblocks / self.splits:.1f} blocks of {BK}: "
                 f"{self.units} blocks in {self.waves} wave(s) of {self.sms} "
@@ -191,19 +209,23 @@ class GramPlan:
 
 
 @functools.lru_cache(maxsize=256)
-def plan_gram(m: int, n: int, k: int, sms: int = 132) -> GramPlan:
+def plan_gram(m: int, n: int, k: int, sms: int = 132,
+              batch: int = 1) -> GramPlan:
     """The smallest split of k whose waves are at least TARGET_FILL full,
-    among splits that leave every range MIN_KBLOCKS_PER_SPLIT blocks of k
-    (at most MAX_SPLITS); where none reaches it, the fullest (the smallest
-    of equals)."""
-    if min(m, n, k, sms) < 1:
-        raise ValueError(f"plan_gram: sizes must be positive, got m={m} "
-                         f"n={n} k={k} sms={sms}")
+    counting all ``batch`` items' tiles, among splits that leave every range
+    MIN_KBLOCKS_PER_SPLIT blocks of k (at most MAX_SPLITS, and batch x
+    splits within the grid's 65535); where none reaches it, the fullest (the
+    smallest of equals)."""
+    if min(m, n, k, sms, batch) < 1 or batch > MAX_GRID_Z:
+        raise ValueError(f"plan_gram: sizes must be positive (batch at most "
+                         f"{MAX_GRID_Z}), got m={m} n={n} k={k} sms={sms} "
+                         f"batch={batch}")
     kblocks = -(-k // BK)
-    most = max(1, min(MAX_SPLITS, kblocks // MIN_KBLOCKS_PER_SPLIT))
-    best = GramPlan(m, n, k, sms, 1)
+    most = max(1, min(MAX_SPLITS, kblocks // MIN_KBLOCKS_PER_SPLIT,
+                      MAX_GRID_Z // batch))
+    best = GramPlan(m, n, k, sms, 1, batch)
     for s in range(1, most + 1):
-        plan = GramPlan(m, n, k, sms, s)
+        plan = GramPlan(m, n, k, sms, s, batch)
         if plan.fill >= TARGET_FILL:
             return plan
         if plan.fill > best.fill:
@@ -223,21 +245,24 @@ def _sm_count(device: torch.device) -> int:
 def acos_epilogue_torch(q12: torch.Tensor, q11: torch.Tensor,
                         q22: torch.Tensor, sigma0: torch.Tensor
                         ) -> torch.Tensor:
-    """K from the cross form q12 (m, n) and the norms: the kernel's
+    """K from the cross form q12 ((B,) m, n) and the norms: the kernel's
     epilogue in plain PyTorch."""
-    s02 = sigma0 * sigma0
-    X1X2 = torch.sqrt(q11 + s02)[:, None] * torch.sqrt(q22 + s02)[None, :]
-    c = torch.clamp((q12 + s02) / (X1X2 + COSDELTA_JITTER), -1.0, 1.0)
+    s02 = (sigma0 * sigma0)[..., None]
+    X1X2 = (torch.sqrt(q11 + s02)[..., :, None]
+            * torch.sqrt(q22 + s02)[..., None, :])
+    c = torch.clamp((q12 + s02[..., None]) / (X1X2 + COSDELTA_JITTER),
+                    -1.0, 1.0)
     s = torch.sqrt(torch.clamp(1.0 - c * c, min=0.0))
     return X1X2 * ((s + (math.pi - torch.acos(c)) * c) / math.pi)
 
 
 def acos_gram_torch(u1: torch.Tensor, s2: torch.Tensor, q11: torch.Tensor,
                     q22: torch.Tensor, sigma0: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of the kernel: ``u1 @ s2.T`` and the same
-    epilogue.  The forward reference for the kernel, and the forward of
-    ``AcosGram`` on CPU tensors (not differentiated itself)."""
-    return acos_epilogue_torch(u1 @ s2.T, q11, q22, sigma0)
+    """The plain PyTorch version of the kernel, 2-D or batched: ``u1 @
+    s2.T`` and the same epilogue.  The forward reference for the kernel,
+    and the forward of ``AcosGram`` on CPU tensors (not differentiated
+    itself)."""
+    return acos_epilogue_torch(u1 @ s2.mT, q11, q22, sigma0)
 
 
 def tf32_split_torch(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -260,6 +285,8 @@ def tf32_split_torch(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 def _check(u1, s2, q11, q22, sigma0):
+    """(batch, m, n, k) of a 2-D or batched call the kernel can take;
+    raises on anything else."""
     tensors = (u1, s2, q11, q22, sigma0)
     dev = u1.device
     for t in tensors:
@@ -269,18 +296,25 @@ def _check(u1, s2, q11, q22, sigma0):
             raise TypeError(f"acos_gram kernel takes float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("acos_gram kernel takes contiguous tensors")
-    if u1.dim() != 2 or s2.dim() != 2 or u1.shape[1] != s2.shape[1]:
+    nd = u1.dim()
+    if (nd not in (2, 3) or s2.dim() != nd or u1.shape[-1] != s2.shape[-1]
+            or u1.shape[:-2] != s2.shape[:-2]):
         raise ValueError(f"acos_gram: u1 {tuple(u1.shape)} and s2 "
-                         f"{tuple(s2.shape)} must be (m, k) and (n, k)")
-    m, k = u1.shape
-    n = s2.shape[0]
-    if q11.shape != (m,) or q22.shape != (n,) or sigma0.numel() != 1:
-        raise ValueError("acos_gram: q11 must be (m,), q22 (n,), sigma0 one "
-                         "element")
-    if (min(m, n, k) < 1 or max(m, n, k) >= 2 ** 31
-            or -(-m // BM) > 65535):
-        raise ValueError(f"acos_gram: unsupported sizes m={m} n={n} k={k}")
-    return m, n, k
+                         f"{tuple(s2.shape)} must be (m, k) and (n, k), or "
+                         f"(B, m, k) and (B, n, k)")
+    batch = u1.shape[0] if nd == 3 else 1
+    m, k = u1.shape[-2:]
+    n = s2.shape[-2]
+    lead = tuple(u1.shape[:-2])
+    if (q11.shape != lead + (m,) or q22.shape != lead + (n,)
+            or sigma0.numel() != batch):
+        raise ValueError("acos_gram: q11 must be ((B,) m), q22 ((B,) n), "
+                         "sigma0 one element per item")
+    if (min(m, n, k, batch) < 1 or max(m * batch, n * batch, k) >= 2 ** 31
+            or -(-m // BM) > 65535 or batch > MAX_GRID_Z):
+        raise ValueError(f"acos_gram: unsupported sizes batch={batch} m={m} "
+                         f"n={n} k={k}")
+    return batch, m, n, k
 
 
 def _raise_on(lib, rc: int, what: str):
@@ -321,31 +355,42 @@ def tf32_split(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _run(out, ws, plan: GramPlan, u1, s2, q11, q22, sigma0) -> torch.Tensor:
-    """Split both operands and launch the Gram into ``out`` (m, n), with
-    ``ws`` (plan.splits, m, n) for the partial sums when plan.splits > 1."""
-    global launches
+    """Split both operands (all items' rows in one pass each) and launch the
+    Gram into ``out`` ((B,) m, n), with ``ws`` (B, plan.splits, m, n) for
+    the partial sums when plan.splits > 1."""
+    global launches, batched_launches, items
     lib = load_library()
     kp = -(-plan.k // 4) * 4
     with torch.cuda.device(u1.device):
         stream = torch.cuda.current_stream(u1.device).cuda_stream
-        a = _split_into(lib, u1, kp, stream)
-        b = _split_into(lib, s2, kp, stream)
+        a = _split_into(lib, u1.reshape(-1, plan.k), kp, stream)
+        b = _split_into(lib, s2.reshape(-1, plan.k), kp, stream)
         rc = lib.acos_gram_f32(a.data_ptr(), b.data_ptr(), q11.data_ptr(),
                                q22.data_ptr(), sigma0.data_ptr(),
                                out.data_ptr(), ws.data_ptr(), plan.m, plan.n,
-                               kp, plan.splits, stream)
+                               kp, plan.splits, plan.batch, stream)
     _raise_on(lib, rc, "acos_gram")
     launches += 1
+    batched_launches += u1.dim() == 3
+    items += plan.batch
+    shape_launches[(plan.batch, plan.m, plan.n, plan.k)] += 1
     return out
 
 
-def _launch(u1, s2, q11, q22, sigma0) -> torch.Tensor:
-    m, n, k = _check(u1, s2, q11, q22, sigma0)
-    plan = plan_gram(m, n, k, _sm_count(u1.device))
-    out = torch.empty((m, n), dtype=torch.float32, device=u1.device)
+def _launch(u1, s2, q11, q22, sigma0, out=None) -> torch.Tensor:
+    batch, m, n, k = _check(u1, s2, q11, q22, sigma0)
+    plan = plan_gram(m, n, k, _sm_count(u1.device), batch)
+    shape = tuple(u1.shape[:-2]) + (m, n)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=u1.device)
+    elif (out.shape != shape or out.dtype != torch.float32
+          or out.device != u1.device or not out.is_contiguous()):
+        raise ValueError(f"acos_gram: out must be a contiguous float32 "
+                         f"{shape} on {u1.device}")
     ws = out
     if plan.splits > 1:
-        ws = torch.empty((plan.splits, m, n), dtype=torch.float32,
+        # never the target itself: out may be a view into a larger matrix
+        ws = torch.empty((batch, plan.splits, m, n), dtype=torch.float32,
                          device=u1.device)
     return _run(out, ws, plan, u1, s2, q11, q22, sigma0)
 
@@ -357,19 +402,16 @@ class AcosGram(torch.autograd.Function):
     @staticmethod
     def forward(ctx, u1, s2, q11, q22, sigma0):
         ctx.save_for_backward(u1, s2, q11, q22, sigma0)
-        if u1.is_cuda:
-            return _launch(u1.contiguous(), s2.contiguous(), q11.contiguous(),
-                           q22.contiguous(), sigma0.reshape(1).contiguous())
-        return acos_gram_torch(u1, s2, q11, q22, sigma0)
+        return _forward(u1, s2, q11, q22, sigma0)
 
     @staticmethod
     def backward(ctx, g):
         u1, s2, q11, q22, sigma0 = ctx.saved_tensors
-        s02 = sigma0 * sigma0
+        s02 = (sigma0 * sigma0)[..., None]
         X1 = torch.sqrt(q11 + s02)
         X2 = torch.sqrt(q22 + s02)
-        P = X1[:, None] * X2[None, :]
-        num = u1 @ s2.T + s02
+        P = X1[..., :, None] * X2[..., None, :]
+        num = u1 @ s2.mT + s02[..., None]
         den = P + COSDELTA_JITTER
         ratio = num / den
         a = torch.abs(ratio)
@@ -382,21 +424,41 @@ class AcosGram(torch.autograd.Function):
         g_ratio = g * P * (pi_minus_acos / math.pi) * dclip
         g_num = g_ratio / den                        # = dL/dq12
         g_P = g * J - g_ratio * ratio / den
-        g_a = (g_P * X2[None, :]).sum(1) / (2.0 * X1)    # dL/dq11
-        g_b = (g_P * X1[:, None]).sum(0) / (2.0 * X2)    # dL/dq22
+        g_a = (g_P * X2[..., None, :]).sum(-1) / (2.0 * X1)    # dL/dq11
+        g_b = (g_P * X1[..., :, None]).sum(-2) / (2.0 * X2)    # dL/dq22
         du1 = ds2 = dsig = None
         if ctx.needs_input_grad[0]:
             du1 = g_num @ s2
         if ctx.needs_input_grad[1]:
-            ds2 = g_num.T @ u1
+            ds2 = g_num.mT @ u1
         if ctx.needs_input_grad[4]:
-            g_s02 = g_a.sum() + g_b.sum() + g_num.sum()
+            g_s02 = g_a.sum(-1) + g_b.sum(-1) + g_num.sum((-2, -1))
             dsig = (g_s02 * 2.0 * sigma0).reshape(sigma0.shape)
         return du1, ds2, g_a, g_b, dsig
 
 
+def _forward(u1, s2, q11, q22, sigma0, out=None):
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    if u1.is_cuda:
+        batch = u1.shape[0] if u1.dim() == 3 else 1
+        return _launch(u1.contiguous(), s2.contiguous(), q11.contiguous(),
+                       q22.contiguous(), sigma0.reshape(batch).contiguous(),
+                       out)
+    K = acos_gram_torch(u1, s2, q11, q22, sigma0)
+    return K if out is None else out.copy_(K)
+
+
 def acos_gram(u1: torch.Tensor, s2: torch.Tensor, q11: torch.Tensor,
-              q22: torch.Tensor, sigma0: torch.Tensor) -> torch.Tensor:
+              q22: torch.Tensor, sigma0: torch.Tensor,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K (m, n) for u1 (m, k), s2 (n, k), q11 (m,), q22 (n,) and a 0-d
-    sigma0, differentiable in all five."""
-    return AcosGram.apply(u1, s2, q11, q22, sigma0)
+    sigma0, or K (B, m, n) for u1 (B, m, k), s2 (B, n, k), q11 (B, m), q22
+    (B, n) and sigma0 (B,); differentiable in all five.  With ``out`` (a
+    contiguous tensor of K's shape, which may be a view into a larger one)
+    the result is written there and returned, without a gradient."""
+    if out is None:
+        return AcosGram.apply(u1, s2, q11, q22, sigma0)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (u1, s2, q11, q22, sigma0)):
+        raise ValueError("acos_gram: out= computes no gradient")
+    return _forward(u1, s2, q11, q22, sigma0, out)

@@ -11,7 +11,12 @@ derivative.  The two big Gram contractions (K_tilde and K) go through
 PyTorch composite (the default on CPU tensors).
 
 theta is a dict of 0-d tensors; every function takes its device and dtype
-from its tensor arguments.
+from its tensor arguments.  The Gram functions also take a batch: theta a
+dict of (B,) tensors (one item per cell, or per (cell, line-search trial)
+of the population fit), per-item crop corners (B,) with one shared side,
+and stimuli shared by all items or given per item; every output then
+carries the leading item axis, and on CUDA tensors each of the two big
+contractions is one batched kernel launch.
 """
 
 from __future__ import annotations
@@ -33,7 +38,11 @@ def _grid_1d_np(n_px_side: int):
     return np.linspace(-1.0, 1.0, n_px_side)
 
 
+@functools.lru_cache(maxsize=32)
 def _lin(n_px_side: int, dtype, device) -> torch.Tensor:
+    """The 1-D pixel grid, copied to the device once per grid, dtype and
+    device (a copy per Gram would be a host synchronization on the card).
+    Callers must not write into it."""
     return torch.as_tensor(_grid_1d_np(n_px_side), dtype=dtype, device=device)
 
 
@@ -48,9 +57,9 @@ def pixel_coords(n_px_side: int, dtype=torch.float32, device=None):
 
 
 def _envelope(theta: Theta, xcord, ycord, alpha_threshold):
-    gb = torch.exp(theta["-2log2beta"])          # 1 / (4 beta^2)
-    logalpha = -gb * ((xcord - theta["eps_0x"]) ** 2 +
-                      (ycord - theta["eps_0y"]) ** 2)
+    gb = torch.exp(theta["-2log2beta"])[..., None]     # 1 / (4 beta^2)
+    logalpha = -gb * ((xcord - theta["eps_0x"][..., None]) ** 2 +
+                      (ycord - theta["eps_0y"][..., None]) ** 2)
     alpha = torch.exp(logalpha)
     mask = alpha >= alpha_threshold
     alpha_eff = torch.where(mask, alpha, torch.zeros_like(alpha))
@@ -70,7 +79,8 @@ def local_envelope(theta: Theta, n_px_side: int, dtype=None,
 
 def _smooth_1d(theta: Theta, lin: torch.Tensor) -> torch.Tensor:
     gr = torch.exp(theta["-log2rho2"]).to(lin.dtype)     # 1 / (2 rho^2)
-    return torch.exp(-gr * (lin[:, None] - lin[None, :]) ** 2)
+    return torch.exp(-gr[..., None, None]
+                     * (lin[..., :, None] - lin[..., None, :]) ** 2)
 
 
 def smooth_factor(theta: Theta, n_px_side: int, dtype=None) -> torch.Tensor:
@@ -100,15 +110,16 @@ def materialize_C(theta: Theta, n_px_side: int, dtype=None,
 def smooth_apply(S: torch.Tensor, w: torch.Tensor, n_px_side: int,
                  Sx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Apply the separable smoothness prior to flattened images w
-    (batch, nx): reshape to (batch, n, n), compute Sy W Sx, flatten back.
+    ((B,) b, nx): reshape to ((B,) b, n, n), compute Sy W Sx, flatten back.
     ``Sx`` defaults to S (full grid); a crop window passes distinct row and
-    column factors."""
-    b = w.shape[0]
+    column factors.  Factors (B, n, n) apply item by item to w (B, b, nx)."""
     if Sx is None:
         Sx = S
-    imgs = w.reshape(b, n_px_side, n_px_side)
+    if S.dim() == 3:
+        S, Sx = S[:, None], Sx[:, None]
+    imgs = w.reshape(*w.shape[:-1], n_px_side, n_px_side)
     out = torch.matmul(torch.matmul(S, imgs), Sx)
-    return out.reshape(b, n_px_side * n_px_side)
+    return out.reshape(*w.shape[:-1], n_px_side * n_px_side)
 
 
 # ---------------------------------------------------------------------------
@@ -152,19 +163,38 @@ def crop_window_for_theta(theta: Theta, n_px_side: int,
                                     margin, bucket)
 
 
-def crop_images(x: torch.Tensor, i0: int, j0: int, w: int,
+def _per_item(i0) -> bool:
+    return isinstance(i0, torch.Tensor) and i0.dim() == 1
+
+
+def crop_images(x: torch.Tensor, i0, j0, w: int,
                 n_px_side: int) -> torch.Tensor:
     """Crop flattened images (nt, n^2) to the (w, w) window -> (nt, w^2),
-    as a contiguous copy."""
+    as a contiguous copy.  With per-item corners i0, j0 (B,) tensors, a
+    gather -> (B, nt, w^2), each item's images cropped at its own corner."""
+    if _per_item(i0):
+        a = torch.arange(w, device=x.device)
+        rows = (i0.to(x.device)[:, None] + a)[:, :, None]
+        cols = (j0.to(x.device)[:, None] + a)[:, None, :]
+        idx = (rows * n_px_side + cols).reshape(i0.shape[0], w * w)
+        return x[:, idx].movedim(1, 0).contiguous()
     imgs = x.reshape(x.shape[0], n_px_side, n_px_side)
     return imgs[:, i0:i0 + w, j0:j0 + w].reshape(x.shape[0], w * w)
 
 
-def window_coords(i0: int, j0: int, w: int, n_px_side: int, dtype,
-                  device=None):
+def window_coords(i0, j0, w: int, n_px_side: int, dtype, device=None):
     """(xcord, ycord) of the flattened window, plus the 1-D coordinate
-    slices used for the smoothness factors."""
+    slices used for the smoothness factors; with per-item corners (B,)
+    each is per item, (B, w^2) and (B, w)."""
     lin = _lin(n_px_side, dtype, device)
+    if _per_item(i0):
+        a = torch.arange(w, device=lin.device)
+        lin_y = lin[i0.to(lin.device)[:, None] + a]
+        lin_x = lin[j0.to(lin.device)[:, None] + a]
+        b = i0.shape[0]
+        return (lin_x[:, None, :].expand(b, w, w).reshape(b, w * w),
+                lin_y[:, :, None].expand(b, w, w).reshape(b, w * w),
+                lin_y, lin_x)
     lin_y = lin[i0:i0 + w]
     lin_x = lin[j0:j0 + w]
     return lin_x.repeat(w), lin_y.repeat_interleave(w), lin_y, lin_x
@@ -219,11 +249,11 @@ def acos_J(c: torch.Tensor) -> torch.Tensor:
 
 def _acos_from_quads(theta: Theta, q11, q22, q12, symmetrize: bool):
     sigma0 = theta["sigma_0"].to(q11.dtype)
-    s02 = sigma0 * sigma0
+    s02 = (sigma0 * sigma0)[..., None]
     X1 = torch.sqrt(q11 + s02)
     X2 = torch.sqrt(q22 + s02)
-    X1X2 = X1[:, None] * X2[None, :]
-    x1x2 = q12 + s02
+    X1X2 = X1[..., :, None] * X2[..., None, :]
+    x1x2 = q12 + s02[..., None]
     one = torch.ones((), dtype=q11.dtype, device=q11.device)
     # maximum/minimum rather than clamp: a value exactly on a bound passes
     # half the gradient, as jnp.clip does
@@ -231,7 +261,7 @@ def _acos_from_quads(theta: Theta, q11, q22, q12, symmetrize: bool):
                                            -one), one)
     K = X1X2 * acos_J(cosdelta)
     if symmetrize:
-        K = 0.5 * (K + K.T)
+        K = 0.5 * (K + K.mT)
     return K
 
 
@@ -260,7 +290,8 @@ def gram_matrices(theta: Theta, x: torch.Tensor, xtilde: torch.Tensor,
                   backend: Optional[str] = None):
     """K_tilde (ntilde, ntilde), K (nt, ntilde), Kvec (nt,) in one pass,
     sharing the smoothed images (reference: utils.py:1675-1680).
-    ``shared=True`` means xtilde is x, so K = K_tilde."""
+    ``shared=True`` means xtilde is x, so K = K_tilde.  A theta of (B,)
+    tensors gives (B, ...) outputs, one item per entry."""
     alpha_eff, _, _ = local_envelope(theta, n_px_side, x.dtype,
                                      alpha_threshold)
     S = smooth_factor(theta, n_px_side, x.dtype)
@@ -271,7 +302,9 @@ def gram_matrices(theta: Theta, x: torch.Tensor, xtilde: torch.Tensor,
 def _gram_core(theta: Theta, x, xtilde, alpha_eff, Sy, Sx, side: int,
                shared: bool, backend: Optional[str] = None):
     """Gram assembly over a (side x side) pixel set (full grid or crop
-    window) from a precomputed envelope and smoothing factors.
+    window) from a precomputed envelope and smoothing factors.  Batched:
+    theta (B,), alpha_eff (B, side^2), Sy/Sx (B, side, side), and x/xtilde
+    either shared (rows, side^2) or per item (B, rows, side^2).
 
     ``backend``: "cuda" routes both big contractions through the fused
     kernel wrapper ``ops/gram_cuda.acos_gram`` (float32 on the card; on a
@@ -283,12 +316,14 @@ def _gram_core(theta: Theta, x, xtilde, alpha_eff, Sy, Sx, side: int,
     if backend not in ("cuda", "torch"):
         raise ValueError(f"backend must be 'cuda' or 'torch', got {backend!r}")
     dtype = x.dtype
-    amp = theta["Amp"].to(dtype)
+    amp = theta["Amp"].to(dtype)[..., None]
     sigma0 = theta["sigma_0"].to(dtype)
+    s02 = (sigma0 * sigma0)[..., None]
+    alpha_rows = alpha_eff[..., None, :]
 
-    ut = xtilde * alpha_eff
+    ut = xtilde * alpha_rows
     st = smooth_apply(Sy, ut, side, Sx)
-    qtt_diag = amp * torch.sum(ut * st, dim=1)
+    qtt_diag = amp * torch.sum(ut * st, dim=-1)
 
     if backend == "cuda":
         from .gram_cuda import acos_gram
@@ -297,29 +332,30 @@ def _gram_core(theta: Theta, x, xtilde, alpha_eff, Sy, Sx, side: int,
         kdt = torch.float32 if x.is_cuda else dtype
 
         def gram(u, q, q2):
-            return acos_gram((u * amp).to(kdt), st.to(kdt), q.to(kdt),
-                             q2.to(kdt), sigma0.to(kdt)).to(dtype)
+            return acos_gram((u * amp[..., None]).to(kdt), st.to(kdt),
+                             q.to(kdt), q2.to(kdt),
+                             sigma0.to(kdt)).to(dtype)
 
         K_tilde = gram(ut, qtt_diag, qtt_diag)
-        K_tilde = 0.5 * (K_tilde + K_tilde.T)
+        K_tilde = 0.5 * (K_tilde + K_tilde.mT)
     else:
-        qtt = amp * (ut @ st.T)
+        qtt = amp[..., None] * (ut @ st.mT)
         K_tilde = _acos_from_quads(theta, qtt_diag, qtt_diag, qtt,
                                    symmetrize=True)
 
     if shared:
-        Kvec = qtt_diag + sigma0 * sigma0
+        Kvec = qtt_diag + s02
         return K_tilde, K_tilde, Kvec
 
-    u = x * alpha_eff
+    u = x * alpha_rows
     s = smooth_apply(Sy, u, side, Sx)
-    q_diag = amp * torch.sum(u * s, dim=1)
+    q_diag = amp * torch.sum(u * s, dim=-1)
     if backend == "cuda":
         K = gram(u, q_diag, qtt_diag)
     else:
-        q = amp * (u @ st.T)
+        q = amp[..., None] * (u @ st.mT)
         K = _acos_from_quads(theta, q_diag, qtt_diag, q, symmetrize=False)
-    Kvec = q_diag + sigma0 * sigma0
+    Kvec = q_diag + s02
     return K_tilde, K, Kvec
 
 
@@ -328,9 +364,10 @@ def gram_matrices_windowed(theta: Theta, x: torch.Tensor,
                            i0: int, j0: int, w: int,
                            alpha_threshold: float = ALPHA_THRESHOLD,
                            backend: Optional[str] = None):
-    """gram_matrices restricted to the (w, w) crop window at (i0, j0).
-    Equal to the full-grid result (up to summation order) whenever the
-    window covers the {alpha >= threshold} mask."""
+    """gram_matrices restricted to the (w, w) crop window at (i0, j0) (or
+    at per-item corners (B,) with a batched theta).  Equal to the full-grid
+    result (up to summation order) whenever the window covers the
+    {alpha >= threshold} mask."""
     if w >= n_px_side:
         return gram_matrices(theta, x, xtilde, n_px_side, shared,
                              alpha_threshold, backend)
@@ -347,7 +384,8 @@ def gram_matrices_precropped(theta: Theta, xc: torch.Tensor,
                              backend: Optional[str] = None):
     """``gram_matrices_windowed`` on already-cropped stimuli: the crop is
     theta-independent, so the M-step crops once per EM iteration and every
-    line-search evaluation starts from here."""
+    line-search evaluation starts from here.  Batched: theta (B,), corners
+    (B,), and crops shared (rows, w^2) or per item (B, rows, w^2)."""
     xcord, ycord, lin_y, lin_x = window_coords(i0, j0, w, n_px_side,
                                                xc.dtype, xc.device)
     alpha_eff, _, _ = _envelope(theta, xcord, ycord, alpha_threshold)

@@ -8,11 +8,14 @@ coordinates (reference: Spatial_GP_repo/utils.py:1682-1694, 1808-1841).
 Determinants and inverses over the kept subspace pad the dropped diagonal
 with ones.
 
+Every function also takes a leading cell axis (matrices (L, n, n), vectors
+(L, n)), item by item; ``torch.linalg`` batches natively.
+
 NaN-poison contract: a non-finite input yields NaN outputs, never an
 exception, so the fit's rollback sees the failure.  ``torch.linalg.eigh``
 and ``cholesky`` raise on bad input where JAX on CPU returns NaN, hence the
-``isfinite`` guard in ``_eigh_safe`` and ``cholesky_ex``/``inv_ex`` with
-their ``info`` mapped to NaN.
+``isfinite`` guard in ``_eigh_safe`` and ``cholesky_ex`` with its ``info``
+mapped to NaN.
 """
 
 from __future__ import annotations
@@ -44,14 +47,26 @@ def _eye_like(M: torch.Tensor) -> torch.Tensor:
     return torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
 
 
+def _finite(M: torch.Tensor) -> torch.Tensor:
+    """Per matrix: all entries finite (0-d, or (L,) for a batch)."""
+    return torch.isfinite(M).flatten(-2).all(-1)
+
+
 def _eigh_safe(M: torch.Tensor):
     """eigh with a non-finite-input guard: the factorization runs on an
-    identity stand-in when M is bad, and the returned 0-d ``finite`` flag
-    lets the caller poison its outputs."""
-    finite = torch.all(torch.isfinite(M))
-    M_safe = torch.where(finite, M, _eye_like(M))
+    identity stand-in when M is bad, and the returned ``finite`` flag (0-d,
+    or (L,) for a batch) lets the caller poison its outputs."""
+    finite = _finite(M)
+    M_safe = torch.where(finite[..., None, None], M, _eye_like(M))
     eigvals, eigvecs = torch.linalg.eigh(M_safe)
     return eigvals, eigvecs, finite
+
+
+def _eigvalsh_safe(M: torch.Tensor):
+    """``_eigh_safe`` without the eigenvectors."""
+    finite = _finite(M)
+    M_safe = torch.where(finite[..., None, None], M, _eye_like(M))
+    return torch.linalg.eigvalsh(M_safe), finite
 
 
 def _poison(ok: torch.Tensor, dtype) -> torch.Tensor:
@@ -67,13 +82,13 @@ def compute_eigenspace(K_tilde: torch.Tensor,
     max(lam_max * eigval_tol, eigval_tol) (reference: utils.py:1682-1694).
     A non-finite K_tilde yields NaN-poisoned outputs."""
     eigvals, eigvecs, finite = _eigh_safe(K_tilde)
-    poison = _poison(finite, K_tilde.dtype)
+    poison = _poison(finite, K_tilde.dtype)[..., None]
     eigvals = eigvals + poison
-    eigvecs = eigvecs + poison
-    thresh = torch.clamp(eigvals[-1:] * eigval_tol, min=eigval_tol)
+    eigvecs = eigvecs + poison[..., None]
+    thresh = torch.clamp(eigvals[..., -1:] * eigval_tol, min=eigval_tol)
     keep = eigvals > thresh
     keepf = keep.to(K_tilde.dtype)
-    B = eigvecs * keepf[None, :]
+    B = eigvecs * keepf[..., None, :]
     safe = torch.where(keep, eigvals, torch.ones_like(eigvals))
     return Eigenspace(
         B=B,
@@ -90,7 +105,7 @@ def project_gram(es: Eigenspace, K: torch.Tensor, shared: bool) -> torch.Tensor:
     points."""
     if shared:
         return es.B
-    return (K @ es.B) * es.k_tilde_inv_diag[None, :]
+    return (K @ es.B) * es.k_tilde_inv_diag[..., None, :]
 
 
 def reproject(es_new: Eigenspace, es_old: Eigenspace,
@@ -98,12 +113,22 @@ def reproject(es_new: Eigenspace, es_old: Eigenspace,
     """Carry the variational state across a change of eigenspace:
     ``V_b' = R V_b R^T``, ``m_b' = R m_b`` with R = B_new^T B_old
     (reference: utils.py:1833-1841)."""
-    R = es_new.B.T @ es_old.B
-    return R @ m_b, (R @ V_b) @ R.T
+    R = es_new.B.mT @ es_old.B
+    return mv(R, m_b), (R @ V_b) @ R.mT
+
+
+def mv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Matrix-vector product, (n, k) @ (k,) or batched (L, n, k) @ (L, k)."""
+    return A @ v if v.dim() == 1 else (A @ v[..., None])[..., 0]
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Inner product over the last axis (0-d for vectors, (L,) batched)."""
+    return torch.dot(a, b) if a.dim() == 1 else (a * b).sum(-1)
 
 
 def _pad_dropped(M: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
-    return M + torch.diag(1.0 - keep.to(M.dtype))
+    return M + torch.diag_embed(1.0 - keep.to(M.dtype))
 
 
 def masked_logdet_chol(M: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
@@ -111,39 +136,53 @@ def masked_logdet_chol(M: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
     NaN when the kept block is not positive definite (the reference's
     raised Cholesky error, utils.py:1271-1304)."""
     L, info = torch.linalg.cholesky_ex(_pad_dropped(M, keep))
-    ld = 2.0 * torch.sum(torch.log(torch.diagonal(L)))
+    ld = 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)),
+                         dim=-1)
     return ld + _poison(info == 0, M.dtype)
 
 
 def masked_logdet_eigh(M: torch.Tensor, keep: torch.Tensor,
                        eigval_tol: float = EIGVAL_TOL) -> torch.Tensor:
-    """Fallback log-determinant: eigh, keeping eigenvalues above the
+    """Fallback log-determinant: eigenvalues, keeping those above the
     relative threshold (reference's except-branch, utils.py:1282-1301).
     NaN when M is non-finite."""
-    eigvals, _, finite = _eigh_safe(_pad_dropped(M, keep))
-    thresh = torch.clamp(eigvals[-1] * eigval_tol, min=eigval_tol)
+    eigvals, finite = _eigvalsh_safe(_pad_dropped(M, keep))
+    thresh = torch.clamp(eigvals[..., -1:] * eigval_tol, min=eigval_tol)
     big = eigvals > thresh
     safe = torch.where(big, eigvals, torch.ones_like(eigvals))
-    return torch.sum(torch.log(safe)) + _poison(finite, M.dtype)
+    return torch.sum(torch.log(safe), dim=-1) + _poison(finite, M.dtype)
 
 
 def logdet_with_fallback(M: torch.Tensor, keep: torch.Tensor,
                          eigval_tol: float = EIGVAL_TOL) -> torch.Tensor:
-    """Cholesky log-determinant, with the eigh route when the factorization
-    fails (reference: utils.py:1271-1304).  One host sync decides."""
+    """Cholesky log-determinant, with the eigenvalue route where the
+    factorization fails (reference: utils.py:1271-1304), per item of a
+    batch.  One host sync decides whether the eigenvalue route runs at all
+    (a batched eigvalsh on the card synchronizes the host several times per
+    matrix)."""
     ld = masked_logdet_chol(M, keep)
-    if bool(torch.isfinite(ld)):
+    if bool(torch.isfinite(ld).all()):
         return ld
-    return masked_logdet_eigh(M, keep, eigval_tol)
+    return torch.where(torch.isfinite(ld), ld,
+                       masked_logdet_eigh(M, keep, eigval_tol))
 
 
-def masked_inverse(M: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+def masked_inverse_spd(M: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
     """Inverse of the kept block of M, zero-padded on dropped rows/cols
-    (reference: utils.py:2067).  NaN when the padded matrix is singular."""
+    (reference: utils.py:2067), for a matrix whose padded kept block is
+    positive definite (the M-step's K_tilde_b), from its Cholesky factor:
+    L^-T L^-1 by one triangular solve.  Equal to the JAX package's LU
+    ``masked_inverse`` up to rounding; NaN where the padded matrix is not
+    positive definite, where the M-step's Cholesky log-determinant makes
+    the loss +inf anyway.  ``cholesky_ex``
+    and ``solve_triangular`` never synchronize the host, where a batched
+    LU inverse on the card does, inside the library."""
     keepf = keep.to(M.dtype)
-    inv, info = torch.linalg.inv_ex(_pad_dropped(M, keep))
-    inv = inv + _poison(info == 0, M.dtype)
-    return inv * keepf[:, None] * keepf[None, :]
+    L, info = torch.linalg.cholesky_ex(_pad_dropped(M, keep))
+    L_inv = torch.linalg.solve_triangular(L, _eye_like(M).expand_as(L),
+                                          upper=False)
+    inv = L_inv.mT @ L_inv + _poison(info == 0, M.dtype)[..., None, None]
+    return inv * keepf[..., :, None] * keepf[..., None, :]
 
 
 def block_matrix_inverse(orig_inv: torch.Tensor,

@@ -434,3 +434,151 @@ def lbfgs_minimize(fun: Callable[[Any], torch.Tensor], x0: Any,
     x_best, f_best = _drive_lbfgs(vg, flat0, num_steps, memory_size,
                                   max_linesearch_steps, gtol, ftol, ftol_rel)
     return unflatten(x_best.to(device)), f_best
+
+
+# ---------------------------------------------------------------------------
+# Batched-Armijo L-BFGS (gaussian_processes_tpu/optim/lbfgs.py:
+# _two_loop and lbfgs_minimize_armijo), over a leading lane axis
+# ---------------------------------------------------------------------------
+
+def _flatten_lanes(x0):
+    """(flat (lanes, d), unflatten(v (..., d)) -> structure with the leading
+    shape of v[..., 0]).  A dict of (lanes,) tensors flattens in sorted-key
+    order (the JAX pytree order); a tensor (lanes, *shape) to (lanes, d)."""
+    if isinstance(x0, dict):
+        keys = sorted(x0)
+        flat = torch.stack([x0[k].detach() for k in keys], dim=-1)
+
+        def unflatten(v):
+            return {k: v[..., i] for i, k in enumerate(keys)}
+    else:
+        shape = x0.shape[1:]
+        flat = x0.detach().reshape(x0.shape[0], -1)
+
+        def unflatten(v):
+            return v.reshape(*v.shape[:-1], *shape)
+    return flat.clone(), unflatten
+
+
+def _two_loop_lanes(g, S, Y, rho, age):
+    """The two-loop recursion of each lane over its memory slots, newest
+    first by ``age`` (-1 = empty slot, contributing exactly nothing): the
+    direction -H g, (lanes, d)."""
+    dtype = g.dtype
+    tiny = torch.finfo(dtype).tiny
+    order = torch.argsort(-age, dim=1, stable=True)
+    valid = (age >= 0).to(dtype)
+    d = g.shape[1]
+    S_o = S.gather(1, order[..., None].expand(-1, -1, d))
+    Y_o = Y.gather(1, order[..., None].expand(-1, -1, d))
+    rho_o = rho.gather(1, order)
+    valid_o = valid.gather(1, order)
+    q = g
+    a_list = []
+    for i in range(S.shape[1]):
+        a_i = rho_o[:, i] * (S_o[:, i] * q).sum(-1) * valid_o[:, i]
+        q = q - a_i[:, None] * Y_o[:, i]
+        a_list.append(a_i)
+    # gamma scaling from the most recent pair
+    ys = (Y_o[:, 0] * Y_o[:, 0]).sum(-1)
+    sy = 1.0 / torch.where(rho_o[:, 0] > 0, rho_o[:, 0],
+                           torch.ones_like(rho_o[:, 0]))
+    gamma = torch.where((age >= 0).any(1), sy / torch.clamp(ys, min=tiny),
+                        torch.ones_like(ys))
+    r = gamma[:, None] * q
+    for i in reversed(range(S.shape[1])):
+        b_i = rho_o[:, i] * (Y_o[:, i] * r).sum(-1) * valid_o[:, i]
+        r = r + (a_list[i] - b_i)[:, None] * S_o[:, i]
+    return -r
+
+
+def lbfgs_minimize_armijo(fun: Callable[[Any], torch.Tensor], x0: Any,
+                          num_steps: int, memory_size: int = 8,
+                          ls_trials: int = 6, c1: float = 1e-4
+                          ) -> Tuple[Any, torch.Tensor]:
+    """L-BFGS with a batched Armijo ladder, independently in each lane of a
+    leading lane axis (one lane per cell in the population fit).
+
+    ``x0`` is a dict of (lanes,) tensors or a tensor (lanes, *shape).
+    ``fun`` takes the same structure with a trial axis after the lane axis
+    -- a dict of (lanes, trials) tensors, or a tensor (lanes, trials,
+    *shape) -- and returns (lanes, trials) values; lanes and trials must not
+    mix.  Each step evaluates the ladder ``0.5 ** arange(ls_trials)`` as one
+    call (no gradient), takes the first trial that satisfies Armijo with
+    c1, then one value-and-gradient call at the accepted points (trials =
+    1; autograd of the sum over lanes gives each lane its own gradient).  A
+    non-descent direction falls back to -g; a curvature pair is stored in
+    slot ``k % memory_size`` only when s.y > 1e-10 max(s.s, 1e-30); a lane
+    whose accepted value or point is not finite keeps its state (frozen),
+    and +inf is never accepted.  Returns ``(x_best, f_best)``: the best
+    finite iterate of each lane and its value.
+
+    No host synchronization: every decision is a per-lane ``torch.where``
+    (the first true trial is an argmax over an integer mask).
+    """
+    flat, unflatten = _flatten_lanes(x0)
+    lanes, d = flat.shape
+    dtype, dev = flat.dtype, flat.device
+    alphas = 0.5 ** torch.arange(ls_trials, dtype=dtype, device=dev)
+    slots = torch.arange(memory_size, device=dev)
+    tiny = torch.finfo(dtype).tiny
+
+    def vg(x):
+        xs = x.detach().clone().requires_grad_(True)
+        with torch.enable_grad():
+            v = fun(unflatten(xs[:, None, :]))[:, 0]
+            if v.requires_grad:
+                (g,) = torch.autograd.grad(v.sum(), xs)
+            else:
+                g = torch.zeros_like(xs)
+        return v.detach(), g
+
+    f, g = vg(flat)
+    S = torch.zeros((lanes, memory_size, d), dtype=dtype, device=dev)
+    Y = torch.zeros_like(S)
+    rho = torch.zeros((lanes, memory_size), dtype=dtype, device=dev)
+    age = torch.full((lanes, memory_size), -1, dtype=torch.int64, device=dev)
+    x_best = flat
+    f_best = torch.where(torch.isfinite(f), f, float("inf"))
+    for k in range(num_steps):
+        direction = _two_loop_lanes(g, S, Y, rho, age)
+        gd = (g * direction).sum(-1)
+        # non-descent direction (memory gone stale): fall back to -g
+        bad_dir = (gd >= 0) | ~torch.isfinite(gd)
+        direction = torch.where(bad_dir[:, None], -g, direction)
+        gd = torch.where(bad_dir, -(g * g).sum(-1), gd)
+
+        trials = flat[:, None, :] + alphas[None, :, None] * direction[:, None]
+        with torch.no_grad():
+            fs = fun(unflatten(trials))
+        ok = fs <= f[:, None] + c1 * alphas[None, :] * gd[:, None]
+        # first True (0 when none)
+        first = torch.argmax(ok.to(torch.int32), dim=1)
+        any_ok = ok.any(1)
+        alpha = torch.where(any_ok, alphas[first], torch.zeros_like(f))
+        x_new = flat + alpha[:, None] * direction
+        f_new, g_new = vg(x_new)
+        # reject non-finite results (the lane keeps its state)
+        finite = torch.isfinite(f_new) & torch.isfinite(x_new).all(1)
+        accept = any_ok & finite
+        x_new = torch.where(accept[:, None], x_new, flat)
+        f_new = torch.where(accept, f_new, f)
+        g_new = torch.where(accept[:, None], g_new, g)
+
+        s = x_new - flat
+        y = g_new - g
+        sy = (s * y).sum(-1)
+        store = accept & (sy > 1e-10 * torch.clamp((s * s).sum(-1),
+                                                     min=1e-30))
+        put = store[:, None] & (slots == k % memory_size)[None, :]
+        S = torch.where(put[..., None], s[:, None, :], S)
+        Y = torch.where(put[..., None], y[:, None, :], Y)
+        rho = torch.where(put, (1.0 / torch.clamp(sy, min=tiny))[:, None],
+                          rho)
+        age = age.masked_fill(put, k)
+
+        better = torch.isfinite(f_new) & (f_new < f_best)
+        x_best = torch.where(better[:, None], x_new, x_best)
+        f_best = torch.where(better, f_new, f_best)
+        flat, f, g = x_new, f_new, g_new
+    return unflatten(x_best), f_best

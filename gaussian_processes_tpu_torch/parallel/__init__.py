@@ -1,0 +1,3 @@
+from .population import (fit_cells_sequential, fit_population,
+                         population_results)
+from .large import large_cholesky, large_gram, large_posterior_mean

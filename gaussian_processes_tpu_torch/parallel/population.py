@@ -1,0 +1,221 @@
+"""Population fits: many cells, one stimulus set
+(counterpart of ``gaussian_processes_tpu/parallel/population.py``).
+
+The reference fits one retinal ganglion cell at a time; a recording holds
+tens of cells' responses to the same stimuli.  ``fit_population`` runs the
+whole EM fit of every cell at once on a leading cell axis
+(``models/fit.fit_cells_program``): each cell keeps its own
+hyperparameters, kernels, eigenspace and variational state, every Gram of
+every cell and line-search trial goes through one batched kernel launch,
+and no step reads a value back to the host to decide what to do next.
+``fit_cells_sequential`` fits the cells one after another through the
+single-cell ``fit``.
+
+The JAX package shards the cell axis over a device mesh (``mesh=``) and
+offers an ahead-of-time lowering hook (``lower_only=``); one card has no
+mesh, and the port has neither (the mesh is ROADMAP item 18).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import torch
+
+from ..config import FitConfig, resolve_device, use_full_fp32
+from ..models.fit import (Carry, FitResult, cell_stimuli, fit,
+                          fit_cells_program)
+from ..ops.kernels import crop_window_for_theta
+from ..params import default_f_params, generate_theta, theta_bounds
+
+# Bytes of device memory one (cell, trial) item of the M-step's trial ladder
+# takes, per float32 element of its stimuli (rows nt + ntilde, times the
+# contraction): the weighted images, the smoothing pass's intermediate and
+# output, the kernel's input (scaled by Amp) and the two planes of each
+# operand's split pass, with one to spare.
+LADDER_BYTES_PER_ELEMENT = 8 * 4
+# Share of the free device memory one chunk of the ladder may take.
+LADDER_MEMORY_SHARE = 0.5
+
+
+def _vmap_safe_config(cfg: FitConfig) -> FitConfig:
+    """The knobs of the batched program: the branch-free batched Armijo
+    L-BFGS at both inner call sites (``linesearch="armijo"``; the program
+    runs no other).  The per-cell results carry this config, so the
+    single-cell ``fit`` under it (on the program's window) is each lane's
+    oracle.
+
+    The JAX ``fit_population`` also caps ``max_linesearch_steps`` at 5, a
+    budget of the zoom search the program never runs, and switches off what
+    the port does not have: the Newton-Schulz E-step solver and M-step
+    inverse and their fallbacks, the projected Gram's exact fallback, the
+    trace-series log-determinant, the convergence gates (mstep_ftol,
+    mstep_ftol_rel, mstep_gtol, estep_tol) and ``remat_gram`` (here chunks
+    of Grams sized by ``ladder_items`` bound the memory instead)."""
+    if cfg.linesearch != "armijo":
+        cfg = dataclasses.replace(cfg, linesearch="armijo")
+    return cfg
+
+
+def _per_cell(values, ncells: int, dtype, device) -> Dict[str, torch.Tensor]:
+    """A dict of scalars or (ncells,) values as (ncells,) tensors."""
+    return {k: torch.as_tensor(v, dtype=dtype, device=device).expand(
+        ncells).clone() for k, v in values.items()}
+
+
+def ladder_items(nt: int, ntilde: int, k: int, device) -> Optional[int]:
+    """The number of items (cells, or (cell, trial) pairs) of one chunk of
+    Grams: of the M-step's ladder and of each kernel rebuild (the gradient
+    call takes 1/GRAD_CHUNK_DIVISOR of it, ``models/fit.py``).
+    LADDER_MEMORY_SHARE of the card's free memory (the driver's free bytes
+    plus what PyTorch's allocator holds unused) over one item's bytes.
+    None (one chunk) off the card."""
+    if torch.device(device).type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    free += (torch.cuda.memory_reserved(device)
+             - torch.cuda.memory_allocated(device))
+    per_item = LADDER_BYTES_PER_ELEMENT * (nt + ntilde) * k
+    return max(1, int(free * LADDER_MEMORY_SHARE) // per_item)
+
+
+def population_window(thetas: Dict[str, torch.Tensor], cfg: FitConfig):
+    """The program's fixed crop window (JAX ``population.py:166-183``):
+    each cell's window at ``crop_margin * 1.5`` from its initial theta, the
+    widest side shared by all and the corners clamped into the frame;
+    None when that side is the full frame."""
+    if not cfg.crop_window:
+        return None
+    ncells = thetas["Amp"].shape[0]
+    wins = [crop_window_for_theta({k: v[c] for k, v in thetas.items()},
+                                  cfg.n_px_side, cfg.alpha_threshold,
+                                  cfg.crop_margin * 1.5, cfg.crop_bucket)
+            for c in range(ncells)]
+    w_max = max(w for _, _, w in wins)
+    if w_max >= cfg.n_px_side:
+        return None
+    hi = cfg.n_px_side - w_max
+    i0s = [max(0, min(i, hi)) for i, _, _ in wins]
+    j0s = [max(0, min(j, hi)) for _, j, _ in wins]
+    device = thetas["Amp"].device
+    return (torch.tensor(i0s, device=device), torch.tensor(j0s, device=device),
+            w_max)
+
+
+def fit_population(x, rs, cfg: Optional[FitConfig] = None, xtilde=None,
+                   thetas: Optional[Dict] = None,
+                   f_params: Optional[Dict] = None, seed: int = 0,
+                   device=None, backend: Optional[str] = None):
+    """Fit every cell of ``rs`` (ncells, nt) against the stimuli ``x`` (nt,
+    nx) in one batched program.
+
+    ``device``: where the fit runs (default: x's device when x is a tensor,
+    else the CUDA card; numpy input without a card raises).  ``thetas`` and
+    ``f_params`` may carry a leading cell axis or be scalars (broadcast);
+    without ``thetas`` every cell starts from ``generate_theta`` of the
+    first cell.  Without ``xtilde`` the inducing rows are a permutation of
+    x's drawn from ``torch.Generator().manual_seed(seed)`` (the JAX package
+    draws them from ``jax.random.PRNGKey(seed)``, so the rows differ).
+    The Grams of the M-step's trial ladder, its gradient call and every
+    kernel rebuild run in chunks of items sized by ``ladder_items`` from
+    the card's free memory (one chunk on the CPU), so the memory does not
+    grow with the number of cells beyond their (ntilde, ntilde) and (nt,
+    ntilde) state.
+    ``backend`` overrides the Gram backend.
+
+    Returns ``(carry, (lower, upper))``: the cell-stacked carry (leading
+    axis = cell) and the theta bounds; ``population_results`` splits it.
+    """
+    device = resolve_device(x, device)
+    x = torch.as_tensor(x, device=device)
+    dtype = x.dtype
+    if x.is_cuda:
+        use_full_fp32()
+    rs = torch.as_tensor(rs, dtype=dtype, device=device)
+    cfg = cfg or FitConfig()
+    ncells, nt = rs.shape
+    ntilde = cfg.resolve_ntilde(nt)
+    if xtilde is None:
+        if ntilde == nt:
+            xtilde = x
+        else:
+            gen = torch.Generator().manual_seed(seed)
+            xtilde = x[torch.randperm(nt, generator=gen)[:ntilde].to(device)]
+    else:
+        xtilde = torch.as_tensor(xtilde, dtype=dtype, device=device)
+    cfg = _vmap_safe_config(dataclasses.replace(cfg,
+                                                ntilde=xtilde.shape[0]))
+    shared = xtilde is x or (xtilde.shape == x.shape
+                             and bool(torch.equal(xtilde, x)))
+
+    lower, upper = theta_bounds()
+    if thetas is None:
+        theta1, _, _ = generate_theta(x, rs[0], cfg.n_px_side)
+        thetas = theta1
+    thetas = _per_cell(thetas, ncells, dtype, device)
+    f_params = _per_cell(f_params or default_f_params(dtype, device),
+                         ncells, dtype, device)
+
+    win = population_window(thetas, cfg)
+    stim = cell_stimuli(x, xtilde, shared, cfg, win)
+    k = cfg.n_px_side ** 2 if win is None else win[2] ** 2
+    max_items = ladder_items(nt, xtilde.shape[0], k, device)
+    carry = fit_cells_program(stim, rs, thetas, f_params, shared, cfg,
+                              (lower, upper), backend, max_items)
+    return carry, (lower, upper)
+
+
+def fit_cells_sequential(x, rs, cfg: Optional[FitConfig] = None, xtilde=None,
+                         thetas: Optional[Dict] = None,
+                         f_params: Optional[Dict] = None, seed: int = 0,
+                         device=None,
+                         backend: Optional[str] = None) -> List[FitResult]:
+    """Fit the cells one after another through the single-cell ``fit``
+    (its knobs as given: zoom line search, per-iteration crop window).
+    ``thetas``/``f_params`` are scalars or carry a leading cell axis; the
+    device rule is ``fit_population``'s.  Without ``xtilde`` every cell
+    draws its inducing rows from ``torch.Generator().manual_seed(seed)``."""
+    device = resolve_device(x, device)
+    x = torch.as_tensor(x, device=device)
+    rs = torch.as_tensor(rs, dtype=x.dtype, device=device)
+    if xtilde is not None:
+        xtilde = torch.as_tensor(xtilde, dtype=x.dtype, device=device)
+
+    def cell(values, c):
+        if values is None:
+            return None
+        return {k: (v[c] if torch.as_tensor(v).dim() > 0 else v)
+                for k, v in values.items()}
+
+    return [fit(x, rs[c], cfg, xtilde=xtilde, theta=cell(thetas, c),
+                f_params=cell(f_params, c),
+                generator=torch.Generator().manual_seed(seed),
+                backend=backend)
+            for c in range(rs.shape[0])]
+
+
+def population_results(carry: Carry, cfg: FitConfig, xtilde, lower,
+                       upper) -> List[FitResult]:
+    """Split a cell-stacked carry into per-cell ``FitResult`` objects."""
+    def cell(tree, c):
+        if isinstance(tree, torch.Tensor):
+            return tree[c]
+        if isinstance(tree, dict):
+            return {k: cell(v, c) for k, v in tree.items()}
+        return type(tree)(*(cell(v, c) for v in tree))
+
+    out = []
+    for c in range(carry.m_b.shape[0]):
+        one = cell(carry, c)
+        kern, es = one.kern, one.kern.es
+        out.append(FitResult(
+            config=cfg, xtilde=xtilde, theta=one.theta, theta_lower=lower,
+            theta_upper=upper, f_params=one.f_params, m_b=one.m_b,
+            V_b=one.V_b, B=es.B, keep=es.keep, eigvals=es.eigvals,
+            k_tilde_b_diag=es.k_tilde_b_diag,
+            k_tilde_inv_diag=es.k_tilde_inv_diag, K_tilde=kern.K_tilde,
+            K=kern.K, Kvec=kern.Kvec, K_b=kern.K_b, a=kern.a,
+            track=one.track, failed=bool(one.failed),
+            failed_at=int(one.failed_at)))
+    return out

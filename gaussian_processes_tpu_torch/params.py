@@ -140,7 +140,8 @@ def clip_theta(theta: Theta, lower=None, upper=None) -> Theta:
     out = {}
     for key in THETA_KEYS:
         v = theta[key]
-        lo = torch.as_tensor(lower[key], dtype=v.dtype, device=v.device)
-        hi = torch.as_tensor(upper[key], dtype=v.dtype, device=v.device)
+        # full_like, not as_tensor: no host-to-device copy of the bound
+        lo = torch.full_like(v, lower[key])
+        hi = torch.full_like(v, upper[key])
         out[key] = torch.minimum(torch.maximum(v, lo), hi)
     return out

@@ -58,7 +58,8 @@ def jstart():
 
 
 def tstart():
-    return dict(theta=THETA0, f_params=FP0)
+    # numpy pools: without device= the loops would run on the card
+    return dict(theta=THETA0, f_params=FP0, device="cpu")
 
 
 def logA(res):
@@ -187,7 +188,22 @@ def test_unknown_selection_raises(pool):
     X, R, _, _ = pool
     for loop in (tact.active_loop, tact.active_loop_pipelined):
         with pytest.raises(ValueError, match="selection"):
-            loop(X, R, start_idx=np.arange(4), n_add=1, select="greedy")
+            loop(X, R, start_idx=np.arange(4), n_add=1, select="greedy",
+                 device="cpu")
+
+
+def test_numpy_pool_without_device_needs_a_card(pool, monkeypatch):
+    """device=None means the input tensor's device, or the card for numpy
+    input: with no card that raises instead of running on the CPU."""
+    X, R, _, _ = pool
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for loop in (tact.active_loop, tact.active_loop_pipelined):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            loop(X, R, start_idx=np.arange(4), n_add=1, theta=THETA0,
+                 f_params=FP0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tact.ab_experiment(X, R, n_start=4, n_add=1, seeds=[0],
+                           theta=THETA0, f_params=FP0)
 
 
 def test_argmax_takes_the_first_maximum_and_nan_as_maximum():

@@ -256,3 +256,142 @@ def test_argmax_on_card_matches_numpy(dev):
         u[list(nans)] = np.nan
         got = torch.argmax(torch.as_tensor(u, device=dev))
         assert got.is_cuda and int(got) == int(np.argmax(u))
+
+
+def _batched_operands(dev, B, m, n, k, seed):
+    gen = torch.Generator().manual_seed(seed)
+    u1 = torch.randn(B, m, k, generator=gen).to(dev)
+    s2 = torch.randn(B, n, k, generator=gen).to(dev)
+    s0 = (0.3 + torch.rand(B, generator=gen)).to(dev)
+    return u1, s2, (u1 * u1).sum(-1), (s2 * s2).sum(-1), s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,m,n,k", [(5, 130, 129, 1001), (3, 37, 300, 4096),
+                                     (6, 512, 512, 2048), (2, 1, 1, 1)])
+def test_batched_kernel_matches_plain_and_2d_calls(dev, B, m, n, k):
+    """One launch for B items, each with its own q11, q22 and sigma0: the
+    ragged tiles of one item read zeros, not the next item's rows (m = 130,
+    37), and the second shape splits k.  Each item also agrees with the
+    2-D call on its operands (bit for bit where both plans split k alike)."""
+    ops = _batched_operands(dev, B, m, n, k, B * 100 + m)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    launches, batched, items = (gram_cuda.launches, gram_cuda.batched_launches,
+                                gram_cuda.items)
+    K = gram_cuda.acos_gram(*ops)
+    torch.cuda.synchronize()
+    assert K.shape == (B, m, n)
+    assert gram_cuda.launches == launches + 1
+    assert gram_cuda.batched_launches == batched + 1
+    assert gram_cuda.items == items + B
+    ref = gram_cuda.acos_gram_torch(*ops)
+    assert bool(torch.isfinite(K).all())
+    assert float((K - ref).abs().max() / ref.abs().max()) <= 1e-5
+    same_plan = (gram_cuda.plan_gram(m, n, k, sms, B).splits
+                 == gram_cuda.plan_gram(m, n, k, sms).splits)
+    for b in range(B):
+        Kb = gram_cuda.acos_gram(*(t[b] for t in ops))
+        if same_plan:
+            assert torch.equal(Kb, K[b])
+        assert float((Kb - ref[b]).abs().max() / ref[b].abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_nan_in_one_item_stays_in_that_item(dev):
+    u1, s2, q11, q22, s0 = _batched_operands(dev, 4, 200, 150, 1000, 3)
+    u1[2, 37, 500] = float("nan")
+    bad = torch.isnan(gram_cuda.acos_gram(u1, s2, q11, q22, s0)).cpu()
+    assert bool(bad[2, 37].all())
+    bad[2, 37] = False
+    assert not bool(bad.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nb,k", [(300, 128, 64), (600, 100, 4096)])
+def test_out_row_block_writes_only_its_rows(dev, n, nb, k):
+    """``out=K[r0:r1]`` of a row-major (n, n) buffer: the block's rows hold
+    the Gram, every other row keeps its sentinel (the second shape splits
+    k, so its workspace must not alias the block)."""
+    gen = torch.Generator().manual_seed(n)
+    x = torch.randn(n, k, generator=gen).to(dev)
+    q = (x * x).sum(1)
+    s0 = torch.tensor(0.7, device=dev)
+    sentinel = -12345.0
+    K = torch.full((n, n), sentinel, device=dev)
+    r0, r1 = nb, min(2 * nb, n)
+    got = gram_cuda.acos_gram(x[r0:r1], x, q[r0:r1], q, s0, out=K[r0:r1])
+    torch.cuda.synchronize()
+    assert got.data_ptr() == K[r0:r1].data_ptr()
+    assert bool((K[:r0] == sentinel).all()) and bool((K[r1:] == sentinel).all())
+    ref = gram_cuda.acos_gram_torch(x[r0:r1], x, q[r0:r1], q, s0)
+    assert float((K[r0:r1] - ref).abs().max() / ref.abs().max()) <= 1e-5
+    with pytest.raises(ValueError):
+        gram_cuda.acos_gram(x[r0:r1], x, q[r0:r1], q, s0, out=K[:, :10])
+
+
+@pytest.mark.cuda
+def test_large_gram_row_blocks_match_plain(dev):
+    from gaussian_processes_tpu_torch.parallel.large import large_gram
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn(300, 16 * 16, generator=gen).to(dev)
+    theta = {"sigma_0": 1.0, "eps_0x": 0.1, "eps_0y": -0.2,
+             "-2log2beta": 1.0, "-log2rho2": 2.0, "Amp": 1.3}
+    K = large_gram(theta, x, 16, nb=128)
+    th = {k: torch.tensor(v, device=dev) for k, v in theta.items()}
+    _, ref, _ = kernels.gram_matrices(th, x, x, 16, shared=False,
+                                      backend="torch")
+    assert float((K - ref).abs().max() / ref.abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_batched_armijo_issues_no_host_sync(dev):
+    """Both inner L-BFGS calls of a population EM iteration -- the M-step
+    over every (cell, trial) Gram through the batched kernel, in chunks of
+    two items (the gradient call's one at a time), and the E-step's f-param
+    search -- run with CUDA's sync debugging set to raise on any host
+    synchronization PyTorch issues, and the profiler records no
+    synchronizing runtime call (which also sees those inside cuSOLVER or
+    MAGMA: a batched LU inverse or cholesky_solve has them)."""
+    from torch.profiler import ProfilerActivity, profile
+    import math
+    from functools import partial
+    from gaussian_processes_tpu_torch.config import FitConfig
+    from gaussian_processes_tpu_torch.models import fit as tf
+    from gaussian_processes_tpu_torch.optim.lbfgs import lbfgs_minimize_armijo
+    from gaussian_processes_tpu_torch.params import theta_bounds
+    gen = torch.Generator().manual_seed(4)
+    L, nt, npx, ntilde = 3, 96, 16, 24
+    x = torch.randn(nt, npx * npx, generator=gen).to(dev)
+    rs = torch.poisson(torch.full((L, nt), 2.0), generator=gen).to(dev)
+    cfg = FitConfig(ntilde=ntilde, n_px_side=npx, linesearch="armijo")
+    vals = {"sigma_0": 1.0, "eps_0x": 0.1, "eps_0y": -0.2,
+            "-2log2beta": 1.0, "-log2rho2": 2.0, "Amp": 1.3}
+    thetas = {k: torch.full((L,), v, device=dev) for k, v in vals.items()}
+    fps = {"logA": torch.full((L,), math.log(0.01), device=dev),
+           "lambda0": torch.ones(L, device=dev)}
+    stim = tf.cell_stimuli(x, x[:ntilde], False, cfg)
+    with torch.no_grad():
+        c = tf._fit_init_cells(stim, rs, thetas, fps, False, cfg, "cuda")
+    lower, upper = theta_bounds()
+    mstep = partial(tf._mstep_objective_cells, stim=stim, r=rs,
+                    es=c.kern.es, m_b=c.m_b, V_b=c.V_b, f_params=c.f_params,
+                    shared=False, cfg=cfg, lower=lower, upper=upper,
+                    backend="cuda", max_items=2)
+    fparam = partial(tf._fparam_objective, r=rs[:, None],
+                     lambda_m=c.lambda_m[:, None],
+                     lambda_var=c.lambda_var[:, None])
+    launches = gram_cuda.batched_launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with torch.no_grad():
+                theta, f_theta = lbfgs_minimize_armijo(mstep, c.theta, 2)
+                logA, f_logA = lbfgs_minimize_armijo(fparam, fps["logA"], 3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [e.name for e in prof.events() if "Synchronize" in e.name]
+    assert syncs == []
+    assert gram_cuda.batched_launches > launches
+    assert bool(torch.isfinite(f_theta).all() & torch.isfinite(f_logA).all())
+    assert all(bool(torch.isfinite(v).all()) for v in theta.values())

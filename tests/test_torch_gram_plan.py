@@ -239,3 +239,41 @@ def test_plan_keeps_one_split_where_the_tiles_fill_the_card():
 def test_plan_rejects_empty_sizes():
     with pytest.raises(ValueError):
         gram_cuda.plan_gram(0, 5, 5)
+
+
+@settings(max_examples=60, deadline=None)
+@given(m=st.integers(1, 700), n=st.integers(1, 700), k=st.integers(1, 6000),
+       sms=st.integers(1, 200), batch=st.integers(1, 3000))
+def test_batched_plan_counts_every_items_tiles(m, n, k, sms, batch):
+    """With a batch the grid's z runs over items x splits (within 65535),
+    every item's tiles count toward the fill, and the batch fills its waves
+    at least as well as one item (the target, or one item's best), with no
+    more splits where one item reaches the target."""
+    plan = gram_cuda.plan_gram(m, n, k, sms, batch)
+    one = gram_cuda.plan_gram(m, n, k, sms)
+    tiles_n, tiles_m, z = plan.grid
+    assert (tiles_n, tiles_m) == (one.tiles_n, one.tiles_m)
+    assert z == batch * plan.splits <= gram_cuda.MAX_GRID_Z
+    assert plan.units == batch * tiles_m * tiles_n * plan.splits
+    assert 0 < plan.fill <= 1
+    assert plan.fill >= min(gram_cuda.TARGET_FILL, one.fill)
+    if one.fill >= gram_cuda.TARGET_FILL:
+        assert plan.splits <= one.splits
+
+
+@pytest.mark.parametrize("m,n", [(512, 512), (3160, 512)])
+def test_plan_needs_no_split_for_the_populations_ladder(m, n):
+    """96 (cell, trial) items -- 16 cells x 6 trials -- at the population's
+    K_tilde and K, full frame: the items alone fill the card."""
+    plan = gram_cuda.plan_gram(m, n, 11664, sms=132, batch=96)
+    assert plan.splits == 1 and plan.fill >= gram_cuda.TARGET_FILL
+    assert plan.grid[2] == 96
+
+
+def test_plan_rejects_a_batch_beyond_the_grid():
+    with pytest.raises(ValueError):
+        gram_cuda.plan_gram(5, 5, 5, batch=gram_cuda.MAX_GRID_Z + 1)
+    with pytest.raises(ValueError):
+        gram_cuda.plan_gram(5, 5, 5, batch=0)
+    assert gram_cuda.plan_gram(5, 5, 4096,
+                               batch=gram_cuda.MAX_GRID_Z).splits == 1

@@ -111,7 +111,37 @@ def test_logdets_and_inverse_match_jax(case):
         assert torch.isnan(ld_t) and np.isnan(float(ld_j))
     close(ts.masked_logdet_eigh(tM, tk_), js.masked_logdet_eigh(jM, jk_))
     close(ts.logdet_with_fallback(tM, tk_), js.logdet_with_fallback(jM, jk_))
-    close(ts.masked_inverse(tM, tk_), js.masked_inverse(jM, jk_), atol=1e-10)
+    if case == "posdef":
+        close(ts.masked_inverse_spd(tM, tk_), js.masked_inverse(jM, jk_),
+              atol=1e-10)
+    else:
+        assert torch.all(torch.isnan(ts.masked_inverse_spd(tM, tk_)))
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_spd_inverse_matches_jax_and_poisons_the_indefinite(batched):
+    """The M-step's Cholesky-route inverse against JAX's LU masked_inverse
+    on positive definite kept blocks (one matrix, or a stack with an
+    indefinite item, which alone turns NaN)."""
+    jes = js.compute_eigenspace(jnp.asarray(gram_like()))
+    keep = np.array(jes.keep)
+    B = np.asarray(jes.B)
+    Ms = [B.T @ gram_like(seed=s) @ B for s in (4, 7, 8)]
+    kept = np.flatnonzero(keep)
+    Ms[1][kept[0], kept[0]] = -5.0
+    want = [js.masked_inverse(jnp.asarray(M), jnp.asarray(keep)) for M in Ms]
+    tk_ = torch.as_tensor(keep)
+    if not batched:
+        close(ts.masked_inverse_spd(torch.as_tensor(Ms[0]), tk_), want[0],
+              atol=1e-10)
+        assert torch.all(torch.isnan(ts.masked_inverse_spd(
+            torch.as_tensor(Ms[1]), tk_)))
+        return
+    got = ts.masked_inverse_spd(torch.as_tensor(np.stack(Ms)),
+                                tk_.expand(3, -1))
+    for i in (0, 2):
+        close(got[i], want[i], atol=1e-10)
+    assert torch.all(torch.isnan(got[1]))
 
 
 def test_linalg_nan_poison():
@@ -122,9 +152,9 @@ def test_linalg_nan_poison():
     assert torch.isnan(ts.masked_logdet_chol(bad, keep))
     assert torch.isnan(ts.masked_logdet_eigh(bad, keep))
     assert torch.isnan(ts.logdet_with_fallback(bad, keep))
-    assert torch.all(torch.isnan(ts.masked_inverse(bad, keep)))
+    assert torch.all(torch.isnan(ts.masked_inverse_spd(bad, keep)))
     singular = torch.zeros_like(bad)
-    assert torch.all(torch.isnan(ts.masked_inverse(singular, keep)))
+    assert torch.all(torch.isnan(ts.masked_inverse_spd(singular, keep)))
 
 
 # ---------------------------------------------------------------------------
@@ -202,7 +232,7 @@ def test_kl_divergence_matches_jax():
     Kb = V_full.numpy() + np.diag(np.asarray(jes.k_tilde_b_diag))
     Kb = Kb * np.outer(np.asarray(jes.keep), np.asarray(jes.keep))
     jKi = js.masked_inverse(jnp.asarray(Kb), jes.keep)
-    tKi = ts.masked_inverse(torch.as_tensor(Kb), tes.keep)
+    tKi = ts.masked_inverse_spd(torch.as_tensor(Kb), tes.keep)
     for chol_only in (False, True):
         close(tm.kl_divergence(tmb, tVb, tes, K_tilde_b=torch.as_tensor(Kb),
                                K_tilde_inv_b=tKi, skip_logdet_V=True,

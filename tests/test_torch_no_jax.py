@@ -29,7 +29,8 @@ def test_every_module_is_listed():
                      "ops.gram_cuda", "ops.stabilize", "ops.lambertw",
                      "models.moments", "models.estep", "models.fit",
                      "models.inference", "models.acquisition",
-                     "models.active", "optim.lbfgs"):
+                     "models.active", "optim.lbfgs", "parallel",
+                     "parallel.population", "parallel.large"):
         assert f"gaussian_processes_tpu_torch.{expected}" in names
 
 
