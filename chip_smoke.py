@@ -80,11 +80,37 @@ Phases (none catches its own failure; any failure exits non-zero):
    residual ||(K + I) alpha - y|| / ||y|| accumulated by row blocks in
    float64 (bound LARGE_RESIDUAL) and its normwise backward error
    (bound LARGE_BACKWARD).
+10. The entry points.  (a) The reduced-rank fit (``reduced_rank=True``,
+   ``track_basis=True``) at phase 4's data, shape and steps through the
+   kernel: per iteration its rank budget, kept rank and seconds beside
+   phase 4's full-rank seconds; the budget never saturates and the
+   log-marginal stays within 1e-3 relative of phase 4's at every
+   iteration; both fits' inner-objective evaluations (the host-bound
+   work) and their ``fit.*`` spans' host seconds (``collect_spans``); then
+   the two fits in turns (full, reduced, reduced, full).
+   (b) ``state_at_iteration`` and ``evaluate(at_iteration=)`` on that fit:
+   finite rates at iteration 1, and the last iteration's reconstruction
+   within RECON_RTOL (3e-5) relative of ``predict``, then rebuilt with the
+   fit's own eigenvalues and final V_b swapped in, alone and together, to
+   show which one the gap comes from: with both, within RECON_EIG_RTOL
+   (1e-5).  (c) The CLI's fit
+   (``examples.one_cell_fit.main``) at its own defaults, in-process, with
+   ``--out`` under build/; its loaded checkpoint predicts bit for bit what
+   the fit in memory predicts.  (d) ``entry()`` and its forward through
+   the kernel; ``gram_matrices`` through the kernel against the plain Gram
+   (1e-5) for K_tilde and K* on entry()'s operands.  Then the kernel
+   against its plain version (as in phase 2) at every 2-D shape that
+   (a)-(d) launched and phases 2 and 5 had not held.  (e) The large path's
+   8192-row block (n 50,000, k 2304, ``out=``) alone against the plain
+   version, with CUDA-event times of kernel, plain and the cuBLAS product.
+   Each path's launches are counted from 0 and added to the kernel
+   table's.
 
 The last two lines of standard output are one JSON object with the kernel
 table and one with the device.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -109,6 +135,16 @@ SCORER_RTOL = 1e-4     # pool utilities, kernel vs plain Gram, of max|u|
 TIE_RTOL = 1e-5        # two picks whose utilities agree this well tie
 GRAD_RTOL = 1e-3       # float32 gradients, two summation orders
 REFERENCE_RTOL = 1e-3  # float32 fit on the card vs float64 fit on the CPU
+# the last tracked iteration rebuilt by state_at_iteration against predict:
+# the rebuild takes k_tilde_b_diag as the Rayleigh quotients diag(B^T K B),
+# which in float32 sit up to 1.53e-3 from the fit's eigenvalues on the
+# smallest kept ones (~n eps lambda_max).  On the H100 the rates read
+# 1.159e-5 in every run; with the fit's eigenvalues swapped in, 3.99e-6
+# (basis, m_b and V_b read equal; what remains is the products' width,
+# 2100 against the fit's 384); with its final V_b, no change.  Bounds:
+# about 2.5x each reading.
+RECON_RTOL = 3e-5
+RECON_EIG_RTOL = 1e-5
 PTXAS_KEYS = ("entry function", "registers", "spill", "smem")
 # the population (benchmarks/bench_population.py:33-37, 53-73)
 POP_NTILDE, POP_CELLS, POP_TRIALS = 512, 16, 6
@@ -186,6 +222,34 @@ def split_bound(rows, k):
     return 4 * rows * k * 3 / HBM_BYTES * 1e3, "bytes"
 
 
+@contextlib.contextmanager
+def objective_counts(fit_module):
+    """Evaluations of the fit's two inner objectives (the E-step's f-param
+    L-BFGS and the M-step's) while the block runs: the host-bound work."""
+    counts = {"fparam": 0, "mstep": 0}
+    real = fit_module._fparam_objective, fit_module._mstep_objective
+
+    def counted(fn, key):
+        def run(*args, **kwargs):
+            counts[key] += 1
+            return fn(*args, **kwargs)
+        return run
+
+    fit_module._fparam_objective = counted(real[0], "fparam")
+    fit_module._mstep_objective = counted(real[1], "mstep")
+    try:
+        yield counts
+    finally:
+        fit_module._fparam_objective, fit_module._mstep_objective = real
+
+
+def span_line(timer):
+    """A PhaseTimer's totals on one line, largest first."""
+    return ", ".join(f"{name} {sec:.3f} ({timer.counts[name]})"
+                     for name, sec in sorted(timer.totals.items(),
+                                             key=lambda kv: -kv[1]))
+
+
 def reset_counts(gram_cuda):
     gram_cuda.launches = gram_cuda.batched_launches = 0
     gram_cuda.items = gram_cuda.split_launches = 0
@@ -229,6 +293,27 @@ def recorded_operands(torch, gram_cuda, build):
     finally:
         gram_cuda.acos_gram = real
     return calls
+
+
+@contextlib.contextmanager
+def operands_by_shape(gram_cuda, seen, path):
+    """Keeps in ``seen[(m, n, k)] = (path, operands)`` a copy of the first
+    (u1, s2, q11, q22, sigma0) that the kernel wrapper is handed at each
+    2-D shape while the block runs (shapes already in ``seen`` stay)."""
+    real = gram_cuda.acos_gram
+
+    def record(*args, **kwargs):
+        if args[0].dim() == 2:
+            shape = (args[0].shape[0], args[1].shape[0], args[0].shape[1])
+            if shape not in seen:
+                seen[shape] = (path, [a.detach().clone() for a in args])
+        return real(*args, **kwargs)
+
+    gram_cuda.acos_gram = record
+    try:
+        yield seen
+    finally:
+        gram_cuda.acos_gram = real
 
 
 def syncs_by_op(prof):
@@ -678,6 +763,283 @@ def phase9_large(torch, np, device, smi, totals):
     if not ok:
         raise RuntimeError("the large path's posterior mean failed its "
                            "checks")
+    # the first row block's operands, for phase 10's timing of it alone
+    return ut_amp[:LARGE_NB], st, qd[:LARGE_NB], qd, s0
+
+
+def phase10_entry_points(torch, np, device, smi, totals, x, r, xtilde, Xt,
+                         Rt, cfg, res_full, stats_full, block_ops,
+                         check_kernel, checked):
+    """The entry points (see the module docstring): the reduced-rank fit
+    beside phase 4's full-rank fit ``res_full`` (same data, shape and
+    steps; ``stats_full`` its objective evaluations and spans),
+    state_at_iteration,
+    the CLI's fit and its checkpoint, entry(), and the large path's row
+    block alone.  Adds each path's launches to ``totals``, and holds the
+    kernel against its plain version (``check_kernel``) at every 2-D shape
+    these paths launched that phases 2 and 5 did not (``checked``); returns
+    the row block's max |dK| for the kernel table."""
+    import shutil
+    import tempfile
+
+    from gaussian_processes_tpu_torch import entry as entry_module
+    from gaussian_processes_tpu_torch.examples import one_cell_fit
+    from gaussian_processes_tpu_torch.models import fit as fit_module
+    from gaussian_processes_tpu_torch.models.fit import fit
+    from gaussian_processes_tpu_torch.models.inference import (
+        evaluate, predict, predict_rates, state_at_iteration)
+    from gaussian_processes_tpu_torch.ops import gram_cuda
+    from gaussian_processes_tpu_torch.ops.kernels import gram_matrices
+    from gaussian_processes_tpu_torch.utils.io import load_model
+    from gaussian_processes_tpu_torch.utils.tracing import collect_spans
+
+    checks = {}
+    xt = torch.as_tensor(Xt, device=device)
+    rt = torch.as_tensor(Rt, device=device)
+
+    seen = {}
+
+    def counted(fn, path):
+        """fn()'s result, host seconds to a synchronize, and the launch
+        counts of that run alone (added to ``totals``); the operands of
+        each new Gram shape it launches go to ``seen``."""
+        torch.cuda.synchronize()
+        reset_counts(gram_cuda)
+        t0 = time.perf_counter()
+        with operands_by_shape(gram_cuda, seen, path):
+            out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = read_counts(gram_cuda)
+        add_counts(totals, counts)
+        return out, sec, counts
+
+    # (a) the reduced-rank fit at phase 4's data and shape
+    cfg_r = dataclasses.replace(cfg, reduced_rank=True, track_basis=True,
+                                track_variational=True)
+
+    def reduced_fit():
+        return fit(x, r, cfg_r, xtilde=xtilde, theta=THETA0,
+                   f_params=F_PARAMS0, profile=True)
+
+    evals_full, spans_full = stats_full
+    with objective_counts(fit_module) as evals, collect_spans() as spans:
+        res, red_s, counts = counted(reduced_fit, "reduced fit")
+    loss = res.track.logmarginal.double().cpu().numpy()
+    loss_full = res_full.track.logmarginal.double().cpu().numpy()
+    n_eigen = res.track.n_eigen.tolist()
+    budgets = res.timing["rank"]
+    err = float(np.max(np.abs(loss - loss_full) / np.abs(loss_full)))
+    print(f"reduced-rank fit (nt {NT}, ntilde {NTILDE}, {cfg.maxiter} EM "
+          f"iterations of {cfg.n_estep}/{cfg.n_mstep}/{cfg.n_fparamstep}): "
+          f"{red_s:.3f} s (init {res.timing['init']:.3f} s), phase 4's "
+          f"full-rank fit {res_full.timing['total']:.3f} s (init "
+          f"{res_full.timing['init']:.3f} s); objective evaluations "
+          f"{evals} (full rank {evals_full}); Gram launches "
+          f"{counts['gram']}  [{smi}]")
+    for i, (b, sec, sec_full) in enumerate(zip(
+            budgets, res.timing["per_iteration"],
+            res_full.timing["per_iteration"]), start=1):
+        print(f"  iteration {i}: rank budget {b}, n_eigen {n_eigen[i]}, "
+              f"{sec:.3f} s (full rank {sec_full:.3f} s)")
+    print(f"  log-marginal {loss.tolist()} vs full rank "
+          f"{loss_full.tolist()}: max rel {err:.3e}")
+    checks["reduced fit not failed, finite"] = (
+        not res.failed and bool(np.all(np.isfinite(loss))))
+    checks["reduced fit launched the kernel"] = counts["gram"] > 0
+    checks["the budget never saturated"] = all(
+        n_eigen[i] < b for i, b in enumerate(budgets, start=1))
+    checks[f"log-marginal within {REFERENCE_RTOL} of the full-rank fit"] = (
+        err <= REFERENCE_RTOL)
+
+    print(f"  spans (host s): {span_line(spans)}; full rank "
+          f"{span_line(spans_full)}")
+    # the two fits in turns on this card (phase 4 ran minutes earlier, and
+    # these host-bound fits move with the host's speed)
+    turns = []
+    for name, c in (("full", cfg), ("reduced", cfg_r), ("reduced", cfg_r),
+                    ("full", cfg)):
+        with objective_counts(fit_module) as ev:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit(x, r, c, xtilde=xtilde, theta=THETA0, f_params=F_PARAMS0)
+            torch.cuda.synchronize()
+        turns.append(f"{name} {time.perf_counter() - t0:.3f} s "
+                     f"({ev['fparam']} f-param evaluations)")
+    print(f"  in turns: {', '.join(turns)}  [{smi}]")
+
+    # (b) state_at_iteration and evaluate(at_iteration=)
+    def reconstruct():
+        st = state_at_iteration(res, 1)
+        _, rates1, r2_1, _ = evaluate(res, xt, rt, at_iteration=1,
+                                      nbootstrap=200)
+        _, rates_last, _, _ = evaluate(res, xt, rt,
+                                       at_iteration=cfg.maxiter - 1,
+                                       nbootstrap=200)
+        return st, rates1, float(r2_1), rates_last, predict(res, xt)[0]
+
+    (st, rates1, r2_1, rates_last, rates_pred), _, counts = counted(
+        reconstruct, "state_at_iteration")
+    rec_err = float(torch.max(torch.abs(rates_last - rates_pred)
+                              / torch.abs(rates_pred)))
+    print(f"state_at_iteration(1): kept {int(st[4].keep.sum())} of "
+          f"{st[4].keep.numel()}, r2 at iteration 1 {r2_1:.4f}; iteration "
+          f"{cfg.maxiter - 1} reconstructed vs predict: max rel "
+          f"{rec_err:.3e}; Gram launches {counts['gram']}")
+    # what the last iteration's reconstruction differs from predict by:
+    # its k_tilde_b_diag, the Rayleigh quotients diag(B^T K_tilde B) of the
+    # full-grid K_tilde, in place of the fit's eigenvalues, and the tracked
+    # V_b in place of the one _fit_finalize symmetrised (and jittered if
+    # it was not positive definite); each swapped in alone and both
+    last = cfg.maxiter - 1
+    theta_l, fp_l, m_l, V_l, es_l = state_at_iteration(res, last)
+    rk = res.m_b.shape[0]
+    keep_fit = torch.zeros_like(es_l.keep)
+    keep_fit[-rk:] = res.keep
+    keepf = keep_fit.to(res.eigvals.dtype)
+    ev_fit = torch.zeros_like(es_l.k_tilde_b_diag)
+    ev_fit[-rk:] = res.eigvals
+    ev_fit = ev_fit * keepf
+    inv_fit = keepf / torch.where(keep_fit, ev_fit, torch.ones_like(ev_fit))
+    V_fin = torch.zeros_like(V_l)
+    V_fin[-rk:, -rk:] = res.V_b
+    kept = keep_fit & es_l.keep
+    kb_gap = float(torch.max(torch.abs(es_l.k_tilde_b_diag - ev_fit)[kept]
+                             / ev_fit[kept]))
+    v_gap = float(torch.max(torch.abs(V_l - V_fin)) / torch.max(
+        torch.abs(V_fin)))
+    rec = {}
+    for name, (kb_, inv_, V_) in {
+            "Rayleigh quotients + tracked V_b": (
+                es_l.k_tilde_b_diag, es_l.k_tilde_inv_diag, V_l),
+            "fit's eigenvalues + tracked V_b": (ev_fit, inv_fit, V_l),
+            "Rayleigh quotients + final V_b": (
+                es_l.k_tilde_b_diag, es_l.k_tilde_inv_diag, V_fin),
+            "fit's eigenvalues + final V_b": (ev_fit, inv_fit, V_fin)}.items():
+        rates_v = predict_rates(xt, res.xtilde, theta_l, fp_l, m_l, V_, es_l.B,
+                                kb_, inv_, n_px_side=cfg.n_px_side,
+                                alpha_threshold=cfg.alpha_threshold)[0]
+        rec[name] = float(torch.max(torch.abs(rates_v - rates_pred)
+                                    / torch.abs(rates_pred)))
+    print(f"  iteration {last} vs the fit: keep masks equal "
+          f"{torch.equal(keep_fit, es_l.keep)}, basis max|dB| "
+          f"{float(torch.max(torch.abs(es_l.B[:, -rk:] - res.B))):.3e}, "
+          f"max|dm_b| {float(torch.max(torch.abs(m_l[-rk:] - res.m_b))):.3e}"
+          f", V_b max rel {v_gap:.3e}, Rayleigh quotients vs eigenvalues "
+          f"max rel {kb_gap:.3e}")
+    print("  rates vs predict, max rel, with " + "; ".join(
+        f"{name} {err:.3e}" for name, err in rec.items()))
+    checks[f"iteration {last} with the fit's eigenvalues and V_b within "
+           f"{RECON_EIG_RTOL} of predict"] = (
+        rec["fit's eigenvalues + final V_b"] <= RECON_EIG_RTOL)
+    checks["iteration-1 rates finite"] = bool(torch.isfinite(rates1).all())
+    checks[f"final iteration within {RECON_RTOL} of predict"] = (
+        rec_err <= RECON_RTOL)
+
+    # (c) the CLI's fit at its own defaults, in-process, and its checkpoint
+    (HERE / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_", dir=HERE / "build")
+    try:
+        out_dir = str(Path(tmp) / "model")
+        cli, cli_s, counts = counted(lambda: one_cell_fit.main(
+            ["--out", out_dir]), "CLI fit")
+        loaded = load_model(out_dir)
+    finally:
+        shutil.rmtree(tmp)
+    cres = cli["result"]
+    got = predict(loaded, xt)
+    want = predict(cres, xt)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"CLI fit (defaults: synthetic retina {cres.config.n_px_side} px, "
+          f"nt {cres.K.shape[0]}, ntilde {cres.config.ntilde}, "
+          f"{cres.config.maxiter} EM iterations of {cres.config.n_estep}/"
+          f"{cres.config.n_mstep}/{cres.config.n_fparamstep}, rank budget "
+          f"{cres.m_b.shape[0]}, n_eigen {cres.track.n_eigen.tolist()}): fit "
+          f"{cli['seconds']:.3f} s, with data, r2 and saving {cli_s:.3f} s; "
+          f"r2 {cli['r2']:.4f} +/- {cli['sigma_r2']:.4f}; loaded model "
+          f"predicts bit for bit: {same}; Gram launches {counts['gram']}  "
+          f"[{smi}]")
+    checks["CLI fit launched the kernel"] = counts["gram"] > 0
+    checks["CLI fit not failed, r2 finite"] = (
+        not cres.failed and math.isfinite(cli["r2"]))
+    checks["loaded checkpoint predicts bit for bit"] = same
+
+    # (d) entry(): its prior state's K_tilde and its forward's K* through
+    # the kernel; then both Grams through the kernel against the plain Gram
+    # on entry()'s operands (at the prior state, m = 0 and V = diag of the
+    # eigenvalues, the rates read K* only through its diagonal, which both
+    # backends compute plainly: the rates could not tell a wrong kernel)
+    (fn, args), _, counts_state = counted(entry_module.entry, "entry()")
+    rates_k, _, counts = counted(lambda: fn(*args), "entry forward")
+    rng = np.random.default_rng(0)          # entry()'s draws: xtilde first
+    xtilde_e = torch.as_tensor(
+        rng.standard_normal((entry_module.NTILDE, entry_module.N_PX ** 2)),
+        dtype=torch.float32, device=device)
+    with torch.no_grad():
+        grams = {b: gram_matrices(args[1], args[0], xtilde_e,
+                                  entry_module.N_PX, shared=False,
+                                  backend=b)[:2] for b in ("cuda", "torch")}
+    ent_err = {name: float(torch.max(torch.abs(grams["cuda"][i]
+                                               - grams["torch"][i]))
+                           / torch.max(torch.abs(grams["torch"][i])))
+               for i, name in enumerate(("K_tilde", "K*"))}
+    print(f"entry(): forward {tuple(rates_k.shape)} on {rates_k.device}; "
+          f"gram_matrices through the kernel vs the plain Gram, max|dK|/"
+          f"max|K|: " + ", ".join(
+              f"{name} {tuple(grams['torch'][i].shape)} {ent_err[name]:.3e}"
+              for i, name in enumerate(ent_err))
+          + f"; Gram launches: entry() {counts_state['gram']}, forward "
+          f"{counts['gram']}")
+    checks["entry() and its forward launched the kernel"] = (
+        counts_state["gram"] > 0 and counts["gram"] > 0)
+    checks["entry forward finite, (32,)"] = (
+        bool(torch.isfinite(rates_k).all()) and rates_k.shape == (32,))
+    checks[f"entry's K_tilde and K* within {KERNEL_RTOL} of the plain "
+           f"Gram"] = all(e <= KERNEL_RTOL for e in ent_err.values())
+
+    # the kernel against its plain version at each shape that (a)-(d)
+    # launched and phases 2 and 5 had not held
+    new = sorted(shape for shape in seen if shape not in checked)
+    print(f"phase 10's paths launched the 2-D Gram at {len(seen)} shapes, "
+          f"{len(new)} of them new: {new}")
+    for shape in new:
+        path, ops = seen.pop(shape)
+        kind = ("K_tilde" if shape[0] == shape[1]
+                and torch.equal(ops[2], ops[3]) else "K")
+        check_kernel(f"{kind} ({path})", ops)
+    seen.clear()
+
+    # (e) the large path's row block alone
+    m, n, k = block_ops[0].shape[0], block_ops[1].shape[0], block_ops[0].shape[1]
+    buf = torch.empty((m, n), device=device)
+    with torch.no_grad():
+        gram_cuda.acos_gram(*block_ops, out=buf)
+        ref = gram_cuda.acos_gram_torch(*block_ops)
+        blk_abs = float(torch.max(torch.abs(buf - ref)))
+        blk_rel = blk_abs / float(torch.max(torch.abs(ref)))
+        del ref
+        blk_ms = cuda_ms(torch, lambda: gram_cuda.acos_gram(*block_ops,
+                                                            out=buf), reps=10)
+        blk_plain = cuda_ms(torch, lambda: gram_cuda.acos_gram_torch(
+            *block_ops), reps=10)
+        blk_lib = cuda_ms(torch, lambda: torch.matmul(block_ops[0],
+                                                      block_ops[1].T),
+                          reps=10)
+    del buf
+    blk_bound, blk_by = gram_bound(1, m, n, k)
+    plan = gram_cuda.plan_gram(m, n, k, torch.cuda.get_device_properties(
+        device).multi_processor_count)
+    print(f"large row block {m}x{n} k={k} (out=): max rel {blk_rel:.3e}, "
+          f"kernel {blk_ms:.3f} ms, plain {blk_plain:.3f} ms, cuBLAS FP32 "
+          f"product alone {blk_lib:.3f} ms, bound {blk_bound:.3f} ms "
+          f"({blk_by})  [{smi}]")
+    print(f"  plan: {plan}")
+    checks[f"row block within {KERNEL_RTOL} of plain"] = (
+        blk_rel <= KERNEL_RTOL)
+    for what, ok in checks.items():
+        if not ok:
+            raise RuntimeError(f"entry-point check failed: {what}")
+    return blk_abs
 
 
 def main():
@@ -695,14 +1057,20 @@ def main():
         score_candidates)
     from gaussian_processes_tpu_torch.models.active import (
         active_loop, active_loop_pipelined)
+    from gaussian_processes_tpu_torch.models import fit as fit_module
     from gaussian_processes_tpu_torch.models.fit import fit
     from gaussian_processes_tpu_torch.models.inference import evaluate
     from gaussian_processes_tpu_torch.ops import gram_cuda
     from gaussian_processes_tpu_torch.ops.kernels import (
         crop_window_for_theta, crop_window_from_scalars, gram_matrices,
         gram_matrices_windowed)
+    from gaussian_processes_tpu_torch.utils.tracing import collect_spans
 
     # ---- 1. set-up -------------------------------------------------------
+    t_start = time.perf_counter()
+
+    def stamp(phase):
+        print(f"-- phase {phase} at {time.perf_counter() - t_start:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -728,6 +1096,7 @@ def main():
              for k, v in THETA0.items()}
 
     # ---- 2. kernels vs plain at the main path's operands ----------------
+    stamp("2")
     xt_test = torch.as_tensor(Xt, device=device)
 
     crop = crop_window_from_scalars(THETA0["-2log2beta"], THETA0["eps_0x"],
@@ -751,6 +1120,7 @@ def main():
 
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     results = {}
+    checked = set()
     split = {"err": 0.0, "checked": 0}
 
     def check_kernel(name, ops):
@@ -788,6 +1158,7 @@ def main():
                 raise RuntimeError(f"K_tilde's diagonal disagrees at "
                                    f"k={k}: {diag:.3e}")
         results[(name, k)] = (max_abs, ms, plain_ms)
+        checked.add((m, n, k))
         # the split pass, bit for bit, on both operands
         for a in ops[:2]:
             split["checked"] += 1
@@ -840,6 +1211,7 @@ def main():
         raise RuntimeError(f"kernel gradient disagrees: {grad_err:.3e}")
 
     # ---- 3. small fit through the kernel vs float64 on the CPU -----------
+    stamp("3")
     srng = np.random.default_rng(3)
     sx = srng.standard_normal((256, 24 * 24))
     lin = np.linspace(-1, 1, 24)
@@ -868,14 +1240,17 @@ def main():
                            f"reference: {ref_err:.3e}")
 
     # ---- 4. the main path ------------------------------------------------
+    stamp("4")
     cfg = FitConfig(ntilde=NTILDE, maxiter=3, n_estep=10, n_mstep=10,
                     n_fparamstep=10, n_px_side=N_PX, track_variational=False)
     totals = {}
     torch.cuda.synchronize()
     reset_counts(gram_cuda)
     t0 = time.perf_counter()
-    res = fit(x, r, cfg, xtilde=xtilde, theta=THETA0, f_params=F_PARAMS0,
-              profile=True)
+    with objective_counts(fit_module) as evals_full, \
+            collect_spans() as spans_full:
+        res = fit(x, r, cfg, xtilde=xtilde, theta=THETA0, f_params=F_PARAMS0,
+                  profile=True)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches_fit = gram_cuda.launches
@@ -891,7 +1266,9 @@ def main():
     loss = res.track.logmarginal.double().cpu().numpy()
     print(f"fit init {res.timing['init']:.3f} s; per-iteration s "
           f"{[round(t, 3) for t in res.timing['per_iteration']]}; total "
-          f"{fit_s:.3f} s  [{smi}]")
+          f"{fit_s:.3f} s; objective evaluations {evals_full}  [{smi}]")
+    print(f"fit spans (host s, utils.tracing.collect_spans): "
+          f"{span_line(spans_full)}")
     print(f"logmarginal per iteration: {loss.tolist()}")
     print(f"final theta: { {k: float(v) for k, v in res.theta.items()} }")
     print(f"r2 = {r2:.4f} +/- {sigma_r2:.4f}; rates finite: "
@@ -924,6 +1301,7 @@ def main():
             raise RuntimeError(f"main path check failed: {what}")
 
     # ---- 5. the kernel at the active loop's shapes -----------------------
+    stamp("5")
     x_cap = torch.zeros((CAPACITY, N_PX * N_PX), device=device)
     x_cap[:N_START] = x[:N_START]
     loop_operands = [
@@ -945,6 +1323,7 @@ def main():
     print(f"split pass bit-exact on {split['checked']} operands")
 
     # ---- 6. the closed loop at full width --------------------------------
+    stamp("6")
     loop_cfg = FitConfig(maxiter=4, n_estep=5, n_mstep=5, n_fparamstep=5,
                          n_px_side=N_PX, track_variational=False)
     start = np.arange(N_START)
@@ -1063,12 +1442,22 @@ def main():
                            "scorer through the plain Gram")
 
     # ---- 7-8. the batched kernel and the population ----------------------
+    stamp("7-8")
     batched = phase8_population(torch, np, device, smi, totals)
     # ---- 9. the large-ntilde path ------------------------------------------
-    phase9_large(torch, np, device, smi, totals)
+    stamp("9")
+    block_ops = phase9_large(torch, np, device, smi, totals)
+    # ---- 10. the entry points ----------------------------------------------
+    stamp("10")
+    block_abs = phase10_entry_points(torch, np, device, smi, totals, x, r,
+                                     xtilde, Xt, Rt, cfg, res,
+                                     (evals_full, spans_full), block_ops,
+                                     check_kernel, checked)
+    del block_ops
 
+    stamp("end")
     shapes = totals.pop("shapes", {})
-    print(f"launches over the main paths (phases 4, 6, 8, 9): {totals}")
+    print(f"launches over the main paths (phases 4, 6, 8, 9, 10): {totals}")
     print("Gram launches on the main paths by (batch, m, n, k): "
           + ", ".join(f"{shape}: {c}" for shape, c in sorted(
               shapes.items(), key=lambda kv: -kv[1])))
@@ -1089,7 +1478,7 @@ def main():
         "source": source,
         "replaces": replaces,
         "launches": totals["gram"],
-        "max_abs_err": max(v[0] for v in results.values()),
+        "max_abs_err": max([v[0] for v in results.values()] + [block_abs]),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": gram_ms,

@@ -2,9 +2,9 @@
 
 The constants are the reference's (Spatial_GP_repo/utils.py:31-41), as in
 ``gaussian_processes_tpu/config.py``.  ``FitConfig`` carries only the knobs
-this port implements: the exact-semantics per-iteration EM fit (full-rank
-eigh stabilization, Cholesky E-step solves, exact M-step inverse and Cholesky
-log-determinant, exact Gram).
+this port implements: the exact-semantics per-iteration EM fit (eigh
+stabilization at full rank or at a reduced rank budget, Cholesky E-step
+solves, exact M-step inverse and Cholesky log-determinant, exact Gram).
 
 Precision: float32 matrix products run in full IEEE float32.  PyTorch's
 cuBLAS path already defaults to that, but cuDNN does not, so
@@ -73,6 +73,24 @@ class FitConfig:
     eigval_tol: float = EIGVAL_TOL
     alpha_threshold: float = ALPHA_THRESHOLD
     track_variational: bool = True    # record (m_b, V_b) per iteration
+    # Also record the stabilized basis B per iteration (with
+    # track_variational): ``state_at_iteration`` then pairs the tracked
+    # (m_b, V_b) with the basis the fit used instead of a fresh eigh.  Off
+    # by default (maxiter x ntilde x ntilde memory).
+    track_basis: bool = False
+    # Reduced-rank stabilization: each EM iteration runs the '_b' algebra at
+    # a rank budget = bucketed(kept-rank * rank_slack + rank_pad), a
+    # multiple of rank_bucket, instead of the full ntilde; the budget is the
+    # top of the ascending eigh, so it is exact whenever it covers the kept
+    # rank (the dropped coordinates are exact zeros).  The budget follows
+    # the largest kept rank of the last three iterations, read with the
+    # crop window's scalars.  The JAX package defaults to True; here the
+    # full factorization each iteration (JAX's eigensolver="eigh") is the
+    # only eigensolver, and the default stays False.
+    reduced_rank: bool = False
+    rank_slack: float = 1.25
+    rank_pad: int = 16
+    rank_bucket: int = 64
     # Crop window around the RF (exact: cropped pixels carry zero kernel
     # weight).  Each EM iteration crops to a window covering the alpha mask
     # of the theta it starts from, with ``crop_margin`` of slack; the side is
@@ -94,6 +112,11 @@ class FitConfig:
         if self.linesearch not in ("zoom", "armijo"):
             raise ValueError(f"linesearch must be 'zoom' or 'armijo', got "
                              f"{self.linesearch!r}")
+        if self.rank_bucket < 1 or self.rank_slack <= 0 or self.rank_pad < 0:
+            raise ValueError(
+                f"rank_bucket must be >= 1, rank_slack > 0 and rank_pad >= "
+                f"0, got {self.rank_bucket}, {self.rank_slack}, "
+                f"{self.rank_pad}")
 
     def resolve_ntilde(self, nt: int) -> int:
         if self.ntilde is not None:

@@ -11,13 +11,23 @@ M-step so the final state matches its eigenspace.  A non-finite iteration
 reverts to the state it started from and freezes the fit (``failed``,
 ``failed_at``), the reference's rollback (utils.py:2127-2189).
 
-Semantics are the JAX package's exact ones: full-rank eigh stabilization,
-Cholesky E-step solves, exact M-step inverse, Cholesky log-determinant and
-the exact Gram.  The crop window of iteration i is computed from the theta
-iteration i starts from; after the iteration the fit checks that the window
-still covers the margin-1.0 alpha mask of the resulting theta, and re-runs
-with the margin doubled (finally on the full frame) if it does not -- a
-covering window gives the same Gram up to rounding.
+Semantics are the JAX package's exact ones: eigh stabilization, Cholesky
+E-step solves, exact M-step inverse, Cholesky log-determinant and the exact
+Gram.  The crop window of iteration i is computed from the theta iteration
+i starts from; after the iteration the fit checks that the window still
+covers the margin-1.0 alpha mask of the resulting theta, and re-runs with
+the margin doubled (finally on the full frame) if it does not -- a covering
+window gives the same Gram up to rounding.
+
+Reduced rank (``cfg.reduced_rank``, JAX's per-iteration mode with
+``eigensolver="eigh"``): iteration i runs the '_b' algebra at a rank budget
+bucketed from the largest kept rank of the last three iterations
+(``_rank_bucket``), read in the same host transfer as the crop window's
+scalars; the carry is sliced to the top of the ascending eigh or
+left-padded with dropped coordinates when the budget changes
+(``_slice_carry``).  JAX decides from the carry of one iteration earlier
+(its lag-1 pipelined probe), so the two budgets can differ by an
+iteration; the values agree wherever both budgets cover the kept rank.
 
 Every Gram goes through ``ops/kernels._gram_core``: on CUDA tensors through
 the fused kernel (``ops/gram_cuda``), forward and hand-written backward.
@@ -40,7 +50,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from ..config import FitConfig, use_full_fp32
-from ..ops.kernels import (crop_images, crop_window_for_theta,
+from ..ops.kernels import (crop_images, crop_window_from_scalars,
                            gram_matrices, gram_matrices_precropped,
                            gram_matrices_windowed, local_envelope)
 from ..ops.stabilize import (Eigenspace, _eigvalsh_safe, compute_eigenspace,
@@ -48,6 +58,7 @@ from ..ops.stabilize import (Eigenspace, _eigvalsh_safe, compute_eigenspace,
 from ..optim.lbfgs import lbfgs_minimize, lbfgs_minimize_armijo
 from ..params import (THETA_KEYS, clip_theta, default_f_params,
                       generate_theta, theta_bounds, theta_in_bounds)
+from ..utils.tracing import trace_annotation
 from .estep import estep_update
 from .moments import (kl_divergence, lambda0_given_logA, lambda_moments,
                       mean_f_given_lambda_moments, poisson_ell)
@@ -63,13 +74,15 @@ class KernelState(NamedTuple):
     K: torch.Tensor         # (nt, ntilde) -- K_tilde itself when shared
     Kvec: torch.Tensor      # (nt,)
     es: Eigenspace
-    K_b: torch.Tensor       # (nt, ntilde) = K @ B
-    a: torch.Tensor         # (nt, ntilde) = K_b K_tilde_b^-1 (B when shared)
+    K_b: torch.Tensor       # (nt, rank) = K @ B
+    a: torch.Tensor         # (nt, rank) = K_b K_tilde_b^-1 (B when shared)
 
 
 class Track(NamedTuple):
     """Per-iteration history (the reference's values_track,
-    utils.py:1713-1727)."""
+    utils.py:1713-1727).  A reduced-rank iteration's state is left-padded
+    into the full-width slots, so tracked coordinates align with a full
+    ascending eigh."""
     logmarginal: torch.Tensor
     loglikelihood: torch.Tensor
     KL: torch.Tensor
@@ -79,6 +92,8 @@ class Track(NamedTuple):
     n_eigen: torch.Tensor
     m_b: torch.Tensor       # (maxiter, ntilde) or (maxiter, 0)
     V_b: torch.Tensor       # (maxiter, ntilde, ntilde) or (maxiter, 0, 0)
+    B: torch.Tensor         # (maxiter, ntilde, ntilde) under cfg.track_basis,
+                            # else (maxiter, ntilde, 0)
 
 
 class Carry(NamedTuple):
@@ -120,6 +135,11 @@ class FitResult:
     failed: bool
     failed_at: int
     timing: Optional[Dict[str, Any]] = None
+    # True when an iteration's basis came from a warm-started eigensolver
+    # (JAX's subspace iteration), which a fresh eigh does not reproduce;
+    # always False here (the port's only eigensolver is the full eigh), kept
+    # for results converted from the JAX package.
+    used_warm_basis: bool = False
 
     @property
     def mask(self) -> torch.Tensor:
@@ -129,14 +149,17 @@ class FitResult:
         return mask
 
     @property
+    def eigenspace(self) -> Eigenspace:
+        return Eigenspace(self.B, self.eigvals, self.keep, self.k_tilde_b_diag,
+                          self.k_tilde_inv_diag)
+
+    @property
     def kernel_state(self) -> KernelState:
         """The final kernels + eigenspace, reusable as ``fit(...,
         init_kernel=)`` (the reference's ``init_kernel`` warm start,
         utils.py:1674-1694)."""
-        es = Eigenspace(self.B, self.eigvals, self.keep, self.k_tilde_b_diag,
-                        self.k_tilde_inv_diag)
-        return KernelState(self.K_tilde, self.K, self.Kvec, es, self.K_b,
-                           self.a)
+        return KernelState(self.K_tilde, self.K, self.Kvec, self.eigenspace,
+                           self.K_b, self.a)
 
     def values_track(self) -> Dict[str, Any]:
         """Reference-shaped values_track dict (utils.py:1713-1727)."""
@@ -186,15 +209,17 @@ def _apply_pad_weights(K_tilde, K, Kvec, shared: bool, wt=None, wi=None):
 def _build_kernel_state(theta: Theta, x, xtilde, shared: bool,
                         cfg: FitConfig, win: Window = None,
                         backend: Optional[str] = None,
-                        wt=None, wi=None) -> KernelState:
+                        wt=None, wi=None,
+                        rank: Optional[int] = None) -> KernelState:
     return _kernel_state(*_masked_grams(theta, x, xtilde, shared, cfg, win,
-                                        backend, wt, wi), shared, cfg)
+                                        backend, wt, wi), shared, cfg, rank)
 
 
-def _kernel_state(K_tilde, K, Kvec, shared: bool,
-                  cfg: FitConfig) -> KernelState:
-    """Eigenspace and projections of the Grams (of one cell or a stack)."""
-    es = compute_eigenspace(K_tilde, cfg.eigval_tol)
+def _kernel_state(K_tilde, K, Kvec, shared: bool, cfg: FitConfig,
+                  rank: Optional[int] = None) -> KernelState:
+    """Eigenspace (the top ``rank`` eigenpairs, or all) and projections of
+    the Grams (of one cell or a stack)."""
+    es = compute_eigenspace(K_tilde, cfg.eigval_tol, rank=rank)
     K_b = K @ es.B
     a = es.B if shared else K_b * es.k_tilde_inv_diag[..., None, :]
     return KernelState(K_tilde, K, Kvec, es, K_b, a)
@@ -258,16 +283,20 @@ def _estep_block(r, kern: KernelState, m_b, V_b, f_params, lambda_m,
     against (L, 1, nt) moments)."""
     trial_axis = (lambda t: t[:, None]) if lanes else (lambda t: t)
     for _ in range(cfg.n_estep):
-        f_mean = mean_f_given_lambda_moments(f_params, lambda_m, lambda_var)
-        m_b, V_b = estep_update(r, kern.a, m_b, f_mean,
-                                kern.es.k_tilde_b_diag, f_params, weight=wt)
-        lambda_m, lambda_var = lambda_moments(kern.a, kern.K_b, kern.Kvec,
-                                              m_b, V_b)
-        logA, _ = _minimize(
-            cfg, partial(_fparam_objective, r=trial_axis(r),
-                         lambda_m=trial_axis(lambda_m),
-                         lambda_var=trial_axis(lambda_var), wt=wt),
-            f_params["logA"], cfg.n_fparamstep, lanes)
+        with trace_annotation("fit.estep.newton"):
+            f_mean = mean_f_given_lambda_moments(f_params, lambda_m,
+                                                 lambda_var)
+            m_b, V_b = estep_update(r, kern.a, m_b, f_mean,
+                                    kern.es.k_tilde_b_diag, f_params,
+                                    weight=wt)
+            lambda_m, lambda_var = lambda_moments(kern.a, kern.K_b,
+                                                  kern.Kvec, m_b, V_b)
+        with trace_annotation("fit.estep.fparams"):
+            logA, _ = _minimize(
+                cfg, partial(_fparam_objective, r=trial_axis(r),
+                             lambda_m=trial_axis(lambda_m),
+                             lambda_var=trial_axis(lambda_var), wt=wt),
+                f_params["logA"], cfg.n_fparamstep, lanes)
         lam0 = lambda0_given_logA(logA, r, lambda_m, lambda_var, weight=wt)
         f_params = {"logA": logA, "lambda0": lam0}
     return m_b, V_b, f_params, lambda_m, lambda_var
@@ -330,8 +359,13 @@ def _track_update(track: Track, i: int, ell, kl, theta, f_params,
     track.lambda0[i] = f_params["lambda0"]
     track.n_eigen[i] = torch.sum(es.keep)
     if cfg.track_variational:
-        track.m_b[i] = m_b
-        track.V_b[i] = V_b
+        # a reduced-rank state fills the LAST columns of its full-width slot
+        # (the sliced basis is the top of the ascending eigh)
+        off = track.m_b.shape[1] - m_b.shape[0]
+        track.m_b[i, off:] = m_b
+        track.V_b[i, off:, off:] = V_b
+        if track.B.shape[2] > 0:
+            track.B[i, :, track.B.shape[2] - es.B.shape[1]:] = es.B
 
 
 def _fit_init(x, r, xtilde, theta0: Theta, f_params0: FParams, m0, V0,
@@ -365,6 +399,7 @@ def _fit_init(x, r, xtilde, theta0: Theta, f_params0: FParams, m0, V0,
 
     maxiter = cfg.maxiter
     nvar = ntilde if cfg.track_variational else 0
+    nbas = ntilde if (cfg.track_variational and cfg.track_basis) else 0
 
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
@@ -374,7 +409,8 @@ def _fit_init(x, r, xtilde, theta0: Theta, f_params0: FParams, m0, V0,
         KL=zeros(maxiter), theta={k: zeros(maxiter) for k in THETA_KEYS},
         logA=zeros(maxiter), lambda0=zeros(maxiter),
         n_eigen=zeros(maxiter, dt=torch.int32),
-        m_b=zeros(maxiter, nvar), V_b=zeros(maxiter, nvar, nvar))
+        m_b=zeros(maxiter, nvar), V_b=zeros(maxiter, nvar, nvar),
+        B=zeros(maxiter, ntilde, nbas))
     _track_update(track, 0, ell0, kl0, theta0, f_params0, es, m_b, V_b, cfg)
     return Carry(theta0, f_params0, m_b, V_b, kern, lambda_m, lambda_var,
                  track, False, -1)
@@ -393,11 +429,15 @@ def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
     m_b, V_b, kern = c.m_b, c.V_b, c.kern
 
     # Rebuild kernels + eigenspace and reproject the variational state
-    # (utils.py:1801-1841).
+    # (utils.py:1801-1841), at the carry's rank (a width below ntilde is the
+    # reduced-rank budget, see _slice_carry).
     if cfg.n_mstep > 0:
-        kern_new = _build_kernel_state(theta, x, xtilde, shared, cfg, win,
-                                       backend, wt, wi)
-        m_b, V_b = reproject(kern_new.es, kern.es, m_b, V_b)
+        rank = m_b.shape[0]
+        with trace_annotation("fit.kernel_state"):
+            kern_new = _build_kernel_state(
+                theta, x, xtilde, shared, cfg, win, backend, wt, wi,
+                rank=rank if rank < xtilde.shape[0] else None)
+            m_b, V_b = reproject(kern_new.es, kern.es, m_b, V_b)
         kern = kern_new
 
     # moments + closed-form lambda0 at iteration start (utils.py:1870-1874)
@@ -408,8 +448,9 @@ def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
     f_params = {"logA": f_params["logA"], "lambda0": lam0}
 
     if cfg.n_estep > 0:
-        m_b, V_b, f_params, lambda_m, lambda_var = _estep_block(
-            r, kern, m_b, V_b, f_params, lambda_m, lambda_var, cfg, wt)
+        with trace_annotation("fit.estep"):
+            m_b, V_b, f_params, lambda_m, lambda_var = _estep_block(
+                r, kern, m_b, V_b, f_params, lambda_m, lambda_var, cfg, wt)
 
     # loss decomposition (utils.py:1953-1991)
     f_mean = mean_f_given_lambda_moments(f_params, lambda_m, lambda_var)
@@ -431,7 +472,8 @@ def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
                       m_b=m_b, V_b=V_b, f_params=f_params, shared=shared,
                       cfg=cfg, lower=lower, upper=upper, win=win, xcrop=xcrop,
                       backend=backend, wt=wt, wi=wi)
-        theta, _ = _minimize(cfg, obj, theta, cfg.n_mstep)
+        with trace_annotation("fit.mstep"):
+            theta, _ = _minimize(cfg, obj, theta, cfg.n_mstep)
 
     # Rollback on numerical failure (utils.py:2127-2189): keep the state
     # this iteration started from and freeze.
@@ -459,6 +501,54 @@ def _fit_finalize(c: Carry, cfg: FitConfig) -> Carry:
                       V_b + eye * cfg.eigval_tol * keepf[..., :, None]
                       * keepf[..., None, :], V_b)
     return c._replace(V_b=V_b)
+
+
+def _slice_carry(c: Carry, rank: int, shared: bool) -> Carry:
+    """The carry's stabilized-basis state at another ``rank``.
+
+    Shrinking keeps the LAST ``rank`` coordinates (the top of the ascending
+    eigh: exactly the keep-masked subspace whenever rank covers the kept
+    eigenvalues, since dropped coordinates are exact zeros).  Growing
+    left-pads with zero coordinates (keep=False), which contribute nothing
+    until the next kernel rebuild derives the eigenspace at the larger
+    rank."""
+    es = c.kern.es
+    r_in = c.m_b.shape[0]
+    if rank == r_in:
+        return c
+    if rank < r_in:
+        sl = slice(r_in - rank, None)
+        es_new = Eigenspace(es.B[:, sl], es.eigvals[sl], es.keep[sl],
+                            es.k_tilde_b_diag[sl], es.k_tilde_inv_diag[sl])
+        K_b = c.kern.K_b[:, sl]
+        a = es_new.B if shared else c.kern.a[:, sl]
+        m_b = c.m_b[sl]
+        V_b = c.V_b[sl, sl]
+    else:
+        pad = rank - r_in
+
+        def left(t):
+            """t with ``pad`` zero entries (columns) in front."""
+            z = t.new_zeros(t.shape[:-1] + (pad,))
+            return torch.cat([z, t], dim=-1)
+
+        es_new = Eigenspace(*(left(t) for t in es))
+        K_b = left(c.kern.K_b)
+        a = es_new.B if shared else left(c.kern.a)
+        m_b = left(c.m_b)
+        V_b = c.V_b.new_zeros((rank, rank))
+        V_b[pad:, pad:] = c.V_b
+    kern = c.kern._replace(es=es_new, K_b=K_b, a=a)
+    return c._replace(m_b=m_b, V_b=V_b, kern=kern)
+
+
+def _rank_bucket(n_eigen: int, cfg: FitConfig, ntilde: int) -> int:
+    """Rank budget for a measured kept rank: slack + pad, rounded up to a
+    multiple of ``rank_bucket`` so the budget survives modest growth, at
+    most ntilde."""
+    r = int(n_eigen * cfg.rank_slack) + cfg.rank_pad
+    r = ((r + cfg.rank_bucket - 1) // cfg.rank_bucket) * cfg.rank_bucket
+    return min(r, ntilde)
 
 
 # ---------------------------------------------------------------------------
@@ -494,7 +584,8 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
 
     ``backend`` ("cuda" or "torch") overrides the Gram backend chosen from
     the device.  ``profile`` records host wall-clock per iteration (after a
-    device synchronize) in ``timing``.
+    device synchronize) and each iteration's rank budget in ``timing``.
+    The fit's layers are ``fit.*`` spans (``utils/tracing``).
     """
     cfg = cfg or FitConfig()
     dtype, device = x.dtype, x.device
@@ -543,20 +634,34 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
         wt = wt if wt is not None else wi
         wi = wi if wi is not None else wt
 
-    def window(th: Theta) -> Window:
+    def probe(th: Theta, es: Optional[Eigenspace] = None):
+        """ONE host transfer of what the schedule reads: the crop window's
+        theta scalars (-2log2beta, eps_0x, eps_0y) and, for the rank
+        budget, the kept rank of ``es``; none when neither is in use."""
+        read_rank = es is not None and cfg.reduced_rank
+        vals = ([th["-2log2beta"], th["eps_0x"], th["eps_0y"]]
+                if cfg.crop_window else [])
+        if read_rank:
+            vals.append(es.keep.sum().to(dtype))
+        got = torch.stack(vals).tolist() if vals else []
+        return (tuple(got[:3]) if cfg.crop_window else None,
+                int(got[-1]) if read_rank else None)
+
+    def window(scalars) -> Window:
         if not cfg.crop_window:
             return None
-        i0, j0, w = crop_window_for_theta(
-            th, cfg.n_px_side, cfg.alpha_threshold, cfg.crop_margin,
+        i0, j0, w = crop_window_from_scalars(
+            *scalars, cfg.n_px_side, cfg.alpha_threshold, cfg.crop_margin,
             cfg.crop_bucket)
         return None if w >= cfg.n_px_side else (i0, j0, w)
 
-    def covers(win: Window, th: Theta) -> bool:
-        """The window still covers the margin-1.0 alpha mask of th."""
+    def covers(win: Window, scalars) -> bool:
+        """The window still covers the margin-1.0 alpha mask of the theta
+        with these scalars."""
         if win is None:
             return True
-        fi0, fj0, fw = crop_window_for_theta(th, cfg.n_px_side,
-                                             cfg.alpha_threshold, 1.0, 1)
+        fi0, fj0, fw = crop_window_from_scalars(
+            *scalars, cfg.n_px_side, cfg.alpha_threshold, 1.0, 1)
         i0, j0, w = win
         return (fi0 >= i0 and fj0 >= j0
                 and fi0 + fw <= i0 + w and fj0 + fw <= j0 + w)
@@ -567,22 +672,36 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
         return time.perf_counter()
 
     bounds = (lower, upper)
-    timing = {"per_iteration": []} if profile else None
+    timing = {"per_iteration": [], "rank": []} if profile else None
+    n_eig_hist: List[int] = []
     with torch.no_grad():
         t0 = clock() if profile else 0.0
-        carry = _fit_init(x, r, xtilde, theta0, fp0, m0, V0, has_V, shared,
-                          cfg, window(theta0), backend, wt, wi, init_kernel)
+        with trace_annotation("fit.init"):
+            carry = _fit_init(x, r, xtilde, theta0, fp0, m0, V0, has_V,
+                              shared, cfg, window(probe(theta0)[0]), backend,
+                              wt, wi, init_kernel)
         if profile:
             timing["init"] = clock() - t0
+        scalars, n_eig = probe(carry.theta, carry.kern.es)
         for i in range(1, cfg.maxiter):
             ti = clock() if profile else 0.0
-            win = window(carry.theta)
-            carry = _fit_iteration(i, carry, x, r, xtilde, shared, cfg,
-                                   bounds, win, do_mstep=(i < cfg.maxiter - 1),
-                                   backend=backend, wt=wt, wi=wi)
+            win = window(scalars)
+            if cfg.reduced_rank:
+                # the budget from the largest kept rank of the last three
+                # iterations, so it does not flap between two buckets
+                n_eig_hist.append(n_eig)
+                budget = _rank_bucket(max(n_eig_hist[-3:]), cfg, n)
+                carry = _slice_carry(carry, budget, shared)
+            with trace_annotation("fit.iteration"):
+                carry = _fit_iteration(i, carry, x, r, xtilde, shared, cfg,
+                                       bounds, win,
+                                       do_mstep=(i < cfg.maxiter - 1),
+                                       backend=backend, wt=wt, wi=wi)
+                scalars, n_eig = probe(carry.theta, carry.kern.es)
             if profile:
                 timing["per_iteration"].append(clock() - ti)
-            if not carry.failed and not covers(win, carry.theta):
+                timing["rank"].append(carry.m_b.shape[0])
+            if not carry.failed and not covers(win, scalars):
                 # the window no longer covers the RF: that iteration's
                 # kernels were inexact -- never return such a fit
                 if cfg.crop_margin * 2.0 <= 8.0:
@@ -602,17 +721,22 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
                            inducing_weight=inducing_weight,
                            init_kernel=init_kernel, backend=backend,
                            profile=profile)
-        carry = _fit_finalize(carry, cfg)
+        with trace_annotation("fit.finalize"):
+            carry = _fit_finalize(carry, cfg)
         if profile:
             timing["total"] = clock() - t0
 
-    kern = carry.kern
-    es = kern.es
+    # row-major copies of eigh's column-major basis and of sliced views:
+    # a result then computes the same as its checkpoint (utils/io), whose
+    # arrays load row-major
+    kern = carry.kern._replace(K_b=carry.kern.K_b.contiguous(),
+                               a=carry.kern.a.contiguous())
+    es = Eigenspace(*(t.contiguous() for t in kern.es))
     return FitResult(
         config=cfg, xtilde=xtilde, theta=carry.theta, theta_lower=lower,
-        theta_upper=upper, f_params=carry.f_params, m_b=carry.m_b,
-        V_b=carry.V_b, B=es.B, keep=es.keep, eigvals=es.eigvals,
-        k_tilde_b_diag=es.k_tilde_b_diag,
+        theta_upper=upper, f_params=carry.f_params,
+        m_b=carry.m_b.contiguous(), V_b=carry.V_b.contiguous(), B=es.B,
+        keep=es.keep, eigvals=es.eigvals, k_tilde_b_diag=es.k_tilde_b_diag,
         k_tilde_inv_diag=es.k_tilde_inv_diag, K_tilde=kern.K_tilde,
         K=kern.K, Kvec=kern.Kvec, K_b=kern.K_b, a=kern.a, track=carry.track,
         failed=carry.failed, failed_at=carry.failed_at, timing=timing)
@@ -816,7 +940,7 @@ def _fit_init_cells(stim: Cells, rs, theta0: Theta, f_params0: FParams,
         logmarginal=zeros(), loglikelihood=zeros(), KL=zeros(),
         theta={k: zeros() for k in THETA_KEYS}, logA=zeros(),
         lambda0=zeros(), n_eigen=zeros(dt=torch.int32),
-        m_b=zeros(nvar), V_b=zeros(nvar, nvar))
+        m_b=zeros(nvar), V_b=zeros(nvar, nvar), B=zeros(ntilde, 0))
     _track_update_cells(track, 0, ell0, kl0, theta0, f_params0, es, m_b,
                         V_b, cfg)
     return Carry(theta0, f_params0, m_b, V_b, kern, lambda_m, lambda_var,

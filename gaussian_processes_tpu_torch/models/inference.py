@@ -17,6 +17,7 @@ import torch
 
 from ..config import use_full_fp32
 from ..ops.kernels import gram_matrices
+from ..ops.stabilize import Eigenspace, compute_eigenspace
 from .moments import lambda_moments_star
 
 
@@ -30,7 +31,8 @@ def predict_rates(xstar: torch.Tensor, xtilde: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Posterior predictive firing rate for a batch of stimuli:
     (rates, mu_star, sigma_star2) with ``rate = exp(A mu* + 0.5 A^2
-    sigma*^2 + lambda0)`` (reference: utils.py:388-397)."""
+    sigma*^2 + lambda0)`` (reference: utils.py:388-397).  The basis B is
+    (ntilde, rank) at any rank."""
     if xstar.is_cuda:
         use_full_fp32()
     with torch.no_grad():
@@ -54,6 +56,57 @@ def predict(result, xstar: torch.Tensor):
         result.V_b, result.B, result.k_tilde_b_diag, result.k_tilde_inv_diag,
         n_px_side=result.config.n_px_side,
         alpha_threshold=result.config.alpha_threshold)
+
+
+def state_at_iteration(result, iteration: int):
+    """The model state at a tracked iteration (the reference's ``test(...,
+    at_iteration=k)``, utils.py:358-386): ``(theta, f_params, m_b, V_b,
+    es)``, with m_b, V_b and the basis at full width (a reduced-rank
+    iteration's coordinates left-padded, as tracked).
+
+    * Basis tracked (``cfg.track_basis``): the stored basis B of that
+      iteration with the tracked (m_b, V_b); ``k_tilde_b_diag`` is
+      ``diag(B^T K_tilde B)`` at the tracked theta: the fit's eigenvalues
+      up to the eigensolver's rounding (in float32 about n eps lambda_max,
+      which moves the smallest kept ones most).
+    * Basis not tracked: a fresh full eigh of K_tilde(theta_i), which is
+      the fit's basis whenever that came from a full eigh -- always here;
+      a result whose bases came from a warm-started eigensolver
+      (``used_warm_basis``, a converted JAX fit) raises instead of pairing
+      the state with another basis.
+    """
+    t = result.track
+    if t.m_b.shape[1] == 0:
+        raise ValueError("track_variational was off; per-iteration state "
+                         "was not recorded")
+    theta = {k: v[iteration] for k, v in t.theta.items()}
+    f_params = {"logA": t.logA[iteration], "lambda0": t.lambda0[iteration]}
+    m_b = t.m_b[iteration]
+    V_b = t.V_b[iteration]
+    cfg = result.config
+    with torch.no_grad():
+        K_tilde, _, _ = gram_matrices(theta, result.xtilde, result.xtilde,
+                                      cfg.n_px_side, shared=True,
+                                      alpha_threshold=cfg.alpha_threshold)
+        if t.B.shape[2] > 0:
+            B = t.B[iteration]
+            keep = torch.sum(B * B, dim=0) > 0.5     # zero columns: dropped
+            keepf = keep.to(B.dtype)
+            kb = torch.sum(B * (K_tilde @ B), dim=0) * keepf
+            safe = torch.where(keep, kb, torch.ones_like(kb))
+            es = Eigenspace(B=B, eigvals=kb, keep=keep, k_tilde_b_diag=kb,
+                            k_tilde_inv_diag=keepf / safe)
+            return theta, f_params, m_b, V_b, es
+        if getattr(result, "used_warm_basis", False):
+            raise ValueError(
+                "this fit used a warm-started subspace eigensolver: its "
+                "per-iteration bases are Rayleigh-Ritz bases that a fresh "
+                "eigh of K_tilde(theta_i) does not reproduce, so iteration "
+                f"{iteration} cannot be reconstructed from theta alone.  "
+                "Refit with FitConfig(track_basis=True), or evaluate the "
+                "final state (at_iteration=None).")
+        es = compute_eigenspace(K_tilde, cfg.eigval_tol)
+    return theta, f_params, m_b, V_b, es
 
 
 def _corrcoef(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -96,10 +149,12 @@ def explained_variance(rtst: torch.Tensor, f_pred: torch.Tensor,
 
 
 def evaluate(result, X_test: torch.Tensor, R_test: torch.Tensor,
-             cellid: Optional[int] = None, nbootstrap: int = 1000,
-             seed: int = 0):
+             cellid: Optional[int] = None, at_iteration: Optional[int] = None,
+             nbootstrap: int = 1000, seed: int = 0):
     """The reference's ``test()``: predict every test image and score
-    against repeated responses (utils.py:326-412).
+    against repeated responses (utils.py:326-412), with the final state or
+    the state of a tracked iteration (``at_iteration``,
+    ``state_at_iteration``).
 
     X_test: (nimg, npx, npx[, 1]) or (nimg, nx); R_test: (nrep, nimg,
     ncells) or (nrep, nimg).  Returns (R_test_cell, R_pred, r2, sigma_r2).
@@ -109,7 +164,17 @@ def evaluate(result, X_test: torch.Tensor, R_test: torch.Tensor,
     if R_test.dim() == 3:
         cid = result.config.cellid if cellid is None else cellid
         R_test = R_test[:, :, cid]
-    rates, _, _ = predict(result, X_test)
+    if at_iteration is not None:
+        theta, f_params, m_b, V_b, es = state_at_iteration(result,
+                                                           at_iteration)
+        rates, _, _ = predict_rates(
+            X_test.to(dtype=result.xtilde.dtype, device=result.xtilde.device),
+            result.xtilde, theta, f_params, m_b, V_b, es.B,
+            es.k_tilde_b_diag, es.k_tilde_inv_diag,
+            n_px_side=result.config.n_px_side,
+            alpha_threshold=result.config.alpha_threshold)
+    else:
+        rates, _, _ = predict(result, X_test)
     R_test = R_test.to(dtype=rates.dtype, device=rates.device)
     r2, sigma_r2 = explained_variance(R_test, rates, sigma=True,
                                       nbootstrap=nbootstrap, seed=seed)

@@ -6,7 +6,8 @@ truncation as a boolean ``keep`` vector: dropped eigendirections have their B
 column zeroed, so downstream products carry exact zeros in the dropped
 coordinates (reference: Spatial_GP_repo/utils.py:1682-1694, 1808-1841).
 Determinants and inverses over the kept subspace pad the dropped diagonal
-with ones.
+with ones.  The reduced-rank fit keeps only the top ``rank`` eigenpairs
+(``compute_eigenspace(..., rank=)``): the same layout at width rank.
 
 Every function also takes a leading cell axis (matrices (L, n, n), vectors
 (L, n)), item by item; ``torch.linalg`` batches natively.
@@ -20,7 +21,7 @@ mapped to NaN.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -77,14 +78,23 @@ def _poison(ok: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def compute_eigenspace(K_tilde: torch.Tensor,
-                       eigval_tol: float = EIGVAL_TOL) -> Eigenspace:
+                       eigval_tol: float = EIGVAL_TOL,
+                       rank: Optional[int] = None) -> Eigenspace:
     """eigh + keep-mask truncation: keep eigenvalues above
     max(lam_max * eigval_tol, eigval_tol) (reference: utils.py:1682-1694).
-    A non-finite K_tilde yields NaN-poisoned outputs."""
+    A non-finite K_tilde yields NaN-poisoned outputs.
+
+    ``rank`` keeps only the top ``rank`` eigenpairs (the LAST columns of the
+    ascending eigh), so every product downstream runs at (..., rank): the
+    keep-masked full-shape algebra with always-zero coordinates removed
+    whenever rank covers the kept eigenvalues."""
     eigvals, eigvecs, finite = _eigh_safe(K_tilde)
     poison = _poison(finite, K_tilde.dtype)[..., None]
     eigvals = eigvals + poison
     eigvecs = eigvecs + poison[..., None]
+    if rank is not None and rank < K_tilde.shape[-1]:
+        eigvals = eigvals[..., -rank:]
+        eigvecs = eigvecs[..., :, -rank:]
     thresh = torch.clamp(eigvals[..., -1:] * eigval_tol, min=eigval_tol)
     keep = eigvals > thresh
     keepf = keep.to(K_tilde.dtype)

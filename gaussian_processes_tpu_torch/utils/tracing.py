@@ -1,0 +1,153 @@
+"""Tracing and profiling: phase timers and fit-time breakdowns
+(counterpart of ``gaussian_processes_tpu/utils/tracing.py``).
+
+The reference instruments varGP with ``time.time()`` accumulators per phase
+(E-step / f-params / M-step / kernels / loss) printed at the end
+(Spatial_GP_repo/utils.py:1760-1766, 2252-2261).  Here:
+
+* ``PhaseTimer``: host wall-clock per named phase; ``sync=`` synchronizes
+  the CUDA device of the given tensors before the clock stops (PyTorch
+  returns before the card has finished);
+* ``fit(..., profile=True)``: per-iteration seconds and rank budgets in
+  ``FitResult.timing``;
+* ``profile_fit_phases``: the phase split of a fit by ablation (a full run,
+  one without M-steps, one with neither step);
+* ``trace_annotation``: a named span in ``torch.profiler`` traces
+  (``torch.profiler.record_function``); the fit marks its layers with
+  them (``fit.init``, ``fit.iteration``, ``fit.kernel_state``,
+  ``fit.estep`` with ``fit.estep.newton`` and ``fit.estep.fparams``,
+  ``fit.mstep``, ``fit.finalize``);
+* ``collect_spans``: the same spans' host wall-clock into a
+  ``PhaseTimer`` without a profiler, for the code run inside it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+import time
+from typing import Dict, Optional
+
+import torch
+
+
+def _synchronize(sync) -> None:
+    """Wait for the CUDA devices of ``sync`` (a tensor or a sequence of
+    them) to finish their queued work; CPU tensors need no wait."""
+    tensors = [sync] if isinstance(sync, torch.Tensor) else list(sync)
+    for device in {t.device for t in tensors if t.is_cuda}:
+        torch.cuda.synchronize(device)
+
+
+class PhaseTimer:
+    """Accumulating wall-clock timer keyed by phase name."""
+
+    def __init__(self):
+        self.totals: Dict[str, float] = {}
+        self.counts: Dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def phase(self, name: str, sync=None):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if sync is not None:
+                _synchronize(sync)
+            dt = time.perf_counter() - t0
+            self.totals[name] = self.totals.get(name, 0.0) + dt
+            self.counts[name] = self.counts.get(name, 0) + 1
+
+    def summary(self) -> str:
+        lines = []
+        for name, total in sorted(self.totals.items(),
+                                  key=lambda kv: -kv[1]):
+            n = self.counts[name]
+            lines.append(f"  {name:<24} {total:8.3f}s  "
+                         f"({n} calls, {total / n * 1000:8.2f} ms/call)")
+        return "\n".join(lines)
+
+    def print_summary(self, header: str = "Phase timing:"):
+        print(header)
+        print(self.summary())
+
+
+# the PhaseTimer that ``collect_spans`` installed for this context, if any
+_span_timer: contextvars.ContextVar = contextvars.ContextVar(
+    "span_timer", default=None)
+
+
+@contextlib.contextmanager
+def trace_annotation(name: str):
+    """Label a region in ``torch.profiler`` traces; inside
+    ``collect_spans`` also add its host wall-clock to that timer."""
+    timer = _span_timer.get()
+    with torch.profiler.record_function(name):
+        if timer is None:
+            yield
+        else:
+            with timer.phase(name):
+                yield
+
+
+@contextlib.contextmanager
+def collect_spans(timer: Optional[PhaseTimer] = None):
+    """Time every ``trace_annotation`` span entered inside the block on
+    the host clock (no device synchronize: a span that queues device work
+    without waiting for it hands that time to a later one) and yield the
+    ``PhaseTimer`` that holds the totals."""
+    timer = PhaseTimer() if timer is None else timer
+    token = _span_timer.set(timer)
+    try:
+        yield timer
+    finally:
+        _span_timer.reset(token)
+
+
+@dataclasses.dataclass
+class FitPhaseBreakdown:
+    """The reference's end-of-fit timing printout (utils.py:2252-2261),
+    reconstructed by ablation."""
+    total: float
+    estep_total: float          # E-steps incl. f-param updates
+    mstep_total: float          # M-step L-BFGS incl. kernel rebuilds
+    kernels_total: float        # not separable: folded into mstep_total
+    init: float
+
+    def print(self):
+        print(f"Time spent for E-steps:       {self.estep_total:.3f}s")
+        print(f"Time spent for M-steps:       {self.mstep_total:.3f}s")
+        print(f"Time spent computing kernels: {self.kernels_total:.3f}s")
+        print(f"Time for initialization:      {self.init:.3f}s")
+        print(f"Time total:                   {self.total:.3f}s")
+
+
+def profile_fit_phases(x, r, cfg, fit_kwargs: Optional[dict] = None,
+                       warmup: bool = True) -> FitPhaseBreakdown:
+    """Split a fit's wall-clock into phases by ablation: a full run, a run
+    without M-steps (so without kernel rebuilds) and one with neither step
+    (init and tracking only), each timed to a device synchronize, after
+    one untimed run of each when ``warmup``."""
+    from ..models.fit import fit
+
+    fit_kwargs = fit_kwargs or {}
+
+    def timed(c):
+        if warmup:
+            fit(x, r, c, **fit_kwargs)
+        t0 = time.perf_counter()
+        res = fit(x, r, c, **fit_kwargs)
+        _synchronize(res.m_b)
+        return time.perf_counter() - t0
+
+    t_full = timed(cfg)
+    t_noM = timed(dataclasses.replace(cfg, n_mstep=0))
+    t_none = timed(dataclasses.replace(cfg, n_mstep=0, n_estep=0))
+    return FitPhaseBreakdown(
+        total=t_full,
+        estep_total=max(t_noM - t_none, 0.0),
+        mstep_total=max(t_full - t_noM, 0.0),
+        kernels_total=float("nan"),
+        init=t_none,
+    )

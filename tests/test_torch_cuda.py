@@ -395,3 +395,64 @@ def test_batched_armijo_issues_no_host_sync(dev):
     assert gram_cuda.batched_launches > launches
     assert bool(torch.isfinite(f_theta).all() & torch.isfinite(f_logA).all())
     assert all(bool(torch.isfinite(v).all()) for v in theta.values())
+
+
+@pytest.mark.cuda
+def test_reduced_rank_fit_through_kernel_matches_plain(dev, tmp_path):
+    """The reduced-rank fit (a smooth prior keeps about 50 of 128
+    eigenvalues, so the budget sits below ntilde) through the kernel
+    against the same fit through the plain Gram, float32 on the card (two
+    summation orders: log-marginal within 1e-3); its last iteration
+    reconstructed from the tracked basis, and its checkpoint, predict what
+    the fit predicts."""
+    import math
+
+    import numpy as np
+
+    from gaussian_processes_tpu_torch.config import FitConfig
+    from gaussian_processes_tpu_torch.models.fit import fit
+    from gaussian_processes_tpu_torch.models.inference import (evaluate,
+                                                               predict)
+    from gaussian_processes_tpu_torch.utils.io import load_model, save_model
+
+    rng = np.random.default_rng(0)
+    n_px, nt, ntilde = 24, 256, 128
+    x = rng.standard_normal((nt, n_px * n_px))
+    lin = np.linspace(-1, 1, n_px)
+    yy, xx = np.meshgrid(lin, lin, indexing="ij")
+    w = np.exp(-((xx - 0.2) ** 2 + (yy + 0.1) ** 2) / (2 * 0.15 ** 2)).ravel()
+    r = rng.poisson(np.exp(0.6 * x @ (w / np.linalg.norm(w))))
+    idx = torch.as_tensor(rng.permutation(nt)[:ntilde], device=dev)
+    xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    rt = torch.as_tensor(r, dtype=torch.float32, device=dev)
+    theta = {"sigma_0": 1.0, "eps_0x": 1e-4, "eps_0y": 1e-4,
+             "-2log2beta": -2 * math.log(0.2),
+             "-log2rho2": -math.log(2 * 0.3 ** 2), "Amp": 1.0}
+    fp = {"logA": math.log(0.01), "lambda0": 1.0}
+    cfg = FitConfig(ntilde=ntilde, maxiter=4, n_estep=3, n_mstep=3,
+                    n_fparamstep=3, n_px_side=n_px, crop_window=False,
+                    reduced_rank=True, rank_bucket=16, track_basis=True)
+    runs = {}
+    for backend in ("cuda", "torch"):
+        before = gram_cuda.launches
+        runs[backend] = fit(xt, rt, cfg, xtilde=xt[idx], theta=theta,
+                            f_params=fp, backend=backend, profile=True)
+        launched = gram_cuda.launches - before
+        assert (launched > 0) == (backend == "cuda")
+    k, p = runs["cuda"], runs["torch"]
+    assert not k.failed and max(k.timing["rank"]) < ntilde
+    n_eigen = k.track.n_eigen.tolist()
+    assert all(n_eigen[i] < b for i, b in enumerate(k.timing["rank"], 1))
+    lk = k.track.logmarginal.double()
+    lp = p.track.logmarginal.double()
+    assert float(((lk - lp).abs() / lp.abs()).max()) <= 1e-3
+    xs = xt[:20]
+    rates = predict(k, xs)[0]
+    _, last, _, _ = evaluate(k, xs, torch.ones((4, 20), device=dev),
+                             at_iteration=3, nbootstrap=5)
+    assert float(((last - rates).abs() / rates).max()) <= 1e-5
+    save_model(k, str(tmp_path / "m"))
+    loaded = load_model(str(tmp_path / "m"))
+    assert loaded.B.device.type == "cuda"
+    assert all(torch.equal(a, b) for a, b in zip(predict(loaded, xs),
+                                                 predict(k, xs)))

@@ -1,10 +1,12 @@
-"""The port imports neither jax nor optax: every module of
-gaussian_processes_tpu_torch is imported in a fresh interpreter, which must
-end with no jax or optax module loaded."""
+"""The port imports neither jax nor optax nor the JAX package: every module
+of gaussian_processes_tpu_torch is imported in a fresh interpreter, which
+must end with no jax, optax or gaussian_processes_tpu module loaded (and no
+matplotlib: the plotting module imports it inside its functions)."""
 
 import json
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -30,7 +32,12 @@ def test_every_module_is_listed():
                      "models.moments", "models.estep", "models.fit",
                      "models.inference", "models.acquisition",
                      "models.active", "optim.lbfgs", "parallel",
-                     "parallel.population", "parallel.large"):
+                     "parallel.population", "parallel.large", "utils",
+                     "utils.guards", "utils.io", "utils.metrics",
+                     "utils.tracing", "utils.plotting", "examples",
+                     "examples.one_cell_fit", "examples.active_training",
+                     "examples.population_fit",
+                     "examples.large_scale_posterior", "__main__", "entry"):
         assert f"gaussian_processes_tpu_torch.{expected}" in names
 
 
@@ -40,9 +47,26 @@ def test_port_imports_no_jax_or_optax():
         f"for name in {_modules()!r}:\n"
         "    importlib.import_module(name)\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
-        "    if m.split('.')[0] in ('jax', 'jaxlib', 'optax'))))\n")
+        "    if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'matplotlib',\n"
+        "                           'gaussian_processes_tpu'))))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=REPO, timeout=120)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_no_source_file_imports_jax_or_the_jax_package():
+    """By the text: every module of the port and chip_smoke.py (which runs
+    where jax is not installed)."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|optax|"
+                         r"gaussian_processes_tpu)(\.|\s|$)", re.M)
+    pkg = os.path.join(REPO, "gaussian_processes_tpu_torch")
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(root, f) for root, _, names in os.walk(pkg)
+        for f in names if f.endswith(".py")]
+    assert len(files) > 30
+    for path in files:
+        with open(path) as fh:
+            found = pattern.findall(fh.read())
+        assert not found, (path, found)
