@@ -105,6 +105,24 @@ Phases (none catches its own failure; any failure exits non-zero):
    version, with CUDA-event times of kernel, plain and the cuBLAS product.
    Each path's launches are counted from 0 and added to the kernel
    table's.
+11. The other line searches and the convergence gates at phase 4's data,
+   shape and steps, each fit through the kernel with its launches counted
+   from 0: (a) ``linesearch="speculative"`` with ``mstep_memory``, then
+   the same fit through the plain Gram (log-marginal within 1e-3 relative
+   at every iteration); (b) "zoom_carry"; (c) "backtracking"; (d) "zoom"
+   with ``mstep_ftol_rel=1e-4, estep_tol=1e-3``.  Each fit finite, not
+   failed and improving, with its seconds, objective evaluations (the
+   batched ladder calls and their trials apart), Newton steps and final
+   log-marginal beside phase 4's.  Then the batched kernel at the
+   ladder's shapes (armijo_trials x K_tilde 2100 x 2100 and K 3160 x 2100
+   at the window's k): on the M-step's batched evaluator at trials along a
+   seeded direction from the start theta, against the plain batched Gram
+   as phase 7 holds it (1e-5, every item's K_tilde diagonal too, each item
+   against the 2-D call); and on (a)'s first M-step ladder, whose trials
+   lie far along the cold search's unscaled -g where the float32 Grams
+   are ill-conditioned: kernel vs plain within 1e-5, and both against a
+   float64 plain Gram, the kernel no further from it than 1e-5 or the
+   plain float32 version (the K_tilde diagonals item by item).
 
 The last two lines of standard output are one JSON object with the kernel
 table and one with the device.
@@ -169,6 +187,15 @@ LARGE_THETA = {"sigma_0": 1.0, "eps_0x": 0.0, "eps_0y": 0.0,
 # float32 solve stays within a few float32 epsilons (1.2e-7), bound 1e-6.
 LARGE_RESIDUAL = 1e-2
 LARGE_BACKWARD = 1e-6
+# phase 11: phase 4's fit under the other line searches and the gates
+LS_FITS = {
+    "a": ("speculative, mstep_memory",
+          dict(linesearch="speculative", mstep_memory=True)),
+    "b": ("zoom_carry", dict(linesearch="zoom_carry")),
+    "c": ("backtracking", dict(linesearch="backtracking")),
+    "d": ("zoom, mstep_ftol_rel 1e-4, estep_tol 1e-3",
+          dict(mstep_ftol_rel=1e-4, estep_tol=1e-3)),
+}
 # peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds' rates
 TF32_FLOPS, HBM_BYTES = 495e12, 3.35e12
 
@@ -223,24 +250,49 @@ def split_bound(rows, k):
 
 
 @contextlib.contextmanager
-def objective_counts(fit_module):
+def objective_counts(fit_module, ladders=None):
     """Evaluations of the fit's two inner objectives (the E-step's f-param
-    L-BFGS and the M-step's) while the block runs: the host-bound work."""
-    counts = {"fparam": 0, "mstep": 0}
-    real = fit_module._fparam_objective, fit_module._mstep_objective
+    L-BFGS and the M-step's) while the block runs: the host-bound work.
+    The batched ladder calls of the speculative and Armijo searches are
+    counted apart, with the trials they held ("*_ladder", "*_items"), and
+    so are the E-step's Newton steps.  Each M-step ladder's trial thetas
+    go to the list ``ladders`` when one is given."""
+    counts = {"fparam": 0, "mstep": 0, "fparam_ladder": 0, "fparam_items": 0,
+              "mstep_ladder": 0, "mstep_items": 0, "newton": 0}
+    names = ("_fparam_objective", "_mstep_objective",
+             "_mstep_objective_cells", "estep_update")
+    real = {name: getattr(fit_module, name) for name in names}
 
-    def counted(fn, key):
-        def run(*args, **kwargs):
-            counts[key] += 1
-            return fn(*args, **kwargs)
-        return run
+    def fparam(logA, *args, **kwargs):
+        if logA.dim() > 0:              # a ladder: (T,) trials of logA
+            counts["fparam_ladder"] += 1
+            counts["fparam_items"] += logA.numel()
+        else:
+            counts["fparam"] += 1
+        return real["_fparam_objective"](logA, *args, **kwargs)
 
-    fit_module._fparam_objective = counted(real[0], "fparam")
-    fit_module._mstep_objective = counted(real[1], "mstep")
+    def mstep(*args, **kwargs):
+        counts["mstep"] += 1
+        return real["_mstep_objective"](*args, **kwargs)
+
+    def mstep_ladder(theta, *args, **kwargs):
+        counts["mstep_ladder"] += 1
+        counts["mstep_items"] += theta["Amp"].numel()
+        if ladders is not None:
+            ladders.append({k: v.detach().cpu() for k, v in theta.items()})
+        return real["_mstep_objective_cells"](theta, *args, **kwargs)
+
+    def newton(*args, **kwargs):
+        counts["newton"] += 1
+        return real["estep_update"](*args, **kwargs)
+
+    for name, fn in zip(names, (fparam, mstep, mstep_ladder, newton)):
+        setattr(fit_module, name, fn)
     try:
         yield counts
     finally:
-        fit_module._fparam_objective, fit_module._mstep_objective = real
+        for name, fn in real.items():
+            setattr(fit_module, name, fn)
 
 
 def span_line(timer):
@@ -349,6 +401,64 @@ def population_data(np):
     return X, R, idx
 
 
+def check_batched(torch, gram_cuda, sms, smi, name, ops):
+    """The batched kernel against its plain version on one batched Gram's
+    operands (max relative error and finite output, every item's K_tilde
+    diagonal, each item against the 2-D kernel call on its operands), with
+    CUDA-event times of kernel, plain and the cuBLAS product alone; returns
+    (max_abs, ms, plain_ms, lib_ms, bound_ms, bound_by, batch)."""
+    b, m, kk = ops[0].shape
+    n = ops[1].shape[1]
+    plan = gram_cuda.plan_gram(m, n, kk, sms, b)
+    with torch.no_grad():
+        K_kernel = gram_cuda.acos_gram(*ops)
+        K_plain = gram_cuda.acos_gram_torch(*ops)
+        torch.cuda.synchronize()
+        max_abs = float(torch.max(torch.abs(K_kernel - K_plain)))
+        rel = max_abs / float(torch.max(torch.abs(K_plain)))
+        ms = cuda_ms(torch, lambda: gram_cuda.acos_gram(*ops), reps=10)
+        plain_ms = cuda_ms(torch, lambda: gram_cuda.acos_gram_torch(*ops),
+                           reps=10)
+        lib_ms = cuda_ms(torch, lambda: torch.matmul(ops[0], ops[1].mT),
+                         reps=10)
+    bound_ms, bound_by = gram_bound(b, m, n, kk)
+    print(f"batched kernel {name} {b} x {m}x{n} k={kk}: max|dK|/max|K| = "
+          f"{rel:.3e} (max|dK| {max_abs:.3e}), kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, cuBLAS FP32 product alone {lib_ms:.3f} ms,"
+          f" bound {bound_ms:.3f} ms ({bound_by})  [{smi}]")
+    print(f"  plan: {plan}")
+    if not (bool(torch.all(torch.isfinite(K_kernel)))
+            and rel <= KERNEL_RTOL):
+        raise RuntimeError(f"batched kernel disagrees with its plain "
+                           f"version at {name}: {rel:.3e}")
+    if name.startswith("K_tilde"):
+        d_plain = K_plain.diagonal(dim1=-2, dim2=-1)
+        diag = float(torch.max(torch.abs(K_kernel.diagonal(
+            dim1=-2, dim2=-1) - d_plain) / torch.abs(d_plain)))
+        print(f"  every item's K_tilde diagonal: max relative error "
+              f"{diag:.3e}")
+        if not diag <= KERNEL_RTOL:
+            raise RuntimeError(f"a batched K_tilde diagonal disagrees: "
+                               f"{diag:.3e}")
+    # each item against the 2-D kernel on its operands
+    one_plan = gram_cuda.plan_gram(m, n, kk, sms)
+    worst, equal = 0.0, 0
+    with torch.no_grad():
+        for i in range(b):
+            K_one = gram_cuda.acos_gram(*(t[i] for t in ops))
+            worst = max(worst, float(torch.max(torch.abs(
+                K_one - K_kernel[i])) / torch.max(torch.abs(K_one))))
+            equal += bool(torch.equal(K_one, K_kernel[i]))
+    print(f"  items vs the 2-D kernel call: {equal} of {b} bit for bit "
+          f"(2-D plan: {one_plan.splits} split(s), batched "
+          f"{plan.splits}), max relative difference {worst:.3e}")
+    if not worst <= KERNEL_RTOL or (one_plan.splits == plan.splits
+                                     and equal != b):
+        raise RuntimeError(f"batched {name} disagrees with its items' "
+                           f"2-D calls")
+    return max_abs, ms, plain_ms, lib_ms, bound_ms, bound_by, b
+
+
 def phase7_batched(torch, np, device, smi, x, xtilde):
     """The batched kernel at the population ladder's shapes (see the module
     docstring); returns K's (max_abs, ms, plain_ms, batch) for the JSON."""
@@ -371,58 +481,8 @@ def phase7_batched(torch, np, device, smi, x, xtilde):
         theta, x, xtilde, N_PX, shared=False))
     print(f"batched kernel: {batch} (cell, trial) items in one chunk "
           f"(ladder_items on this card)")
-    out = {}
-    for name, ops in zip(("K_tilde", "K"), calls):
-        b, m, kk = ops[0].shape
-        n = ops[1].shape[1]
-        plan = gram_cuda.plan_gram(m, n, kk, sms, b)
-        with torch.no_grad():
-            K_kernel = gram_cuda.acos_gram(*ops)
-            K_plain = gram_cuda.acos_gram_torch(*ops)
-            torch.cuda.synchronize()
-            max_abs = float(torch.max(torch.abs(K_kernel - K_plain)))
-            rel = max_abs / float(torch.max(torch.abs(K_plain)))
-            ms = cuda_ms(torch, lambda: gram_cuda.acos_gram(*ops), reps=10)
-            plain_ms = cuda_ms(torch, lambda: gram_cuda.acos_gram_torch(*ops),
-                               reps=10)
-            lib_ms = cuda_ms(torch, lambda: torch.matmul(ops[0],
-                                                         ops[1].mT), reps=10)
-        bound_ms, bound_by = gram_bound(b, m, n, kk)
-        print(f"batched kernel {name} {b} x {m}x{n} k={kk}: max|dK|/max|K| = "
-              f"{rel:.3e} (max|dK| {max_abs:.3e}), kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, cuBLAS FP32 product alone {lib_ms:.3f} ms,"
-              f" bound {bound_ms:.3f} ms ({bound_by})  [{smi}]")
-        print(f"  plan: {plan}")
-        if not (bool(torch.all(torch.isfinite(K_kernel)))
-                and rel <= KERNEL_RTOL):
-            raise RuntimeError(f"batched kernel disagrees with its plain "
-                               f"version at {name}: {rel:.3e}")
-        if name == "K_tilde":
-            d_plain = K_plain.diagonal(dim1=-2, dim2=-1)
-            diag = float(torch.max(torch.abs(K_kernel.diagonal(
-                dim1=-2, dim2=-1) - d_plain) / torch.abs(d_plain)))
-            print(f"  every item's K_tilde diagonal: max relative error "
-                  f"{diag:.3e}")
-            if not diag <= KERNEL_RTOL:
-                raise RuntimeError(f"a batched K_tilde diagonal disagrees: "
-                                   f"{diag:.3e}")
-        # each item against the 2-D kernel on its operands
-        one_plan = gram_cuda.plan_gram(m, n, kk, sms)
-        worst, equal = 0.0, 0
-        with torch.no_grad():
-            for i in range(b):
-                K_one = gram_cuda.acos_gram(*(t[i] for t in ops))
-                worst = max(worst, float(torch.max(torch.abs(
-                    K_one - K_kernel[i])) / torch.max(torch.abs(K_one))))
-                equal += bool(torch.equal(K_one, K_kernel[i]))
-        print(f"  items vs the 2-D kernel call: {equal} of {b} bit for bit "
-              f"(2-D plan: {one_plan.splits} split(s), batched "
-              f"{plan.splits}), max relative difference {worst:.3e}")
-        if not worst <= KERNEL_RTOL or (one_plan.splits == plan.splits
-                                         and equal != b):
-            raise RuntimeError(f"batched {name} disagrees with its items' "
-                               f"2-D calls")
-        out[name] = (max_abs, ms, plain_ms, lib_ms, bound_ms, bound_by, b)
+    out = {name: check_batched(torch, gram_cuda, sms, smi, name, ops)
+           for name, ops in zip(("K_tilde", "K"), calls)}
     # out=: item 0's K written as rows 128..128+m of a larger buffer
     ops = [t[0] for t in calls[1]]
     m, n = ops[0].shape[0], ops[1].shape[0]
@@ -1042,6 +1102,154 @@ def phase10_entry_points(torch, np, device, smi, totals, x, r, xtilde, Xt,
     return blk_abs
 
 
+@contextlib.contextmanager
+def first_batched_operands(gram_cuda, store):
+    """Keeps in ``store`` copies of the operands of the first two batched
+    Grams (a ladder's K_tilde and K) that the kernel wrapper is handed
+    while the block runs."""
+    real = gram_cuda.acos_gram
+
+    def record(*args, **kwargs):
+        if args[0].dim() == 3 and len(store) < 2:
+            store.append([a.detach().clone() for a in args])
+        return real(*args, **kwargs)
+
+    gram_cuda.acos_gram = record
+    try:
+        yield store
+    finally:
+        gram_cuda.acos_gram = real
+
+
+def phase11_linesearches(torch, np, device, smi, totals, x, r, xtilde, cfg,
+                         res_full, evals_full):
+    """The other line searches and the convergence gates at phase 4's data,
+    shape and steps (see the module docstring).  Adds each fit's launches
+    to ``totals``; returns the batched kernel's readings on the speculative
+    ladder's K_tilde and K for the kernel table."""
+    from gaussian_processes_tpu_torch.models import fit as fit_module
+    from gaussian_processes_tpu_torch.models.fit import fit
+    from gaussian_processes_tpu_torch.ops import gram_cuda
+    from gaussian_processes_tpu_torch.ops.kernels import crop_window_for_theta
+    from gaussian_processes_tpu_torch.params import theta_bounds
+
+    loss_full = res_full.track.logmarginal.double().cpu().numpy()
+    print(f"phase 4's fit (zoom): objective evaluations {evals_full}, final "
+          f"log-marginal {loss_full[-1]:.4f}")
+    checks, ladder_ops, ladder_thetas = {}, [], []
+    for arm, (what, knobs) in LS_FITS.items():
+        c = dataclasses.replace(cfg, **knobs)
+        with objective_counts(fit_module, ladder_thetas if arm == "a"
+                              else None) as ev, first_batched_operands(
+                gram_cuda, ladder_ops if arm == "a" else []):
+            torch.cuda.synchronize()
+            reset_counts(gram_cuda)
+            t0 = time.perf_counter()
+            res = fit(x, r, c, xtilde=xtilde, theta=THETA0,
+                      f_params=F_PARAMS0)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        counts = read_counts(gram_cuda)
+        add_counts(totals, counts)
+        loss = res.track.logmarginal.double().cpu().numpy()
+        print(f"({arm}) {what}: {sec:.3f} s; objective evaluations {ev}; "
+              f"Gram launches 2-D {counts['gram']}, batched "
+              f"{counts['batched']} ({counts['items']} items); final "
+              f"log-marginal {loss[-1]:.4f} (phase 4's {loss_full[-1]:.4f}); "
+              f"per iteration {loss.tolist()}  [{smi}]")
+        checks[f"({arm}) finite, not failed, improved"] = (
+            not res.failed and bool(np.all(np.isfinite(loss)))
+            and bool(loss[-1] > loss[0]))
+        checks[f"({arm}) launched the kernel"] = counts["gram"] > 0
+        if arm != "a":
+            continue
+        print(f"  final theta {[round(float(v), 4) for v in res.theta.values()]}"
+              f" (phase 4's "
+              f"{[round(float(v), 4) for v in res_full.theta.values()]})")
+        checks["(a)'s M-step ladders launched the batched kernel"] = (
+            ev["mstep_ladder"] == 0 or counts["batched"] > 0)
+        res_p = fit(x, r, c, xtilde=xtilde, theta=THETA0, f_params=F_PARAMS0,
+                    backend="torch")
+        loss_p = res_p.track.logmarginal.double().cpu().numpy()
+        err = float(np.max(np.abs(loss - loss_p) / np.abs(loss_p)))
+        print(f"  the same fit through the plain Gram: {loss_p.tolist()}, "
+              f"max rel difference {err:.3e}")
+        checks[f"(a) within {REFERENCE_RTOL} of the plain-Gram fit"] = (
+            not res_p.failed and err <= REFERENCE_RTOL)
+
+    # the batched kernel at the ladder's shapes: on armijo_trials points of
+    # a ladder along a seeded direction from the start theta, through the
+    # M-step's batched evaluator, as phase 7 holds it
+    th0 = {k: torch.tensor(v, device=device) for k, v in THETA0.items()}
+    fp0 = {k: torch.tensor(v, device=device) for k, v in F_PARAMS0.items()}
+    win = crop_window_for_theta(th0, N_PX, cfg.alpha_threshold,
+                                cfg.crop_margin, cfg.crop_bucket)
+    win = None if win[2] >= N_PX else win
+    lower, upper = theta_bounds()
+    start_ops = []
+    with torch.no_grad():
+        c0 = fit_module._fit_init(x, r, xtilde, th0, fp0,
+                                  torch.zeros(NTILDE, device=device), None,
+                                  False, False, cfg, win)
+        ladder = fit_module._mstep_ladder(
+            x, xtilde, r, c0.kern.es, c0.m_b, c0.V_b, c0.f_params, False, cfg,
+            lower, upper, win)
+        steps = 0.5 ** np.arange(1, cfg.armijo_trials + 1)
+        d = np.random.default_rng(11).standard_normal(len(THETA0)) * 0.05
+        with first_batched_operands(gram_cuda, start_ops):
+            ladder({k: torch.tensor(v + steps * d[i], dtype=torch.float32,
+                                    device=device)
+                    for i, (k, v) in enumerate(THETA0.items())})
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    out = {name: check_batched(torch, gram_cuda, sms, smi,
+                               f"{name} (speculative ladder)", ops)
+           for name, ops in zip(("K_tilde", "K"), start_ops)}
+    del start_ops, c0, ladder
+
+    # ... and on (a)'s first M-step ladder, whose trials lie far out along
+    # the cold search's unscaled -g: there the float32 Grams themselves are
+    # ill-conditioned, so both float32 versions are read against a float64
+    # plain Gram, and the kernel must be no further from it than 1e-5 or
+    # the plain float32 version, whichever is larger
+    if ladder_thetas:
+        print(f"(a)'s first M-step ladder, trial thetas (out of bounds: "
+              f"+inf): " + "; ".join(
+                  f"{k} {[float(f'{v:.4g}') for v in t.reshape(-1).tolist()]}"
+                  for k, t in ladder_thetas[0].items()))
+    for name, ops in zip(("K_tilde", "K"), ladder_ops):
+        with torch.no_grad():
+            K_kernel = gram_cuda.acos_gram(*ops)
+            K_plain = gram_cuda.acos_gram_torch(*ops)
+            K_64 = gram_cuda.acos_gram_torch(*(t.double() for t in ops))
+        rel = float(torch.max(torch.abs(K_kernel - K_plain))
+                    / torch.max(torch.abs(K_plain)))
+        rel64 = [float(torch.max(torch.abs(K.double() - K_64))
+                       / torch.max(torch.abs(K_64)))
+                 for K in (K_kernel, K_plain)]
+        line = (f"(a)'s ladder {name} {tuple(K_kernel.shape)}: kernel vs "
+                f"plain max|dK|/max|K| {rel:.3e}; vs float64: kernel "
+                f"{rel64[0]:.3e}, plain {rel64[1]:.3e}")
+        ok = rel <= KERNEL_RTOL and rel64[0] <= max(KERNEL_RTOL, rel64[1])
+        if name == "K_tilde":
+            d64 = K_64.diagonal(dim1=-2, dim2=-1)
+            diag = [torch.max(torch.abs(K.diagonal(dim1=-2, dim2=-1).double()
+                                        - d64) / torch.abs(d64), dim=-1)[0]
+                    for K in (K_kernel, K_plain)]
+            line += (f"; per item, the K_tilde diagonal's max relative error "
+                     f"vs float64: kernel {[f'{v:.2e}' for v in diag[0]]}, "
+                     f"plain {[f'{v:.2e}' for v in diag[1]]}")
+            ok = ok and float(diag[0].max()) <= max(KERNEL_RTOL,
+                                                    float(diag[1].max()))
+        print(line)
+        checks[f"(a)'s ladder {name}: kernel within {KERNEL_RTOL} of plain, "
+               f"no further from float64"] = ok
+        del K_kernel, K_plain, K_64
+    for what, ok in checks.items():
+        if not ok:
+            raise RuntimeError(f"line-search check failed: {what}")
+    return out
+
+
 def main():
     if not (HERE / "gaussian_processes_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py: gaussian_processes_tpu_torch/ not "
@@ -1454,10 +1662,16 @@ def main():
                                      (evals_full, spans_full), block_ops,
                                      check_kernel, checked)
     del block_ops
+    # ---- 11. the other line searches and the gates -------------------------
+    stamp("11")
+    batched.update({f"ladder {name}": v for name, v in phase11_linesearches(
+        torch, np, device, smi, totals, x, r, xtilde, cfg, res,
+        evals_full).items()})
 
     stamp("end")
     shapes = totals.pop("shapes", {})
-    print(f"launches over the main paths (phases 4, 6, 8, 9, 10): {totals}")
+    print(f"launches over the main paths (phases 4, 6, 8, 9, 10, 11): "
+          f"{totals}")
     print("Gram launches on the main paths by (batch, m, n, k): "
           + ", ".join(f"{shape}: {c}" for shape, c in sorted(
               shapes.items(), key=lambda kv: -kv[1])))
@@ -1496,6 +1710,8 @@ def main():
         "bound_ms": b_bound,
         "bound_by": b_by,
         "library_ms": None,
+        "shapes": {f"{b} x {m}x{n}, k {k}": c
+                   for (b, m, n, k), c in sorted(shapes.items()) if b > 1},
     }, {
         "name": "tf32_split",
         "route": "cuda",

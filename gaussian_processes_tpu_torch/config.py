@@ -4,7 +4,9 @@ The constants are the reference's (Spatial_GP_repo/utils.py:31-41), as in
 ``gaussian_processes_tpu/config.py``.  ``FitConfig`` carries only the knobs
 this port implements: the exact-semantics per-iteration EM fit (eigh
 stabilization at full rank or at a reduced rank budget, Cholesky E-step
-solves, exact M-step inverse and Cholesky log-determinant, exact Gram).
+solves, exact M-step inverse and Cholesky log-determinant, exact Gram),
+its five inner line searches and its convergence gates, with the JAX
+package's defaults.
 
 Precision: float32 matrix products run in full IEEE float32.  PyTorch's
 cuBLAS path already defaults to that, but cuDNN does not, so
@@ -98,20 +100,51 @@ class FitConfig:
     crop_window: bool = True
     crop_margin: float = 1.25
     crop_bucket: int = 16
-    # Strong-Wolfe zoom line-search trial budget per L-BFGS step.
+    # Trial budget per L-BFGS step of the strong-Wolfe zoom search and of
+    # the backtracking search.
     max_linesearch_steps: int = 15
     # Inner L-BFGS line search at both call sites (E-step f-params and
-    # M-step): "zoom" (strong Wolfe, optim/lbfgs.lbfgs_minimize) or
-    # "armijo" (a fixed ladder of ``armijo_trials`` step sizes evaluated as
-    # one batched call, optim/lbfgs.lbfgs_minimize_armijo; the population
-    # fit's branch-free search).
+    # M-step), ``optim/lbfgs``:
+    # - "zoom": strong Wolfe (``lbfgs_minimize``), optax's zoom search;
+    # - "zoom_carry": zoom, with the M-step's optimizer state carried across
+    #   EM iterations under ``mstep_memory`` (``lbfgs_minimize_zoom_carry``);
+    #   the f-param updates run plain zoom;
+    # - "speculative": value and gradient at one step at a carried scale,
+    #   and on an Armijo failure one batched value-only call over a ladder
+    #   of ``armijo_trials`` smaller steps (``lbfgs_minimize_speculative``);
+    #   under ``mstep_memory`` the M-step's curvature pairs are carried
+    #   across EM iterations;
+    # - "backtracking": optax's Armijo backtracking, halving from a carried
+    #   step (``lbfgs_minimize_backtracking``);
+    # - "armijo": a fixed ladder of ``armijo_trials`` steps evaluated as one
+    #   batched call (``lbfgs_minimize_armijo``); the population fit's
+    #   branch-free search, and the only one it runs.
     linesearch: str = "zoom"
+    # Carry the M-step's L-BFGS memory across EM iterations
+    # (linesearch "speculative" or "zoom_carry").
+    mstep_memory: bool = True
+    # The "armijo" search's ladder length and the "speculative" search's
+    # rejection ladder.
     armijo_trials: int = 6
+    # M-step early termination for "zoom" and "zoom_carry" (off at 0): stop
+    # the L-BFGS steps once the gradient's inf-norm is <= mstep_gtol, or the
+    # objective's change between accepted steps is < mstep_ftol +
+    # mstep_ftol_rel * |f| (the reference's torch.optim.LBFGS tolerances are
+    # gtol 1e-7 and ftol 1e-9).  The remaining steps cost no evaluation.
+    mstep_gtol: float = 0.0
+    mstep_ftol: float = 0.0
+    mstep_ftol_rel: float = 0.0
+    # E-step early termination (off at 0): stop the Newton steps once the
+    # posterior mean moved by max|dm| <= estep_tol * (1 + max|m|), keeping
+    # that step; each skipped step also skips its f-param L-BFGS run.
+    estep_tol: float = 0.0
 
     def __post_init__(self):
-        if self.linesearch not in ("zoom", "armijo"):
-            raise ValueError(f"linesearch must be 'zoom' or 'armijo', got "
-                             f"{self.linesearch!r}")
+        if self.linesearch not in ("zoom", "zoom_carry", "speculative",
+                                   "backtracking", "armijo"):
+            raise ValueError(
+                f"linesearch must be 'zoom', 'zoom_carry', 'speculative', "
+                f"'backtracking' or 'armijo', got {self.linesearch!r}")
         if self.rank_bucket < 1 or self.rank_slack <= 0 or self.rank_pad < 0:
             raise ValueError(
                 f"rank_bucket must be >= 1, rank_slack > 0 and rank_pad >= "

@@ -32,6 +32,17 @@ iteration; the values agree wherever both budgets cover the kept rank.
 Every Gram goes through ``ops/kernels._gram_core``: on CUDA tensors through
 the fused kernel (``ops/gram_cuda``), forward and hand-written backward.
 
+The inner L-BFGS runs (``_minimize``, by ``cfg.linesearch``) take one of
+five line searches.  The speculative and Armijo searches evaluate their
+step ladders in one batched call: the f-params' against (1, nt) moments,
+the M-step's as the (cell, trial) items of one cell of
+``_mstep_objective_cells`` (``_mstep_ladder``), so its Grams go through
+the batched kernel.  Under ``cfg.mstep_memory`` the speculative and
+zoom_carry searches carry the M-step's L-BFGS memory across EM iterations
+in ``Carry.mem``.  ``cfg.estep_tol`` ends a converged E-step's Newton loop
+early, and ``mstep_gtol``/``mstep_ftol``/``mstep_ftol_rel`` a converged
+zoom M-step.
+
 Pad-and-mask (the active loop's fixed-capacity buffers): 0/1
 ``sample_weight`` and ``inducing_weight`` zero the inactive rows and
 columns of the Grams and mask those points out of the E-step sums, the
@@ -55,7 +66,11 @@ from ..ops.kernels import (crop_images, crop_window_from_scalars,
                            gram_matrices_windowed, local_envelope)
 from ..ops.stabilize import (Eigenspace, _eigvalsh_safe, compute_eigenspace,
                              masked_inverse_spd, mv, reproject)
-from ..optim.lbfgs import lbfgs_minimize, lbfgs_minimize_armijo
+from ..optim.lbfgs import (empty_lbfgs_memory, lbfgs_minimize,
+                           lbfgs_minimize_armijo,
+                           lbfgs_minimize_backtracking,
+                           lbfgs_minimize_speculative,
+                           lbfgs_minimize_zoom_carry, zoom_carry_init)
 from ..params import (THETA_KEYS, clip_theta, default_f_params,
                       generate_theta, theta_bounds, theta_in_bounds)
 from ..utils.tracing import trace_annotation
@@ -107,6 +122,10 @@ class Carry(NamedTuple):
     track: Track
     failed: bool
     failed_at: int          # -1 if clean
+    # the M-step's L-BFGS memory carried across EM iterations (CPU tensors):
+    # (S, Y, rho, age) of the speculative search or the zoom_carry state
+    # when _mstep_carries_memory(cfg), else ()
+    mem: Any = ()
 
 
 @dataclasses.dataclass
@@ -225,44 +244,57 @@ def _kernel_state(K_tilde, K, Kvec, shared: bool, cfg: FitConfig,
     return KernelState(K_tilde, K, Kvec, es, K_b, a)
 
 
-def _one_lane(fun):
-    """A single-cell objective as the one-lane objective that
-    ``lbfgs_minimize_armijo`` takes: one call per trial of the ladder."""
-    def lanes(p):
-        if isinstance(p, dict):
-            trials = next(iter(p.values())).shape[1]
-            vals = [fun({k: v[0, t] for k, v in p.items()})
-                    for t in range(trials)]
-        else:
-            vals = [fun(p[0, t]) for t in range(p.shape[1])]
-        return torch.stack(vals)[None]
-    return lanes
+def _map(fn, x):
+    """fn over each tensor of a dict, or over the tensor itself."""
+    return {k: fn(v) for k, v in x.items()} if isinstance(x, dict) else fn(x)
 
 
-def _minimize(cfg: FitConfig, fun, x0, num_steps: int, lanes: bool = False):
-    """The inner L-BFGS of both call sites, by ``cfg.linesearch`` (JAX
-    ``models/fit.py::_minimize``): the zoom search, or the batched Armijo
-    ladder run as one lane.  ``lanes``: x0 carries a leading cell axis and
-    ``fun`` takes the (cells, trials) form of ``lbfgs_minimize_armijo``
-    (the cell-batched program, which has the Armijo search only)."""
-    if cfg.linesearch == "armijo":
-        if lanes:
-            return lbfgs_minimize_armijo(fun, x0, num_steps,
-                                         ls_trials=cfg.armijo_trials)
-        if isinstance(x0, dict):
-            x, f = lbfgs_minimize_armijo(_one_lane(fun),
-                                         {k: v[None] for k, v in x0.items()},
-                                         num_steps,
-                                         ls_trials=cfg.armijo_trials)
-            return {k: v[0] for k, v in x.items()}, f[0]
-        x, f = lbfgs_minimize_armijo(_one_lane(fun), x0[None], num_steps,
-                                     ls_trials=cfg.armijo_trials)
-        return x[0], f[0]
+def _minimize(cfg: FitConfig, fun, x0, num_steps: int, lanes: bool = False,
+              ladder=None, gtol: float = 0.0, ftol: float = 0.0,
+              ftol_rel: float = 0.0):
+    """The inner L-BFGS of both call sites by ``cfg.linesearch``, without a
+    carried memory (JAX ``models/fit.py::_minimize``): "zoom" and
+    "zoom_carry" run the zoom search, gated by ``gtol``/``ftol``/
+    ``ftol_rel`` (the M-step's site passes them), "backtracking" and
+    "speculative" their own searches, "armijo" the batched ladder as one
+    lane.  ``ladder`` evaluates ``fun`` at a stack of trial points (x0's
+    structure with a leading trial axis) in one batched call: the Armijo
+    and speculative searches take their ladders through it.  ``lanes``: x0
+    carries a leading cell axis and ``fun`` takes the (cells, trials) form
+    of ``lbfgs_minimize_armijo`` (the cell-batched program, which has the
+    Armijo search only)."""
+    search = cfg.linesearch
     if lanes:
-        raise ValueError("the cell-batched fit runs the Armijo search only: "
-                         "linesearch='armijo'")
+        if search != "armijo":
+            raise ValueError("the cell-batched fit runs the Armijo search "
+                             "only: linesearch='armijo'")
+        return lbfgs_minimize_armijo(fun, x0, num_steps,
+                                     ls_trials=cfg.armijo_trials)
+    if search == "armijo":
+        x, f = lbfgs_minimize_armijo(
+            lambda p: ladder(_map(lambda v: v[0], p))[None],
+            _map(lambda v: v[None], x0), num_steps,
+            ls_trials=cfg.armijo_trials)
+        return _map(lambda v: v[0], x), f[0]
+    if search == "backtracking":
+        return lbfgs_minimize_backtracking(
+            fun, x0, num_steps, max_linesearch_steps=cfg.max_linesearch_steps)
+    if search == "speculative":
+        x, f, _ = lbfgs_minimize_speculative(
+            fun, x0, num_steps, max_backtracks=cfg.armijo_trials,
+            ladder_fun=ladder)
+        return x, f
     return lbfgs_minimize(fun, x0, num_steps,
-                          max_linesearch_steps=cfg.max_linesearch_steps)
+                          max_linesearch_steps=cfg.max_linesearch_steps,
+                          gtol=gtol, ftol=ftol, ftol_rel=ftol_rel)
+
+
+def _mstep_carries_memory(cfg: FitConfig) -> bool:
+    """True when the M-step's L-BFGS memory is carried through the EM
+    iterations (the speculative or zoom_carry search under
+    ``mstep_memory``)."""
+    return (cfg.linesearch in ("speculative", "zoom_carry")
+            and cfg.mstep_memory and cfg.n_mstep > 0)
 
 
 def _fparam_objective(logA, r, lambda_m, lambda_var, wt=None):
@@ -278,11 +310,20 @@ def _estep_block(r, kern: KernelState, m_b, V_b, f_params, lambda_m,
                  lambda_var, cfg: FitConfig, wt=None, lanes: bool = False):
     """n_estep Newton updates on (m_b, V_b), each followed by an L-BFGS
     update of logA with closed-form lambda0 (reference:
-    utils.py:1859-1943).  ``lanes``: every argument carries a leading cell
-    axis and the f-param L-BFGS is batched over cells (its trial axis
-    against (L, 1, nt) moments)."""
+    utils.py:1859-1943).  ``cfg.estep_tol`` > 0 stops after the first step
+    that moved m_b by max|dm| <= estep_tol (1 + max|m_b|), keeping it (one
+    host read per step).  The f-param searches' ladders evaluate their
+    trials against (1, nt) moments in one call.  ``lanes``: every argument
+    carries a leading cell axis and the f-param L-BFGS is batched over
+    cells (its trial axis against (L, 1, nt) moments); the gate is then
+    refused (``fit_population`` zeroes it)."""
+    early = cfg.estep_tol > 0.0
+    if lanes and early:
+        raise ValueError("the cell-batched fit runs without convergence "
+                         "gates: estep_tol=0")
     trial_axis = (lambda t: t[:, None]) if lanes else (lambda t: t)
     for _ in range(cfg.n_estep):
+        m_old = m_b
         with trace_annotation("fit.estep.newton"):
             f_mean = mean_f_given_lambda_moments(f_params, lambda_m,
                                                  lambda_var)
@@ -296,9 +337,17 @@ def _estep_block(r, kern: KernelState, m_b, V_b, f_params, lambda_m,
                 cfg, partial(_fparam_objective, r=trial_axis(r),
                              lambda_m=trial_axis(lambda_m),
                              lambda_var=trial_axis(lambda_var), wt=wt),
-                f_params["logA"], cfg.n_fparamstep, lanes)
+                f_params["logA"], cfg.n_fparamstep, lanes,
+                ladder=None if lanes else partial(
+                    _fparam_objective, r=r[None], lambda_m=lambda_m[None],
+                    lambda_var=lambda_var[None], wt=wt))
         lam0 = lambda0_given_logA(logA, r, lambda_m, lambda_var, weight=wt)
         f_params = {"logA": logA, "lambda0": lam0}
+        if early:
+            dm, m_max = torch.stack([torch.max(torch.abs(m_b - m_old)),
+                                     torch.max(torch.abs(m_old))]).tolist()
+            if dm <= cfg.estep_tol * (1.0 + m_max):
+                break
     return m_b, V_b, f_params, lambda_m, lambda_var
 
 
@@ -324,6 +373,41 @@ def _mstep_objective(theta: Theta, x, xtilde, r, es: Eigenspace, m_b, V_b,
     loss = _mstep_loss(K_tilde, K, Kvec, es, m_b, V_b, f_params, r, shared,
                        wt)
     return torch.where(ok & torch.isfinite(loss), loss, float("inf"))
+
+
+def _mstep_ladder(x, xtilde, r, es: Eigenspace, m_b, V_b, f_params,
+                  shared: bool, cfg: FitConfig, lower, upper,
+                  win: Window = None, xcrop=None,
+                  backend: Optional[str] = None, wt=None, wi=None):
+    """The batched evaluator of ``_mstep_objective``'s line-search ladders
+    (same arguments): theta a dict of (T,) trial tensors -> (T,) values in
+    one evaluation, the trials being the (cell, trial) items of one cell of
+    ``_mstep_objective_cells``.  Every trial reads the window's crop (or
+    the full frame) as a view, and the Grams run in chunks of
+    ``ladder_items`` items, sized from the card's free memory."""
+    # imported here: parallel/population imports this module
+    from ..parallel.population import ladder_items
+    stim = (x, xtilde, None)
+    if win is not None:
+        if xcrop is None:
+            xc = crop_images(x, win[0], win[1], win[2], cfg.n_px_side)
+            xcrop = (xc, xc if shared else crop_images(
+                xtilde, win[0], win[1], win[2], cfg.n_px_side))
+        corner = torch.tensor(win[:2], device=x.device)
+        stim = (xcrop[0][None], xcrop[1][None],
+                (corner[:1], corner[1:], win[2]))
+    cell = dict(stim=stim, r=r[None], es=Eigenspace(*(t[None] for t in es)),
+                m_b=m_b[None], V_b=V_b[None],
+                f_params={k: v[None] for k, v in f_params.items()},
+                shared=shared, cfg=cfg, lower=lower, upper=upper,
+                backend=backend, wt=wt, wi=wi,
+                max_items=ladder_items(x.shape[0], xtilde.shape[0],
+                                       stim[0].shape[-1], x.device))
+
+    def ladder(theta: Theta) -> torch.Tensor:
+        return _mstep_objective_cells({k: v[None] for k, v in theta.items()},
+                                      **cell)[0]
+    return ladder
 
 
 def _mstep_loss(K_tilde, K, Kvec, es: Eigenspace, m_b, V_b, f_params, r,
@@ -412,8 +496,12 @@ def _fit_init(x, r, xtilde, theta0: Theta, f_params0: FParams, m0, V0,
         m_b=zeros(maxiter, nvar), V_b=zeros(maxiter, nvar, nvar),
         B=zeros(maxiter, ntilde, nbas))
     _track_update(track, 0, ell0, kl0, theta0, f_params0, es, m_b, V_b, cfg)
+    mem = ()
+    if _mstep_carries_memory(cfg):
+        mem = (zoom_carry_init(theta0) if cfg.linesearch == "zoom_carry"
+               else empty_lbfgs_memory(len(THETA_KEYS), dtype))
     return Carry(theta0, f_params0, m_b, V_b, kern, lambda_m, lambda_var,
-                 track, False, -1)
+                 track, False, -1, mem)
 
 
 def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
@@ -459,6 +547,7 @@ def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
     theta_start = theta
 
     # M-step on theta with the eigenspace fixed (utils.py:1999-2114)
+    mem = c.mem
     if cfg.n_mstep > 0 and do_mstep:
         xcrop = None
         if win is not None:
@@ -472,8 +561,27 @@ def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
                       m_b=m_b, V_b=V_b, f_params=f_params, shared=shared,
                       cfg=cfg, lower=lower, upper=upper, win=win, xcrop=xcrop,
                       backend=backend, wt=wt, wi=wi)
+        ladder = None
+        if cfg.linesearch in ("armijo", "speculative"):
+            ladder = _mstep_ladder(x, xtilde, r, kern.es, m_b, V_b, f_params,
+                                   shared, cfg, lower, upper, win, xcrop,
+                                   backend, wt, wi)
         with trace_annotation("fit.mstep"):
-            theta, _ = _minimize(cfg, obj, theta, cfg.n_mstep)
+            if not _mstep_carries_memory(cfg):
+                theta, _ = _minimize(cfg, obj, theta, cfg.n_mstep,
+                                     ladder=ladder, gtol=cfg.mstep_gtol,
+                                     ftol=cfg.mstep_ftol,
+                                     ftol_rel=cfg.mstep_ftol_rel)
+            elif cfg.linesearch == "zoom_carry":
+                theta, _, mem = lbfgs_minimize_zoom_carry(
+                    obj, theta, cfg.n_mstep, state=c.mem,
+                    max_linesearch_steps=cfg.max_linesearch_steps,
+                    gtol=cfg.mstep_gtol, ftol=cfg.mstep_ftol,
+                    ftol_rel=cfg.mstep_ftol_rel)
+            else:
+                theta, _, mem = lbfgs_minimize_speculative(
+                    obj, theta, cfg.n_mstep, max_backtracks=cfg.armijo_trials,
+                    memory=c.mem, ladder_fun=ladder)
 
     # Rollback on numerical failure (utils.py:2127-2189): keep the state
     # this iteration started from and freeze.
@@ -486,7 +594,7 @@ def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
     _track_update(c.track, i, ell, kl, theta_start, f_params, kern.es, m_b,
                   V_b, cfg)
     return Carry(theta, f_params, m_b, V_b, kern, lambda_m, lambda_var,
-                 c.track, False, -1)
+                 c.track, False, -1, mem)
 
 
 def _fit_finalize(c: Carry, cfg: FitConfig) -> Carry:
@@ -784,6 +892,15 @@ def _chunks(n: int, max_items: Optional[int]) -> List[slice]:
     return [slice(s0, min(s0 + size, n)) for s0 in range(0, n, size)]
 
 
+def _take(t: torch.Tensor, cells) -> torch.Tensor:
+    """t[cells] of a cell-stacked tensor; for an index tensor into a stack
+    of one cell, a view of that cell expanded to len(cells) (a single-cell
+    ladder's trials share the cell's stimuli and state without copies)."""
+    if t.shape[0] == 1 and isinstance(cells, torch.Tensor):
+        return t.expand(cells.shape[0], *t.shape[1:])
+    return t[cells]
+
+
 def _cell_grams(theta: Theta, stim: Cells, lane, shared: bool,
                 cfg: FitConfig, backend: Optional[str] = None,
                 max_items: Optional[int] = None):
@@ -801,10 +918,10 @@ def _cell_grams(theta: Theta, stim: Cells, lane, shared: bool,
             continue
         i0, j0, w = win
         cells = sl if lane is None else lane[sl]
-        xc = x[cells]
-        xtc = xc if shared else xtilde[cells]
+        xc = _take(x, cells)
         parts.append(gram_matrices_precropped(
-            th, xc, xtc, cfg.n_px_side, shared, i0[cells], j0[cells], w,
+            th, xc, xc if shared else _take(xtilde, cells), cfg.n_px_side,
+            shared, _take(i0, cells), _take(j0, cells), w,
             cfg.alpha_threshold, backend))
     if len(parts) == 1:
         return parts[0]
@@ -842,13 +959,15 @@ def _gradient_now(loss: torch.Tensor, inputs: Theta) -> torch.Tensor:
 def _mstep_objective_cells(theta: Theta, stim: Cells, r, es: Eigenspace,
                            m_b, V_b, f_params, shared: bool, cfg: FitConfig,
                            lower, upper, backend: Optional[str] = None,
-                           max_items: Optional[int] = None):
+                           max_items: Optional[int] = None, wt=None, wi=None):
     """The M-step objective of every (cell, trial) item: theta a dict of
     (L, T) tensors, the other arguments the cells' (L, ...) state; returns
     (L, T).  The L x T items run in chunks of at most ``max_items`` (the
     memory budget of one chunk of Grams); under autograd, in chunks of
     ``max_items // GRAD_CHUNK_DIVISOR``, each chunk's gradient taken before
-    the next chunk is built."""
+    the next chunk is built.  ``wt``/``wi``: pad weights (nt,)/(ntilde,)
+    shared by every cell (a single-cell ladder's).  With L = 1 (the
+    single-cell ladder), every item is ``_mstep_objective`` at its trial."""
     L, T = theta["Amp"].shape
     n = L * T
     flat = {k: v.reshape(n) for k, v in theta.items()}
@@ -863,10 +982,11 @@ def _mstep_objective_cells(theta: Theta, stim: Cells, r, es: Eigenspace,
         ok = theta_in_bounds(th, lower, upper)
         grams = _cell_grams(clip_theta(th, lower, upper), stim, ln, shared,
                             cfg, backend)
-        es_i = Eigenspace(*(t[ln] for t in es))
-        loss = _mstep_loss(*grams, es_i, m_b[ln], V_b[ln],
-                           {k: v[ln] for k, v in f_params.items()}, r[ln],
-                           shared)
+        es_i = Eigenspace(*(_take(t, ln) for t in es))
+        loss = _mstep_loss(*_apply_pad_weights(*grams, shared, wt, wi), es_i,
+                           _take(m_b, ln), _take(V_b, ln),
+                           {k: _take(v, ln) for k, v in f_params.items()},
+                           _take(r, ln), shared, wt)
         loss = torch.where(ok & torch.isfinite(loss), loss, float("inf"))
         if grad and loss.requires_grad:
             loss = _gradient_now(loss, th)
@@ -945,7 +1065,7 @@ def _fit_init_cells(stim: Cells, rs, theta0: Theta, f_params0: FParams,
                         V_b, cfg)
     return Carry(theta0, f_params0, m_b, V_b, kern, lambda_m, lambda_var,
                  track, torch.zeros(L, dtype=torch.bool, device=device),
-                 torch.full((L,), -1, dtype=torch.int32, device=device))
+                 torch.full((L,), -1, dtype=torch.int32, device=device), ())
 
 
 def _fit_iteration_cells(i: int, c: Carry, stim: Cells, rs, shared: bool,
@@ -1000,7 +1120,8 @@ def _fit_iteration_cells(i: int, c: Carry, stim: Cells, rs, shared: bool,
     out = _where_cells(commit, new[:7], c[:7])
     failed_now = ~finite & ~c.failed
     return Carry(*out, c.track, c.failed | failed_now,
-                 torch.where(failed_now, i, c.failed_at).to(torch.int32))
+                 torch.where(failed_now, i, c.failed_at).to(torch.int32),
+                 c.mem)
 
 
 def fit_cells_program(stim: Cells, rs, theta0: Theta, f_params0: FParams,

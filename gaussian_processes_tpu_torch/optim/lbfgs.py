@@ -1,4 +1,4 @@
-"""L-BFGS with the strong-Wolfe zoom line search
+"""The inner L-BFGS optimizers and their line searches
 (counterpart of ``gaussian_processes_tpu/optim/lbfgs.py``).
 
 The JAX package drives ``optax.lbfgs(memory_size=15,
@@ -11,7 +11,12 @@ slope_rtol 1e-4, curv_rtol 0.9, approx_dec_rtol 1e-6, increase_factor 2,
 stepsize_precision 1e-5, tol 0, no maximal stepsize), so that the M-step
 takes the same path as the JAX fit.  ``torch.optim.LBFGS`` is not a
 substitute: its zoom differs, and on hard data the path the optimizer takes
-moves the held-out r^2 by up to 0.14.
+moves the held-out r^2 by up to 0.14.  The same step loop runs optax's
+``scale_by_backtracking_linesearch`` (``lbfgs_minimize_backtracking``) and
+carries its state across calls (``lbfgs_minimize_zoom_carry``).  Beside
+optax's L-BFGS stand the JAX package's own: the batched Armijo ladder over
+lanes (``lbfgs_minimize_armijo``) and the speculative search with a
+carryable memory (``lbfgs_minimize_speculative``).
 
 The parameters are a dict of tensors (flattened in sorted-key order, the
 pytree leaf order optax uses) or one tensor.  The optimizer's own vectors
@@ -30,7 +35,7 @@ accepted steps falls below them.
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -41,24 +46,32 @@ _APPROX_DEC_RTOL = 1e-6
 _INCREASE_FACTOR = 2.0
 _INTERVAL_THRESHOLD = 1e-5
 _TOL = 0.0
+# the JAX package's scale_by_backtracking_linesearch arguments (slope_rtol
+# is the default 1e-4, atol = rtol = 0, max_learning_rate 1)
+_BT_DECREASE = 0.5
+_BT_INCREASE = 2.0
+
+Memory = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def _flatten(x0):
-    """(flat CPU vector, unflatten(vec) -> structure, device)."""
+    """(flat CPU vector, unflatten(v (..., d)) -> structure with v's leading
+    axes in front, device).  A dict flattens in sorted-key order (the
+    pytree leaf order optax uses)."""
     if isinstance(x0, dict):
         keys = sorted(x0)
         device = x0[keys[0]].device
         flat = torch.stack([x0[k].detach().reshape(()) for k in keys])
 
         def unflatten(v):
-            return {k: v[i] for i, k in enumerate(keys)}
+            return {k: v[..., i] for i, k in enumerate(keys)}
     else:
         device = x0.device
         shape = x0.shape
         flat = x0.detach().reshape(-1)
 
         def unflatten(v):
-            return v.reshape(shape)
+            return v.reshape(v.shape[:-1] + shape)
     return flat.to("cpu", copy=True), unflatten, device
 
 
@@ -76,6 +89,25 @@ def _value_and_grad_fn(fun, unflatten, device, dtype):
     return vg
 
 
+def _linearize_fn(fun, unflatten, device, dtype):
+    """``lin(flat) -> (value, pullback)``: the value in one transfer, and
+    ``pullback()`` the gradient at the same point from the same evaluation's
+    graph (what ``jax.linearize`` and its transpose give optax's
+    store_grad backtracking), in one more transfer."""
+    def lin(flat: torch.Tensor):
+        xs = flat.detach().to(device, copy=True).requires_grad_(True)
+        with torch.enable_grad():
+            v = fun(unflatten(xs))
+
+        def pullback():
+            if not v.requires_grad:
+                return torch.zeros_like(flat)
+            (g,) = torch.autograd.grad(v, xs)
+            return g.to(dtype).cpu()
+        return v.detach().to(dtype).cpu(), pullback
+    return lin
+
+
 # ---------------------------------------------------------------------------
 # scale_by_lbfgs (optax/_src/transform.py:1497-1753)
 # ---------------------------------------------------------------------------
@@ -87,9 +119,11 @@ class _LbfgsState(NamedTuple):
     diff_params: torch.Tensor      # (memory, d)
     diff_updates: torch.Tensor     # (memory, d)
     weights: torch.Tensor          # (memory,)
-    # scale_by_zoom_linesearch state: value/grad at the accepted point
+    # the line search's state: value/grad at the accepted point, and the
+    # backtracking search's learning rate carried to the next step
     value: torch.Tensor
     grad: torch.Tensor
+    learning_rate: torch.Tensor
 
 
 def _lbfgs_init(x0: torch.Tensor, memory_size: int) -> _LbfgsState:
@@ -97,7 +131,8 @@ def _lbfgs_init(x0: torch.Tensor, memory_size: int) -> _LbfgsState:
     zm = torch.zeros((memory_size,) + x0.shape, dtype=x0.dtype)
     return _LbfgsState(0, z, z, zm, zm.clone(),
                        torch.zeros(memory_size, dtype=x0.dtype),
-                       torch.tensor(float("inf"), dtype=x0.dtype), z)
+                       torch.tensor(float("inf"), dtype=x0.dtype), z,
+                       torch.ones((), dtype=x0.dtype))
 
 
 def _precondition(updates, dp_mem, du_mem, rhos, identity_scale, memory_idx):
@@ -350,17 +385,57 @@ def _zoom_linesearch(vg, params, updates, value, grad,
 
 
 # ---------------------------------------------------------------------------
+# scale_by_backtracking_linesearch (optax/_src/linesearch.py:75-441), as
+# the JAX package configures it: store_grad, decrease 0.5, increase 2
+# ---------------------------------------------------------------------------
+
+def _backtracking_linesearch(lin, params, updates, value, grad,
+                             learning_rate, max_backtracking_steps: int):
+    """Halve the step from min(2 * the carried learning rate, 1) until the
+    value decreases by at least slope_rtol * step * slope (at most
+    max_backtracking_steps + 1 values; the gradient only at the last).
+    Returns (stepsize, value, grad, learning rate to carry): the stepsize
+    is 0 when the last decrease error is infinite (a NaN or +inf value),
+    and the last trial's value and gradient are returned even when it
+    failed, as optax does."""
+    inf = torch.tensor(float("inf"), dtype=params.dtype)
+    slope = torch.dot(updates, grad)
+    lr = torch.clamp(_BT_INCREASE * learning_rate, max=1.0)
+    new_value, new_grad = value, torch.zeros_like(params)
+    decrease_error = inf
+    it = 0
+    while not bool(decrease_error <= 0.0) and it <= max_backtracking_steps:
+        if it > 0:
+            lr = _BT_DECREASE * lr
+        new_value, pullback = lin(params + lr * updates)
+        decrease_error = new_value - value - lr * _SLOPE_RTOL * slope
+        decrease_error = torch.clamp(torch.where(
+            torch.isnan(decrease_error), inf, decrease_error), min=0.0)
+        if bool(decrease_error <= 0.0) or it == max_backtracking_steps:
+            new_grad = pullback()
+        it += 1
+    lr = torch.where(torch.isinf(decrease_error), 0.0, lr)
+    return lr, new_value, new_grad, lr
+
+
+# ---------------------------------------------------------------------------
 # The step loop (gaussian_processes_tpu/optim/lbfgs.py::_drive_lbfgs)
 # ---------------------------------------------------------------------------
 
 def _drive_lbfgs(vg: Callable, x0: torch.Tensor, num_steps: int,
-                 memory_size: int, max_linesearch_steps: int,
-                 gtol: float = 0.0, ftol: float = 0.0, ftol_rel: float = 0.0):
+                 search: Callable, memory_size: int = 15,
+                 state0: Optional[_LbfgsState] = None,
+                 return_state: bool = False, gtol: float = 0.0,
+                 ftol: float = 0.0, ftol_rel: float = 0.0):
     """``num_steps`` L-BFGS steps from the flat CPU vector ``x0`` with
-    best-iterate tracking; returns (x_best, f_best) as CPU tensors."""
+    best-iterate tracking; returns (x_best, f_best) as CPU tensors, and the
+    optimizer state after the last step with ``return_state``.  ``search(x,
+    direction, value, grad, state) -> (stepsize, value, grad,
+    learning_rate)`` is the line search; ``state0`` a state to start from
+    (a fresh one of ``memory_size`` pairs when None)."""
     dtype = x0.dtype
     inf = torch.tensor(float("inf"), dtype=dtype)
-    state = _lbfgs_init(x0, memory_size)
+    state = _lbfgs_init(x0, memory_size) if state0 is None else state0
     early = (gtol > 0.0) or (ftol > 0.0) or (ftol_rel > 0.0)
 
     def value_and_grad_from_state(x, state):
@@ -373,9 +448,10 @@ def _drive_lbfgs(vg: Callable, x0: torch.Tensor, num_steps: int,
     def do_update(x, state, value, grad):
         precond, state = _scale_by_lbfgs(grad, state, x)
         direction = -precond
-        lr, ls_value, ls_grad = _zoom_linesearch(
-            vg, x, direction, value, grad, max_linesearch_steps)
-        state = state._replace(value=ls_value, grad=ls_grad)
+        lr, ls_value, ls_grad, ls_lr = search(x, direction, value, grad,
+                                              state)
+        state = state._replace(value=ls_value, grad=ls_grad,
+                               learning_rate=ls_lr)
         x_new = x + lr * direction
         bad = not bool(torch.all(torch.isfinite(x_new)))
         if bad:
@@ -416,7 +492,18 @@ def _drive_lbfgs(vg: Callable, x0: torch.Tensor, num_steps: int,
         value_f = inf
     if bool(torch.isfinite(value_f) & (value_f < f_best)):
         x_best, f_best = x, value_f
+    if return_state:
+        return x_best, f_best, state
     return x_best, f_best
+
+
+def _zoom(vg, max_linesearch_steps: int) -> Callable:
+    """The zoom search as ``_drive_lbfgs``'s ``search``."""
+    def search(x, direction, value, grad, state):
+        lr, ls_value, ls_grad = _zoom_linesearch(
+            vg, x, direction, value, grad, max_linesearch_steps)
+        return lr, ls_value, ls_grad, lr
+    return search
 
 
 def lbfgs_minimize(fun: Callable[[Any], torch.Tensor], x0: Any,
@@ -431,8 +518,60 @@ def lbfgs_minimize(fun: Callable[[Any], torch.Tensor], x0: Any,
     backtracks.  NaN values freeze the iterate."""
     flat0, unflatten, device = _flatten(x0)
     vg = _value_and_grad_fn(fun, unflatten, device, flat0.dtype)
-    x_best, f_best = _drive_lbfgs(vg, flat0, num_steps, memory_size,
-                                  max_linesearch_steps, gtol, ftol, ftol_rel)
+    x_best, f_best = _drive_lbfgs(vg, flat0, num_steps,
+                                  _zoom(vg, max_linesearch_steps),
+                                  memory_size, gtol=gtol, ftol=ftol,
+                                  ftol_rel=ftol_rel)
+    return unflatten(x_best.to(device)), f_best
+
+
+def zoom_carry_init(x0: Any, memory_size: int = 15) -> _LbfgsState:
+    """A fresh L-BFGS state for ``lbfgs_minimize_zoom_carry`` (a fit builds
+    it at init and carries it through the EM iterations)."""
+    return _lbfgs_init(_flatten(x0)[0], memory_size)
+
+
+def lbfgs_minimize_zoom_carry(fun: Callable[[Any], torch.Tensor], x0: Any,
+                              num_steps: int, state: _LbfgsState,
+                              max_linesearch_steps: int = 20,
+                              gtol: float = 0.0, ftol: float = 0.0,
+                              ftol_rel: float = 0.0
+                              ) -> Tuple[Any, torch.Tensor, _LbfgsState]:
+    """``lbfgs_minimize`` from a carried optimizer ``state``: its curvature
+    memory (and step count) persist across calls.  The stored value and
+    gradient belong to the previous call's objective, so the value is set
+    to +inf here and the first step evaluates the new objective at ``x0``.
+    The memory size is the state's.  Returns ``(x_best, f_best,
+    state_out)``."""
+    flat0, unflatten, device = _flatten(x0)
+    vg = _value_and_grad_fn(fun, unflatten, device, flat0.dtype)
+    state = state._replace(value=torch.full_like(state.value, float("inf")))
+    x_best, f_best, state = _drive_lbfgs(
+        vg, flat0, num_steps, _zoom(vg, max_linesearch_steps),
+        state0=state, return_state=True, gtol=gtol, ftol=ftol,
+        ftol_rel=ftol_rel)
+    return unflatten(x_best.to(device)), f_best, state
+
+
+def lbfgs_minimize_backtracking(fun: Callable[[Any], torch.Tensor], x0: Any,
+                                num_steps: int, memory_size: int = 15,
+                                max_linesearch_steps: int = 15
+                                ) -> Tuple[Any, torch.Tensor]:
+    """L-BFGS with optax's Armijo backtracking (sufficient decrease only)
+    in place of the zoom search: each trial costs a value, and the accepted
+    (or last) trial's gradient comes from the same evaluation.  Same
+    contract as ``lbfgs_minimize``, without the gates."""
+    flat0, unflatten, device = _flatten(x0)
+    dtype = flat0.dtype
+    vg = _value_and_grad_fn(fun, unflatten, device, dtype)
+    lin = _linearize_fn(fun, unflatten, device, dtype)
+
+    def search(x, direction, value, grad, state):
+        return _backtracking_linesearch(lin, x, direction, value, grad,
+                                        state.learning_rate,
+                                        max_linesearch_steps)
+
+    x_best, f_best = _drive_lbfgs(vg, flat0, num_steps, search, memory_size)
     return unflatten(x_best.to(device)), f_best
 
 
@@ -582,3 +721,132 @@ def lbfgs_minimize_armijo(fun: Callable[[Any], torch.Tensor], x0: Any,
         f_best = torch.where(better, f_new, f_best)
         flat, f, g = x_new, f_new, g_new
     return unflatten(x_best), f_best
+
+
+# ---------------------------------------------------------------------------
+# Speculative-accept L-BFGS (gaussian_processes_tpu/optim/lbfgs.py:
+# empty_lbfgs_memory and lbfgs_minimize_speculative), one lane
+# ---------------------------------------------------------------------------
+
+def empty_lbfgs_memory(d: int, dtype, memory_size: int = 8) -> Memory:
+    """An empty carryable L-BFGS memory (S, Y, rho, age) on the CPU, every
+    slot unused (age -1); ``d`` is the flattened parameter dimension."""
+    return (torch.zeros((memory_size, d), dtype=dtype),
+            torch.zeros((memory_size, d), dtype=dtype),
+            torch.zeros(memory_size, dtype=dtype),
+            torch.full((memory_size,), -1, dtype=torch.int64))
+
+
+def _two_loop(g, S, Y, rho, age):
+    """The two-loop recursion of one lane: the direction -H g, (d,)."""
+    return _two_loop_lanes(g[None], S[None], Y[None], rho[None],
+                           age[None])[0]
+
+
+def lbfgs_minimize_speculative(fun: Callable[[Any], torch.Tensor], x0: Any,
+                               num_steps: int, memory_size: int = 8,
+                               max_backtracks: int = 10, c1: float = 1e-4,
+                               memory: Optional[Memory] = None,
+                               ladder_fun: Optional[Callable] = None
+                               ) -> Tuple[Any, torch.Tensor, Memory]:
+    """L-BFGS with a speculative-accept Armijo line search (one lane).
+
+    Each step takes value and gradient at one step of the carried scale
+    ``a_spec`` along the two-loop direction.  When that step fails Armijo
+    (c1), one value-only call evaluates the whole ladder ``a_spec *
+    0.5 ** arange(1, max_backtracks + 1)``, and value and gradient are
+    taken at the first rung that passes.  A non-descent or non-finite
+    direction falls back to steepest descent scaled by min(1, 1/|g|_1).
+    ``a_spec`` starts at 1; an accepted speculation doubles it (at most 1),
+    a rung's acceptance adopts the rung, a failure halves it, and it stays
+    in [2^-20, 1].  A pair (s, y) is stored only when s.y > 1e-10 max(s.s,
+    1e-30), into the oldest slot (``argmin(age)``) with age ``max(age) +
+    1``.
+
+    ``memory`` (S, Y, rho, age), from ``empty_lbfgs_memory`` or an earlier
+    call, carries the curvature pairs across calls.  ``ladder_fun`` takes
+    the ladder's trial points in x0's structure with a leading trial axis
+    (a dict of (T,) tensors, or a tensor (T, *shape)) and returns their T
+    values in one batched call; without it the ladder loops over ``fun``.
+    The optimizer's vectors live on the CPU: each evaluation, and the
+    ladder call, makes one transfer.  Returns ``(x_best, f_best,
+    memory_out)``."""
+    flat0, unflatten, device = _flatten(x0)
+    d, dtype = flat0.shape[0], flat0.dtype
+    vg = _value_and_grad_fn(fun, unflatten, device, dtype)
+    tiny = torch.finfo(dtype).tiny
+    ladder = 0.5 ** torch.arange(1, max_backtracks + 1, dtype=dtype)
+
+    def values(trials):
+        xs = trials.to(device)
+        with torch.no_grad():
+            if ladder_fun is not None:
+                fs = ladder_fun(unflatten(xs))
+            else:
+                fs = torch.stack([fun(unflatten(x)) for x in xs])
+        return fs.detach().to(dtype).cpu()
+
+    if memory is None:
+        S, Y, rho, age = empty_lbfgs_memory(d, dtype, memory_size)
+    else:
+        S, Y, rho, age = (t.clone() for t in memory)
+    flat = flat0
+    f, g = vg(flat0)
+    inf = torch.tensor(float("inf"), dtype=dtype)
+    x_best, f_best = flat0, (f if bool(torch.isfinite(f)) else inf)
+    a_spec = torch.ones((), dtype=dtype)
+    for _ in range(num_steps):
+        direction = _two_loop(g, S, Y, rho, age)
+        gd = torch.dot(g, direction)
+        if bool((gd >= 0) | ~torch.isfinite(gd)):
+            gscale = torch.clamp(
+                1.0 / torch.clamp(torch.sum(torch.abs(g)), min=tiny), max=1.0)
+            direction = -g * gscale
+            gd = -torch.dot(g, g) * gscale
+
+        # the speculative step: value and gradient in one evaluation
+        x_new = flat + a_spec * direction
+        f_new, g_new = vg(x_new)
+        spec_ok = bool(torch.isfinite(f_new)
+                       & (f_new <= f + c1 * a_spec * gd)
+                       & torch.all(torch.isfinite(g_new)))
+        a_used, accept = a_spec, spec_ok
+        if not spec_ok:
+            # the ladder below a_spec in one value-only call, then value
+            # and gradient at its first Armijo rung (JAX also evaluates at
+            # step 0 when no rung passes, and discards the result)
+            alphas = a_spec * ladder
+            fs = values(flat[None, :] + alphas[:, None] * direction[None, :])
+            ok = torch.isfinite(fs) & (fs <= f + c1 * alphas * gd)
+            accept = bool(ok.any())
+            if accept:
+                a_used = alphas[int(torch.argmax(ok.to(torch.int32)))]
+                x_new = flat + a_used * direction
+                f_new, g_new = vg(x_new)
+                accept = bool(torch.isfinite(f_new)
+                              & torch.all(torch.isfinite(g_new)))
+        accept = accept and bool(torch.all(torch.isfinite(x_new)))
+        if not accept:
+            x_new, f_new, g_new = flat, f, g
+
+        s = x_new - flat
+        y = g_new - g
+        sy = torch.dot(s, y)
+        if accept and bool(sy > 1e-10 * torch.clamp(torch.dot(s, s),
+                                                    min=1e-30)):
+            slot = int(torch.argmin(age))
+            age[slot] = age.max() + 1
+            S[slot], Y[slot] = s, y
+            rho[slot] = 1.0 / torch.clamp(sy, min=tiny)
+
+        if bool(torch.isfinite(f_new) & (f_new < f_best)):
+            x_best, f_best = x_new, f_new
+        if accept and spec_ok:
+            a_next = torch.clamp(2.0 * a_used, max=1.0)
+        elif accept:
+            a_next = torch.clamp(a_used, min=tiny)
+        else:
+            a_next = 0.5 * a_spec
+        a_spec = torch.clamp(a_next, 2.0 ** -20, 1.0)
+        flat, f, g = x_new, f_new, g_new
+    return unflatten(x_best.to(device)), f_best, (S, Y, rho, age)

@@ -41,20 +41,34 @@ LADDER_MEMORY_SHARE = 0.5
 
 def _vmap_safe_config(cfg: FitConfig) -> FitConfig:
     """The knobs of the batched program: the branch-free batched Armijo
-    L-BFGS at both inner call sites (``linesearch="armijo"``; the program
-    runs no other).  The per-cell results carry this config, so the
-    single-cell ``fit`` under it (on the program's window) is each lane's
-    oracle.
+    L-BFGS at both inner call sites (the zoom search maps to it, as in the
+    JAX ``fit_population``) and no convergence gates (mstep_gtol,
+    mstep_ftol, mstep_ftol_rel and estep_tol zeroed, as JAX's
+    ``_vmap_safe_config`` does).  The per-cell results carry this config,
+    so the single-cell ``fit`` under it (on the program's window) is each
+    lane's oracle.
+
+    The speculative, backtracking and zoom_carry searches raise: JAX vmaps
+    those single-lane searches, while this program runs the batched Armijo
+    search only; ``fit_cells_sequential`` runs each cell through ``fit``,
+    which has them all.
 
     The JAX ``fit_population`` also caps ``max_linesearch_steps`` at 5, a
     budget of the zoom search the program never runs, and switches off what
     the port does not have: the Newton-Schulz E-step solver and M-step
     inverse and their fallbacks, the projected Gram's exact fallback, the
-    trace-series log-determinant, the convergence gates (mstep_ftol,
-    mstep_ftol_rel, mstep_gtol, estep_tol) and ``remat_gram`` (here chunks
-    of Grams sized by ``ladder_items`` bound the memory instead)."""
-    if cfg.linesearch != "armijo":
+    trace-series log-determinant and ``remat_gram`` (here chunks of Grams
+    sized by ``ladder_items`` bound the memory instead)."""
+    if cfg.linesearch in ("speculative", "backtracking", "zoom_carry"):
+        raise ValueError(
+            f"fit_population runs the batched Armijo search only, not the "
+            f"single-lane linesearch={cfg.linesearch!r}: fit the cells with "
+            f"fit_cells_sequential, which supports every search")
+    if cfg.linesearch == "zoom":
         cfg = dataclasses.replace(cfg, linesearch="armijo")
+    if cfg.mstep_gtol or cfg.mstep_ftol or cfg.mstep_ftol_rel or cfg.estep_tol:
+        cfg = dataclasses.replace(cfg, mstep_gtol=0.0, mstep_ftol=0.0,
+                                  mstep_ftol_rel=0.0, estep_tol=0.0)
     return cfg
 
 
@@ -172,7 +186,8 @@ def fit_cells_sequential(x, rs, cfg: Optional[FitConfig] = None, xtilde=None,
                          device=None,
                          backend: Optional[str] = None) -> List[FitResult]:
     """Fit the cells one after another through the single-cell ``fit``
-    (its knobs as given: zoom line search, per-iteration crop window).
+    (its knobs as given: any line search and gate, per-iteration crop
+    window).
     ``thetas``/``f_params`` are scalars or carry a leading cell axis; the
     device rule is ``fit_population``'s.  Without ``xtilde`` every cell
     draws its inducing rows from ``torch.Generator().manual_seed(seed)``."""

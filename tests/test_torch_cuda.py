@@ -456,3 +456,103 @@ def test_reduced_rank_fit_through_kernel_matches_plain(dev, tmp_path):
     assert loaded.B.device.type == "cuda"
     assert all(torch.equal(a, b) for a, b in zip(predict(loaded, xs),
                                                  predict(k, xs)))
+
+
+def _planted_on(dev, n_px=24, nt=256, seed=0):
+    """test_torch_fit's planted data (float32 on the card), the inducing
+    rows of its permutation, THETA0 and FP0."""
+    import math
+
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((nt, n_px * n_px))
+    lin = np.linspace(-1, 1, n_px)
+    yy, xx = np.meshgrid(lin, lin, indexing="ij")
+    w = np.exp(-((xx - 0.2) ** 2 + (yy + 0.1) ** 2) / (2 * 0.15 ** 2)).ravel()
+    r = rng.poisson(np.exp(0.6 * x @ (w / np.linalg.norm(w))))
+    idx = torch.as_tensor(rng.permutation(nt)[:64], device=dev)
+    xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    theta = {"sigma_0": 1.0, "eps_0x": 1e-4, "eps_0y": 1e-4,
+             "-2log2beta": -2 * math.log(0.2),
+             "-log2rho2": -math.log(2 * 0.1 ** 2), "Amp": 1.0}
+    fp = {"logA": math.log(0.01), "lambda0": 1.0}
+    return (xt, torch.as_tensor(r, dtype=torch.float32, device=dev), xt[idx],
+            theta, fp)
+
+
+@pytest.mark.cuda
+def test_speculative_fit_through_kernel_matches_plain(dev):
+    """The speculative search with its memory carried over two M-steps and
+    a 16-rung ladder, through the kernel against the same fit through the
+    plain Gram, float32 on the card (two summation orders: log-marginal
+    within 1e-3).  Its M-step ladders launch the batched kernel; the plain
+    fit launches nothing."""
+    from gaussian_processes_tpu_torch.config import FitConfig
+    from gaussian_processes_tpu_torch.models.fit import fit
+
+    x, r, xtilde, theta, fp = _planted_on(dev)
+    cfg = FitConfig(ntilde=64, maxiter=4, n_estep=3, n_mstep=3,
+                    n_fparamstep=3, n_px_side=24, crop_bucket=4,
+                    linesearch="speculative", armijo_trials=16)
+    runs = {}
+    for backend in ("cuda", "torch"):
+        before = gram_cuda.launches, gram_cuda.batched_launches
+        runs[backend] = fit(x, r, cfg, xtilde=xtilde, theta=theta,
+                            f_params=fp, backend=backend)
+        torch.cuda.synchronize()
+        launched = (gram_cuda.launches - before[0],
+                    gram_cuda.batched_launches - before[1])
+        assert (min(launched) > 0) == (backend == "cuda"), launched
+    k, p = runs["cuda"], runs["torch"]
+    assert not k.failed and not p.failed
+    lk = k.track.logmarginal.double()
+    lp = p.track.logmarginal.double()
+    assert float(((lk - lp).abs() / lp.abs()).max()) <= 1e-3
+    assert float(lk[-1]) > float(lk[0])
+
+
+@pytest.mark.cuda
+def test_mstep_ladder_through_kernel_matches_per_trial_calls(dev):
+    """The M-step's batched ladder evaluator through the kernel (one
+    batched launch for K_tilde and one for K over the T trials) against
+    the M-step objective at each trial through the 2-D kernel calls, on
+    the start window: float32, two summation orders, within 1e-5 relative;
+    an out-of-bounds trial is +inf in both."""
+    from gaussian_processes_tpu_torch.config import FitConfig
+    from gaussian_processes_tpu_torch.models import fit as tf
+    from gaussian_processes_tpu_torch.params import theta_bounds
+
+    x, r, xtilde, theta, fp = _planted_on(dev)
+    cfg = FitConfig(ntilde=64, n_px_side=24, crop_bucket=4)
+    th0 = {k: torch.tensor(v, device=dev) for k, v in theta.items()}
+    fp0 = {k: torch.tensor(v, device=dev) for k, v in fp.items()}
+    win = kernels.crop_window_for_theta(th0, 24, cfg.alpha_threshold,
+                                        cfg.crop_margin, cfg.crop_bucket)
+    assert win[2] < 24
+    with torch.no_grad():
+        c = tf._fit_init(x, r, xtilde, th0, fp0,
+                         torch.zeros(64, device=dev), None, False, False,
+                         cfg, win)
+    lower, upper = theta_bounds()
+    args = dict(x=x, xtilde=xtilde, r=r, es=c.kern.es, m_b=c.m_b, V_b=c.V_b,
+                f_params=c.f_params, shared=False, cfg=cfg, lower=lower,
+                upper=upper, win=win)
+    gen = torch.Generator().manual_seed(3)
+    T = 6
+    trials = {k: (v + 0.05 * 0.5 ** torch.arange(T)
+                  * torch.randn(1, generator=gen)).to(dev)
+              for k, v in theta.items()}
+    trials["Amp"][-1] = -1.0                 # out of bounds: +inf
+    with torch.no_grad():
+        before = gram_cuda.launches, gram_cuda.batched_launches
+        got = tf._mstep_ladder(**args)(trials)
+        torch.cuda.synchronize()
+        assert (gram_cuda.launches - before[0],
+                gram_cuda.batched_launches - before[1]) == (2, 2)
+        want = torch.stack([tf._mstep_objective(
+            {k: v[t] for k, v in trials.items()}, **args) for t in range(T)])
+    assert bool(torch.isinf(got[-1])) and bool(torch.isinf(want[-1]))
+    err = ((got[:-1].double() - want[:-1].double()).abs()
+           / want[:-1].double().abs())
+    assert bool(torch.isfinite(got[:-1]).all())
+    assert float(err.max()) <= 1e-5

@@ -259,8 +259,9 @@ def test_fit_cells_sequential_matches_jax():
 
 
 def test_vmap_safe_config():
-    """The batched program runs the Armijo search, whatever it is given,
-    and refuses the zoom search; a safe config passes unchanged."""
+    """The batched program runs the Armijo search in place of zoom, refuses
+    the single-lane searches (fit_population) and the zoom search
+    (fit_cells_program); a safe config passes unchanged."""
     used = tpop._vmap_safe_config(TCfg(linesearch="zoom",
                                        max_linesearch_steps=15))
     assert used.linesearch == "armijo" and used.max_linesearch_steps == 15
@@ -276,8 +277,11 @@ def test_vmap_safe_config():
             tpop._per_cell(THETA0, 2, x.dtype, "cpu"),
             tpop._per_cell(FP0, 2, x.dtype, "cpu"), True,
             TCfg(n_px_side=N, **STEPS), theta_bounds())
+    for search in ("speculative", "backtracking", "zoom_carry"):
+        with pytest.raises(ValueError, match="fit_cells_sequential"):
+            tpop._vmap_safe_config(TCfg(linesearch=search))
     with pytest.raises(ValueError):
-        TCfg(linesearch="backtracking")
+        TCfg(linesearch="newton")
 
 
 def test_numpy_input_without_device_needs_a_card(monkeypatch):
