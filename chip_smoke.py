@@ -123,6 +123,26 @@ Phases (none catches its own failure; any failure exits non-zero):
    are ill-conditioned: kernel vs plain within 1e-5, and both against a
    float64 plain Gram, the kernel no further from it than 1e-5 or the
    plain float32 version (the K_tilde diagonals item by item).
+12. The JAX package's default solvers and the projected M-step Gram at
+   phase 4's data, shape and steps, each fit through the kernel with its
+   launches counted from 0: (a) the reduced-rank fit under the subspace
+   eigensolver (refresh every 2nd iteration), Newton-Schulz E-step and
+   M-step inverses and the series log-determinant, within 1e-3 relative of
+   phase 10(a)'s reduced eigh fit at every iteration, with each
+   iteration's route (warm, refresh, fallback), budget and kept rank, the
+   solvers' host decisions, seconds and ``fit.*`` spans beside phase
+   10(a)'s, and the host synchronizations of each EM iteration by op
+   (torch.profiler) for both fits; (b) (a) with ``mstep_gram="projected"``
+   (rank from ``suggest_proj_rank``): the projection guard's passes and
+   fallbacks, Gram launches by shape, within 1e-3 of (a), and the same fit
+   through the plain Gram within 1e-3; (c) the kernel against its plain
+   version (phase 2's ``check_kernel``) at the projected shapes, K_tilde
+   2100 x 2100 and K 3160 x 2100 at k = R^2 for (b)'s rank and the bench's
+   pinned rank 40; (d) ``masked_inverse_warm`` at (a)'s rank budget on a
+   trial K_tilde_b near (a)'s final state against a float64 inverse, timed
+   beside ``masked_inverse_spd``; (e) the kernel alone at the 2-D shapes
+   that launch >= 20 times on the main paths and no phase held: K_tilde
+   258 x 258 at 11664, and 512 x 512 and 3160 x 512 at 6400 and 11664.
 
 The last two lines of standard output are one JSON object with the kernel
 table and one with the device.
@@ -196,6 +216,16 @@ LS_FITS = {
     "d": ("zoom, mstep_ftol_rel 1e-4, estep_tol 1e-3",
           dict(mstep_ftol_rel=1e-4, estep_tol=1e-3)),
 }
+# phase 12: the JAX FitConfig defaults' solvers (JAX config.py:160-162,
+# 240-257), with a refresh of the subspace eigensolver every 2nd iteration,
+# and bench.py's pinned projection rank (bench.py:215)
+WARM_KNOBS = dict(reduced_rank=True, eigensolver="subspace",
+                  eigh_refresh_every=2, estep_solver="schulz",
+                  mstep_inverse="schulz", mstep_logdet="series")
+PINNED_PROJ_RANK = 40
+# the warm M-step inverse in float32 against a float64 inverse: no further
+# from it than this, or than twice the float32 Cholesky inverse
+WARM_INVERSE_RTOL = 1e-4
 # peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds' rates
 TF32_FLOPS, HBM_BYTES = 495e12, 3.35e12
 
@@ -368,18 +398,41 @@ def operands_by_shape(gram_cuda, seen, path):
         gram_cuda.acos_gram = real
 
 
+def _sync_key(e):
+    """A synchronizing call and the ATen op under which it ran."""
+    op = e.cpu_parent
+    while op is not None and op.cpu_parent is not None and not (
+            op.name.startswith("aten::linalg")):
+        op = op.cpu_parent
+    return f"{e.name} <- {op.name if op is not None else '(top)'}"
+
+
 def syncs_by_op(prof):
     """Host-synchronizing CUDA runtime calls in a torch.profiler run, by the
     call and the ATen op under which it ran."""
     out = {}
     for e in prof.events():
         if "Synchronize" in e.name:
-            op = e.cpu_parent
-            while op is not None and op.cpu_parent is not None and not (
-                    op.name.startswith("aten::linalg")):
-                op = op.cpu_parent
-            key = f"{e.name} <- {op.name if op is not None else '(top)'}"
+            key = _sync_key(e)
             out[key] = out.get(key, 0) + 1
+    return out
+
+
+def syncs_by_iteration(torch, prof):
+    """``syncs_by_op`` of a profiled fit, one dict per EM iteration (the
+    host's ``fit.iteration`` spans, in order)."""
+    spans = sorted((e for e in prof.events() if e.name == "fit.iteration"
+                    and e.device_type == torch.autograd.DeviceType.CPU),
+                   key=lambda e: e.time_range.start)
+    out = [{} for _ in spans]
+    for e in prof.events():
+        if "Synchronize" not in e.name:
+            continue
+        for i, span in enumerate(spans):
+            if span.time_range.start <= e.time_range.start <= (
+                    span.time_range.end):
+                key = _sync_key(e)
+                out[i][key] = out[i].get(key, 0) + 1
     return out
 
 
@@ -838,7 +891,8 @@ def phase10_entry_points(torch, np, device, smi, totals, x, r, xtilde, Xt,
     block alone.  Adds each path's launches to ``totals``, and holds the
     kernel against its plain version (``check_kernel``) at every 2-D shape
     these paths launched that phases 2 and 5 did not (``checked``); returns
-    the row block's max |dK| for the kernel table."""
+    the row block's max |dK| for the kernel table and (a)'s fit, seconds,
+    spans and config for phase 12."""
     import shutil
     import tempfile
 
@@ -1013,8 +1067,11 @@ def phase10_entry_points(torch, np, device, smi, totals, x, r, xtilde, Xt,
     print(f"CLI fit (defaults: synthetic retina {cres.config.n_px_side} px, "
           f"nt {cres.K.shape[0]}, ntilde {cres.config.ntilde}, "
           f"{cres.config.maxiter} EM iterations of {cres.config.n_estep}/"
-          f"{cres.config.n_mstep}/{cres.config.n_fparamstep}, rank budget "
-          f"{cres.m_b.shape[0]}, n_eigen {cres.track.n_eigen.tolist()}): fit "
+          f"{cres.config.n_mstep}/{cres.config.n_fparamstep}, solvers "
+          f"{cres.config.eigensolver}/{cres.config.estep_solver}/"
+          f"{cres.config.mstep_inverse}/{cres.config.mstep_logdet}, rank "
+          f"budget {cres.m_b.shape[0]}, n_eigen "
+          f"{cres.track.n_eigen.tolist()}): fit "
           f"{cli['seconds']:.3f} s, with data, r2 and saving {cli_s:.3f} s; "
           f"r2 {cli['r2']:.4f} +/- {cli['sigma_r2']:.4f}; loaded model "
           f"predicts bit for bit: {same}; Gram launches {counts['gram']}  "
@@ -1099,7 +1156,7 @@ def phase10_entry_points(torch, np, device, smi, totals, x, r, xtilde, Xt,
     for what, ok in checks.items():
         if not ok:
             raise RuntimeError(f"entry-point check failed: {what}")
-    return blk_abs
+    return blk_abs, (res, red_s, spans, cfg_r)
 
 
 @contextlib.contextmanager
@@ -1248,6 +1305,209 @@ def phase11_linesearches(torch, np, device, smi, totals, x, r, xtilde, cfg,
         if not ok:
             raise RuntimeError(f"line-search check failed: {what}")
     return out
+
+
+def phase12_warm_solvers(torch, np, device, smi, totals, x, r, xtilde,
+                         reduced, check_kernel):
+    """The JAX package's default solvers and the projected M-step Gram at
+    phase 4's data, shape and steps (see the module docstring), beside
+    phase 10(a)'s reduced eigh fit ``reduced`` = (result, seconds, spans,
+    config).  Adds each fit's launches to ``totals``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gaussian_processes_tpu_torch.models.fit import fit
+    from gaussian_processes_tpu_torch.ops import gram_cuda
+    from gaussian_processes_tpu_torch.ops.kernels import (
+        crop_images, crop_window_for_theta, gram_matrices,
+        gram_matrices_projected, gram_matrices_windowed,
+        smooth_projection_basis)
+    from gaussian_processes_tpu_torch.ops.stabilize import (
+        masked_inverse_spd, masked_inverse_warm)
+    from gaussian_processes_tpu_torch.utils.tracing import (
+        collect_spans, decisions)
+
+    res_r, red_s, spans_r, cfg_r = reduced
+    loss_r = res_r.track.logmarginal.double().cpu().numpy()
+    checks = {}
+
+    def run(c, backend=None, seen=None):
+        """The fit under ``c``: result, seconds, spans, launch counts (added
+        to ``totals``) and the solvers' host decisions; the first operands
+        of each 2-D Gram shape go to ``seen``."""
+        torch.cuda.synchronize()
+        reset_counts(gram_cuda)
+        decisions.clear()
+        t0 = time.perf_counter()
+        with collect_spans() as spans, operands_by_shape(
+                gram_cuda, {} if seen is None else seen, "phase 12"):
+            res = fit(x, r, c, xtilde=xtilde, theta=THETA0,
+                      f_params=F_PARAMS0, profile=True, backend=backend)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = read_counts(gram_cuda)
+        add_counts(totals, counts)
+        return res, sec, spans, counts, dict(decisions)
+
+    def rel_err(a, b):
+        return float(np.max(np.abs(a - b) / np.abs(b)))
+
+    # (a) the JAX defaults' solvers at phase 10(a)'s reduced rank
+    cfg_a = dataclasses.replace(cfg_r, **WARM_KNOBS)
+    res_a, sec_a, spans_a, counts_a, dec_a = run(cfg_a)
+    loss_a = res_a.track.logmarginal.double().cpu().numpy()
+    err_a = rel_err(loss_a, loss_r)
+    n_eig = res_a.track.n_eigen.tolist()
+    print(f"(a) subspace eigensolver (refresh every "
+          f"{cfg_a.eigh_refresh_every}), Schulz E-step and M-step inverses, "
+          f"series log-determinant: {sec_a:.3f} s (phase 10(a)'s reduced "
+          f"eigh fit {red_s:.3f} s); Gram launches {counts_a['gram']}; host "
+          f"decisions {dec_a}  [{smi}]")
+    for i, (route, b, sec) in enumerate(zip(
+            res_a.timing["eigensolver"], res_a.timing["rank"],
+            res_a.timing["per_iteration"]), start=1):
+        print(f"  iteration {i}: {route}, rank budget {b}, n_eigen "
+              f"{n_eig[i]} (eigh fit {res_r.track.n_eigen.tolist()[i]}), "
+              f"{sec:.3f} s (eigh fit {res_r.timing['per_iteration'][i - 1]:.3f}"
+              f" s)")
+    print(f"  log-marginal {loss_a.tolist()} vs the eigh fit "
+          f"{loss_r.tolist()}: max rel {err_a:.3e}")
+    print(f"  spans (host s): {span_line(spans_a)}; eigh fit "
+          f"{span_line(spans_r)}")
+    checks["(a) not failed, finite"] = (
+        not res_a.failed and bool(np.all(np.isfinite(loss_a))))
+    checks["(a) launched the kernel"] = counts_a["gram"] > 0
+    checks["(a) ran the warm eigensolver"] = (
+        res_a.used_warm_basis and dec_a.get("eigensolver.warm", 0) > 0)
+    checks[f"(a) within {REFERENCE_RTOL} of the eigh fit"] = (
+        err_a <= REFERENCE_RTOL)
+
+    # host synchronizations of each EM iteration, both fits, with one
+    # f-param L-BFGS step per Newton step: at 10 steps the f-param search's
+    # host reads (over a thousand an iteration, alike in both) bury the
+    # solvers' and take the profiler minutes to attribute
+    for name, c in (("eigh fit", cfg_r), ("(a)", cfg_a)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fit(x, r, dataclasses.replace(c, n_fparamstep=1), xtilde=xtilde,
+                theta=THETA0, f_params=F_PARAMS0)
+            torch.cuda.synchronize()
+        for i, syncs in enumerate(syncs_by_iteration(torch, prof), start=1):
+            print(f"  host synchronizations at n_fparamstep 1, {name}, EM "
+                  f"iteration {i}: {sum(syncs.values())}, by call and op: "
+                  f"{syncs}")
+
+    # (b) (a) with the projected Gram, the rank sized by fit
+    cfg_b = dataclasses.replace(cfg_a, mstep_gram="projected")
+    seen = {}
+    res_b, sec_b, spans_b, counts_b, dec_b = run(cfg_b, seen=seen)
+    rank = res_b.config.mstep_proj_rank
+    loss_b = res_b.track.logmarginal.double().cpu().numpy()
+    err_b = rel_err(loss_b, loss_a)
+    print(f"(b) (a) with the projected Gram, rank {rank} (contraction "
+          f"{rank * rank}): {sec_b:.3f} s; guard passes "
+          f"{dec_b.get('mstep.projected', 0)}, exact fallbacks "
+          f"{dec_b.get('mstep.exact_gram', 0)}; host decisions {dec_b}; "
+          f"Gram launches by (batch, m, n, k) {counts_b['shapes']}  [{smi}]")
+    print(f"  log-marginal {loss_b.tolist()} vs (a): max rel {err_b:.3e}")
+    print(f"  spans (host s): {span_line(spans_b)}")
+    res_bt, sec_bt, _, _, _ = run(cfg_b, backend="torch")
+    loss_bt = res_bt.track.logmarginal.double().cpu().numpy()
+    err_bt = rel_err(loss_b, loss_bt)
+    print(f"  the same fit through the plain Gram: {sec_bt:.3f} s, "
+          f"log-marginal {loss_bt.tolist()}, max rel difference {err_bt:.3e}")
+    checks["(b) not failed, finite"] = (
+        not res_b.failed and bool(np.all(np.isfinite(loss_b))))
+    checks["(b) launched the kernel at the projected contraction"] = any(
+        k == rank * rank for (_, _, _, k) in counts_b["shapes"])
+    checks[f"(b) within {REFERENCE_RTOL} of (a)"] = err_b <= REFERENCE_RTOL
+    checks[f"(b) within {REFERENCE_RTOL} of its plain-Gram twin"] = (
+        not res_bt.failed and err_bt <= REFERENCE_RTOL)
+    del res_bt
+
+    # (c) the kernel against its plain version at the projected shapes:
+    # (b)'s operands at its rank, and at the pinned rank on the start
+    # theta's crop window
+    th0 = {k: torch.tensor(v, device=device) for k, v in THETA0.items()}
+    i0, j0, w = crop_window_for_theta(th0, N_PX, cfg_b.alpha_threshold,
+                                      cfg_b.crop_margin, cfg_b.crop_bucket)
+    xc = crop_images(x, i0, j0, w, N_PX)
+    xtc = crop_images(xtilde, i0, j0, w, N_PX)
+    E = smooth_projection_basis(th0, w, N_PX, PINNED_PROJ_RANK,
+                                dtype=torch.float64)
+    pinned = recorded_operands(torch, gram_cuda, lambda: (
+        gram_matrices_projected(th0, xc, xtc, E, i0, j0, N_PX, False)))
+    del xc, xtc
+    for R, ops_pair in (
+            (rank, [seen.pop((NTILDE, NTILDE, rank * rank))[1],
+                    seen.pop((NT, NTILDE, rank * rank))[1]]),
+            (PINNED_PROJ_RANK, pinned)):
+        for name, ops in zip(("K_tilde", "K"), ops_pair):
+            check_kernel(f"{name} (projected, rank {R})", ops)
+    seen.clear()
+    del pinned
+
+    # (d) the warm M-step inverse at (a)'s rank budget, on the M-step's
+    # K_tilde_b at a trial theta near (a)'s final one
+    budget = res_a.m_b.shape[0]
+    near = {k: v + (0.01 if k == "-log2rho2" else 0.0)
+            for k, v in res_a.theta.items()}
+    with torch.no_grad():
+        K_near = gram_matrices(near, xtilde, xtilde, N_PX, shared=True)[0]
+        M = res_a.B.mT @ K_near @ res_a.B
+        M = 0.5 * (M + M.mT)
+        keep, inv_diag = res_a.keep, res_a.k_tilde_inv_diag
+        decisions.clear()
+        X_warm = masked_inverse_warm(M, keep, inv_diag)
+        route = dict(decisions)
+        X_spd = masked_inverse_spd(M, keep)
+        X_64 = masked_inverse_spd(M.double(), keep)
+        scale = float(torch.max(torch.abs(X_64)))
+        err_w = float(torch.max(torch.abs(X_warm.double() - X_64))) / scale
+        err_s = float(torch.max(torch.abs(X_spd.double() - X_64))) / scale
+        ms_warm = cuda_ms(torch, lambda: masked_inverse_warm(M, keep,
+                                                             inv_diag))
+        ms_poison = cuda_ms(torch, lambda: masked_inverse_warm(
+            M, keep, inv_diag, fallback="poison"))
+        ms_spd = cuda_ms(torch, lambda: masked_inverse_spd(M, keep))
+    print(f"(d) masked_inverse_warm at (a)'s rank budget {budget} (kept "
+          f"{int(keep.sum())}), K_tilde_b at -log2rho2 + 0.01 from (a)'s "
+          f"final theta: route {route}; max|X - X64|/max|X64| warm "
+          f"{err_w:.3e}, Cholesky float32 {err_s:.3e}; CUDA-event medians: "
+          f"warm {ms_warm:.3f} ms (its guard read on the host), warm with "
+          f"the poison fallback {ms_poison:.3f} ms, masked_inverse_spd "
+          f"{ms_spd:.3f} ms  [{smi}]")
+    checks["(d) the warm inverse finite"] = bool(torch.isfinite(X_warm).all())
+    checks[f"(d) the warm inverse within {WARM_INVERSE_RTOL} (or twice the "
+           f"Cholesky inverse's error) of float64"] = (
+        err_w <= max(WARM_INVERSE_RTOL, 2 * err_s))
+    del K_near, M, X_warm, X_spd, X_64
+
+    # (e) the kernel alone at the 2-D shapes the main paths launch >= 20
+    # times that no phase held: the pipelined loop's capacity buffer on the
+    # full frame, and 512 inducing points at the crop window and the full
+    # frame (the sequential and single-cell Armijo fits' shapes)
+    theta = {k: torch.tensor(v, dtype=torch.float32, device=device)
+             for k, v in THETA0.items()}
+    crop = crop_window_for_theta(theta, N_PX, cfg_b.alpha_threshold,
+                                 cfg_b.crop_margin, cfg_b.crop_bucket)
+    x_cap = torch.zeros((CAPACITY, N_PX * N_PX), device=device)
+    x_cap[:N_START] = x[:N_START]
+    x512 = xtilde[:POP_NTILDE]
+    shapes = [
+        ("K_tilde cap", recorded_operands(torch, gram_cuda, lambda: (
+            gram_matrices(theta, x_cap, x_cap, N_PX, shared=True)))[:1]),
+        ("512", recorded_operands(torch, gram_cuda, lambda: (
+            gram_matrices_windowed(theta, x, x512, N_PX, False, *crop)))),
+        ("512", recorded_operands(torch, gram_cuda, lambda: gram_matrices(
+            theta, x, x512, N_PX, shared=False))),
+    ]
+    for what, calls in shapes:
+        for name, ops in zip(("K_tilde", "K"), calls):
+            check_kernel(f"{name} ({what})", ops)
+    del x_cap, shapes
+    for what, ok in checks.items():
+        if not ok:
+            raise RuntimeError(f"phase 12 check failed: {what}")
 
 
 def main():
@@ -1657,20 +1917,24 @@ def main():
     block_ops = phase9_large(torch, np, device, smi, totals)
     # ---- 10. the entry points ----------------------------------------------
     stamp("10")
-    block_abs = phase10_entry_points(torch, np, device, smi, totals, x, r,
-                                     xtilde, Xt, Rt, cfg, res,
-                                     (evals_full, spans_full), block_ops,
-                                     check_kernel, checked)
+    block_abs, reduced = phase10_entry_points(
+        torch, np, device, smi, totals, x, r, xtilde, Xt, Rt, cfg, res,
+        (evals_full, spans_full), block_ops, check_kernel, checked)
     del block_ops
     # ---- 11. the other line searches and the gates -------------------------
     stamp("11")
     batched.update({f"ladder {name}": v for name, v in phase11_linesearches(
         torch, np, device, smi, totals, x, r, xtilde, cfg, res,
         evals_full).items()})
+    # ---- 12. JAX's default solvers and the projected Gram ------------------
+    stamp("12")
+    phase12_warm_solvers(torch, np, device, smi, totals, x, r, xtilde,
+                         reduced, check_kernel)
+    del reduced
 
     stamp("end")
     shapes = totals.pop("shapes", {})
-    print(f"launches over the main paths (phases 4, 6, 8, 9, 10, 11): "
+    print(f"launches over the main paths (phases 4, 6, 8, 9, 10, 11, 12): "
           f"{totals}")
     print("Gram launches on the main paths by (batch, m, n, k): "
           + ", ".join(f"{shape}: {c}" for shape, c in sorted(

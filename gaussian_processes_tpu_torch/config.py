@@ -1,12 +1,15 @@
 """Configuration of the PyTorch/CUDA port.
 
 The constants are the reference's (Spatial_GP_repo/utils.py:31-41), as in
-``gaussian_processes_tpu/config.py``.  ``FitConfig`` carries only the knobs
-this port implements: the exact-semantics per-iteration EM fit (eigh
-stabilization at full rank or at a reduced rank budget, Cholesky E-step
-solves, exact M-step inverse and Cholesky log-determinant, exact Gram),
-its five inner line searches and its convergence gates, with the JAX
-package's defaults.
+``gaussian_processes_tpu/config.py``.  ``FitConfig`` carries the knobs of
+the JAX package's per-iteration EM fit: the stabilization at full rank or
+at a reduced rank budget and its eigensolver, the E-step solver, the M-step
+inverse, log-determinant and Gram, the five inner line searches and the
+convergence gates.  The solver knobs default to their exact forms (eigh,
+Cholesky, the exact inverse and log-determinant, the exact Gram, and full
+rank), where the JAX package defaults to its warm solvers (subspace,
+Newton-Schulz, the trace series, reduced rank): the port switches only once
+its bench has priced them on the card.
 
 Precision: float32 matrix products run in full IEEE float32.  PyTorch's
 cuBLAS path already defaults to that, but cuDNN does not, so
@@ -86,9 +89,8 @@ class FitConfig:
     # top of the ascending eigh, so it is exact whenever it covers the kept
     # rank (the dropped coordinates are exact zeros).  The budget follows
     # the largest kept rank of the last three iterations, read with the
-    # crop window's scalars.  The JAX package defaults to True; here the
-    # full factorization each iteration (JAX's eigensolver="eigh") is the
-    # only eigensolver, and the default stays False.
+    # crop window's scalars.  The JAX package defaults to True; the port
+    # keeps False until its bench has priced it.
     reduced_rank: bool = False
     rank_slack: float = 1.25
     rank_pad: int = 16
@@ -100,6 +102,55 @@ class FitConfig:
     crop_window: bool = True
     crop_margin: float = 1.25
     crop_bucket: int = 16
+    # Eigensolver of the reduced-rank fit's kernel rebuild (an iteration
+    # whose budget is below ntilde): "eigh" = the full factorization, top
+    # of the ascending eigh; "subspace" = ``subspace_power_steps`` steps of
+    # subspace iteration + Rayleigh-Ritz warm-started from the previous
+    # iteration's basis (theta moves little between EM iterations), with
+    # the full eigh as the refresh every ``eigh_refresh_every`` iterations
+    # (i % eigh_refresh_every == 0) and wherever the warm solve fails
+    # numerically (one host read per iteration).  The JAX default is
+    # "subspace".
+    eigensolver: str = "eigh"
+    subspace_power_steps: int = 2
+    eigh_refresh_every: int = 8
+    # The E-step Newton update's SPD inverse (I + S G S)^-1: "chol" = a
+    # Cholesky factor and a triangular solve every step; "schulz" = from
+    # the second Newton step of an E-step, Newton-Schulz from the previous
+    # step's inverse, with the Cholesky inverse where its residual guard
+    # fails (one host read per step).  The JAX default is "schulz".
+    estep_solver: str = "chol"
+    # The M-step objective's inverse of K_tilde_b: "exact" = the Cholesky
+    # inverse; "schulz" = Newton-Schulz seeded with the eigenspace's
+    # diagonal inverse (exact at the iteration-start theta), with
+    # ``schulz_fallback`` where its guard fails: "exact" the Cholesky
+    # inverse (one host read per evaluation), "poison" a NaN inverse, so
+    # the trial's loss is +inf and the line search backs off (branch-free,
+    # the population's form).  The JAX default is "schulz".
+    mstep_inverse: str = "exact"
+    # Newton-Schulz steps of both solvers (steps - 3 guarded, then 3 more).
+    schulz_steps: int = 12
+    schulz_fallback: str = "exact"
+    # log|K_tilde_b| in the M-step objective: "chol" = from its Cholesky
+    # factor; "series" = an 8th-order trace series around the eigenspace's
+    # diagonal seed, with the Cholesky log-determinant where the seed is
+    # too far (|E|_F >= 0.25, one host read per evaluation).  The JAX
+    # default is "series".
+    mstep_logdet: str = "chol"
+    # The M-step objective's Gram: "exact" = the crop window's (contraction
+    # w^2); "projected" = both sides of the separable smoothing projected
+    # on the top ``mstep_proj_rank`` eigenvectors of the 1-D smoothing
+    # factor at the iteration-start theta (contraction rank^2), guarded per
+    # evaluation by the projection's relative Frobenius residual against
+    # ``mstep_proj_tol``; out of tolerance ``mstep_proj_fallback`` "exact"
+    # builds the exact Gram (one host read per evaluation), "poison" makes
+    # the trial's loss +inf.  ``mstep_proj_rank`` None: ``fit`` sizes it
+    # from the start theta (ops/kernels.suggest_proj_rank).  The JAX
+    # default is "exact".
+    mstep_gram: str = "exact"
+    mstep_proj_rank: Optional[int] = None
+    mstep_proj_tol: float = 3e-6
+    mstep_proj_fallback: str = "exact"
     # Trial budget per L-BFGS step of the strong-Wolfe zoom search and of
     # the backtracking search.
     max_linesearch_steps: int = 15
@@ -140,11 +191,39 @@ class FitConfig:
     estep_tol: float = 0.0
 
     def __post_init__(self):
+        if self.eigensolver not in ("eigh", "subspace"):
+            raise ValueError(
+                f"eigensolver must be 'eigh' or 'subspace', got "
+                f"{self.eigensolver!r}")
         if self.linesearch not in ("zoom", "zoom_carry", "speculative",
                                    "backtracking", "armijo"):
             raise ValueError(
                 f"linesearch must be 'zoom', 'zoom_carry', 'speculative', "
                 f"'backtracking' or 'armijo', got {self.linesearch!r}")
+        if self.estep_solver not in ("chol", "schulz"):
+            raise ValueError(
+                f"estep_solver must be 'chol' or 'schulz', got "
+                f"{self.estep_solver!r}")
+        if self.mstep_inverse not in ("exact", "schulz"):
+            raise ValueError(
+                f"mstep_inverse must be 'exact' or 'schulz', got "
+                f"{self.mstep_inverse!r}")
+        if self.mstep_logdet not in ("chol", "series"):
+            raise ValueError(
+                f"mstep_logdet must be 'chol' or 'series', got "
+                f"{self.mstep_logdet!r}")
+        if self.mstep_gram not in ("exact", "projected"):
+            raise ValueError(
+                f"mstep_gram must be 'exact' or 'projected', got "
+                f"{self.mstep_gram!r}")
+        if self.mstep_proj_fallback not in ("exact", "poison"):
+            raise ValueError(
+                f"mstep_proj_fallback must be 'exact' or 'poison', got "
+                f"{self.mstep_proj_fallback!r}")
+        if self.schulz_fallback not in ("exact", "poison"):
+            raise ValueError(
+                f"schulz_fallback must be 'exact' or 'poison', got "
+                f"{self.schulz_fallback!r}")
         if self.rank_bucket < 1 or self.rank_slack <= 0 or self.rank_pad < 0:
             raise ValueError(
                 f"rank_bucket must be >= 1, rank_slack > 0 and rank_pad >= "

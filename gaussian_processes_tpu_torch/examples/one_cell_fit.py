@@ -2,9 +2,12 @@
 (counterpart of ``examples/one_cell_fit.py``).
 
 Loads (or synthesizes) a dataset, fits one retinal ganglion cell with the EM
-trainer at a reduced rank budget (the JAX script's per-iteration fit, whose
-default is ``reduced_rank=True``), evaluates the reliability-corrected r^2
-on the repeated test set and saves the model.
+trainer under the JAX script's solver set (its per-iteration fit at the JAX
+``FitConfig`` defaults: a reduced rank budget with the warm-started subspace
+eigensolver, Newton-Schulz for the E-step's and the M-step's inverses and
+the trace-series log-determinant, named here since the port's defaults are
+the exact forms), evaluates the reliability-corrected r^2 on the repeated
+test set and saves the model.
 
     python -m gaussian_processes_tpu_torch fit [--cellid 0] [--ntilde 200]
         [--maxiter 10] [--data path/to/dataset.pkl] [--out models/cell0]
@@ -23,6 +26,11 @@ from ..models.fit import fit
 from ..models.inference import evaluate
 from ..utils.guards import print_hyp
 from ..utils.io import save_model
+
+# the JAX package's FitConfig defaults for the solvers (its example's)
+JAX_SOLVERS = dict(reduced_rank=True, eigensolver="subspace",
+                   estep_solver="schulz", mstep_inverse="schulz",
+                   mstep_logdet="series")
 
 
 def main(argv=None):
@@ -61,7 +69,7 @@ def main(argv=None):
     cfg = FitConfig(ntilde=min(args.ntilde, X.shape[0]),
                     maxiter=args.maxiter, n_estep=args.n_estep,
                     n_mstep=args.n_mstep, n_fparamstep=args.n_fparamstep,
-                    n_px_side=ds.px_x, cellid=args.cellid, reduced_rank=True)
+                    n_px_side=ds.px_x, cellid=args.cellid, **JAX_SOLVERS)
 
     def clock():
         if device.type == "cuda":

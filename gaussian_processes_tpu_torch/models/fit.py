@@ -11,9 +11,19 @@ M-step so the final state matches its eigenspace.  A non-finite iteration
 reverts to the state it started from and freezes the fit (``failed``,
 ``failed_at``), the reference's rollback (utils.py:2127-2189).
 
-Semantics are the JAX package's exact ones: eigh stabilization, Cholesky
-E-step solves, exact M-step inverse, Cholesky log-determinant and the exact
-Gram.  The crop window of iteration i is computed from the theta iteration
+The solver knobs default to the JAX package's exact forms: eigh
+stabilization, Cholesky E-step solves, exact M-step inverse, Cholesky
+log-determinant and the exact Gram.  Its warm forms are opt-in: the
+subspace eigensolver warm-started from the previous iteration's basis at a
+reduced rank (``eigensolver="subspace"``, with the full eigh as periodic
+refresh and fallback), Newton-Schulz for the E-step's SPD inverse carried
+across Newton steps (``estep_solver``) and for the M-step's inverse
+(``mstep_inverse``), the trace-series log-determinant (``mstep_logdet``)
+and the spectrally projected M-step Gram (``mstep_gram="projected"``, basis
+at the iteration-start theta, crop hoisted out of the line search).  Where
+JAX branches in the graph (``lax.cond``), the port decides on the host, at
+most once per decision (``utils.tracing.decisions`` counts them).  The crop
+window of iteration i is computed from the theta iteration
 i starts from; after the iteration the fit checks that the window still
 covers the margin-1.0 alpha mask of the resulting theta, and re-runs with
 the margin doubled (finally on the full frame) if it does not -- a covering
@@ -53,6 +63,7 @@ active points runs inside buffers of a fixed shape.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 import warnings
 from functools import partial
@@ -63,9 +74,13 @@ import torch
 from ..config import FitConfig, use_full_fp32
 from ..ops.kernels import (crop_images, crop_window_from_scalars,
                            gram_matrices, gram_matrices_precropped,
-                           gram_matrices_windowed, local_envelope)
+                           gram_matrices_projected, gram_matrices_windowed,
+                           local_envelope, smooth_projection_basis,
+                           suggest_proj_rank)
 from ..ops.stabilize import (Eigenspace, _eigvalsh_safe, compute_eigenspace,
-                             masked_inverse_spd, mv, reproject)
+                             masked_inverse_spd, masked_inverse_warm,
+                             masked_logdet_series, mv, reproject,
+                             subspace_eigenspace)
 from ..optim.lbfgs import (empty_lbfgs_memory, lbfgs_minimize,
                            lbfgs_minimize_armijo,
                            lbfgs_minimize_backtracking,
@@ -73,7 +88,7 @@ from ..optim.lbfgs import (empty_lbfgs_memory, lbfgs_minimize,
                            lbfgs_minimize_zoom_carry, zoom_carry_init)
 from ..params import (THETA_KEYS, clip_theta, default_f_params,
                       generate_theta, theta_bounds, theta_in_bounds)
-from ..utils.tracing import trace_annotation
+from ..utils.tracing import decisions, read_guard, trace_annotation
 from .estep import estep_update
 from .moments import (kl_divergence, lambda0_given_logA, lambda_moments,
                       mean_f_given_lambda_moments, poisson_ell)
@@ -154,10 +169,9 @@ class FitResult:
     failed: bool
     failed_at: int
     timing: Optional[Dict[str, Any]] = None
-    # True when an iteration's basis came from a warm-started eigensolver
-    # (JAX's subspace iteration), which a fresh eigh does not reproduce;
-    # always False here (the port's only eigensolver is the full eigh), kept
-    # for results converted from the JAX package.
+    # True when an EM iteration ran the warm-started subspace eigensolver:
+    # its bases are Rayleigh-Ritz bases that a fresh eigh does not
+    # reproduce, so ``state_at_iteration`` then needs ``track_basis``.
     used_warm_basis: bool = False
 
     @property
@@ -228,17 +242,48 @@ def _apply_pad_weights(K_tilde, K, Kvec, shared: bool, wt=None, wi=None):
 def _build_kernel_state(theta: Theta, x, xtilde, shared: bool,
                         cfg: FitConfig, win: Window = None,
                         backend: Optional[str] = None,
-                        wt=None, wi=None,
-                        rank: Optional[int] = None) -> KernelState:
-    return _kernel_state(*_masked_grams(theta, x, xtilde, shared, cfg, win,
-                                        backend, wt, wi), shared, cfg, rank)
+                        wt=None, wi=None, rank: Optional[int] = None,
+                        es_warm: Optional[Eigenspace] = None,
+                        refresh: bool = False, log: Optional[list] = None
+                        ) -> KernelState:
+    """Grams and kernel state at theta; with ``es_warm`` the eigenspace
+    comes from ``_eigenspace``'s warm route, whose route goes to ``log``."""
+    grams = _masked_grams(theta, x, xtilde, shared, cfg, win, backend, wt, wi)
+    es = None
+    if es_warm is not None:
+        es, route = _eigenspace(grams[0], cfg, rank, es_warm, refresh)
+        if log is not None:
+            log.append(route)
+    return _kernel_state(*grams, shared, cfg, rank, es)
+
+
+def _eigenspace(K_tilde, cfg: FitConfig, rank: int, es_warm: Eigenspace,
+                refresh: bool = False):
+    """The reduced-rank eigenspace at ``rank`` by the warm-started subspace
+    eigensolver from ``es_warm``'s basis (JAX ``_build_kernel_state``'s
+    warm route), or by the full eigh (top of the ascending eigh) when
+    ``refresh`` or when the warm solve failed (its ``ok``, read on the
+    host once).  Returns ``(es, route)``, route "warm", "refresh" or
+    "fallback"."""
+    route = "refresh"
+    if not refresh:
+        es, ok = subspace_eigenspace(K_tilde, es_warm.B, cfg.eigval_tol,
+                                     n_power=cfg.subspace_power_steps)
+        if read_guard(ok, "eigensolver.warm", "eigensolver.fallback"):
+            return es, "warm"
+        route = "fallback"
+    else:
+        decisions["eigensolver.refresh"] += 1
+    return compute_eigenspace(K_tilde, cfg.eigval_tol, rank=rank), route
 
 
 def _kernel_state(K_tilde, K, Kvec, shared: bool, cfg: FitConfig,
-                  rank: Optional[int] = None) -> KernelState:
-    """Eigenspace (the top ``rank`` eigenpairs, or all) and projections of
-    the Grams (of one cell or a stack)."""
-    es = compute_eigenspace(K_tilde, cfg.eigval_tol, rank=rank)
+                  rank: Optional[int] = None,
+                  es: Optional[Eigenspace] = None) -> KernelState:
+    """Eigenspace (``es``, else the top ``rank`` eigenpairs of the eigh, or
+    all) and projections of the Grams (of one cell or a stack)."""
+    if es is None:
+        es = compute_eigenspace(K_tilde, cfg.eigval_tol, rank=rank)
     K_b = K @ es.B
     a = es.B if shared else K_b * es.k_tilde_inv_diag[..., None, :]
     return KernelState(K_tilde, K, Kvec, es, K_b, a)
@@ -310,9 +355,11 @@ def _estep_block(r, kern: KernelState, m_b, V_b, f_params, lambda_m,
                  lambda_var, cfg: FitConfig, wt=None, lanes: bool = False):
     """n_estep Newton updates on (m_b, V_b), each followed by an L-BFGS
     update of logA with closed-form lambda0 (reference:
-    utils.py:1859-1943).  ``cfg.estep_tol`` > 0 stops after the first step
-    that moved m_b by max|dm| <= estep_tol (1 + max|m_b|), keeping it (one
-    host read per step).  The f-param searches' ladders evaluate their
+    utils.py:1859-1943).  Under ``cfg.estep_solver == "schulz"`` every
+    Newton step after the first seeds its SPD inverse with the previous
+    step's (``estep_update``'s ``Minv_warm``).  ``cfg.estep_tol`` > 0
+    stops after the first step that moved m_b by max|dm| <= estep_tol
+    (1 + max|m_b|), keeping it (one host read per step).  The f-param searches' ladders evaluate their
     trials against (1, nt) moments in one call.  ``lanes``: every argument
     carries a leading cell axis and the f-param L-BFGS is batched over
     cells (its trial axis against (L, 1, nt) moments); the gate is then
@@ -322,14 +369,22 @@ def _estep_block(r, kern: KernelState, m_b, V_b, f_params, lambda_m,
         raise ValueError("the cell-batched fit runs without convergence "
                          "gates: estep_tol=0")
     trial_axis = (lambda t: t[:, None]) if lanes else (lambda t: t)
-    for _ in range(cfg.n_estep):
+    schulz = cfg.estep_solver == "schulz"
+    Minv = None
+    for step in range(cfg.n_estep):
         m_old = m_b
         with trace_annotation("fit.estep.newton"):
             f_mean = mean_f_given_lambda_moments(f_params, lambda_m,
                                                  lambda_var)
-            m_b, V_b = estep_update(r, kern.a, m_b, f_mean,
-                                    kern.es.k_tilde_b_diag, f_params,
-                                    weight=wt)
+            if schulz:
+                m_b, V_b, Minv = estep_update(
+                    r, kern.a, m_b, f_mean, kern.es.k_tilde_b_diag, f_params,
+                    weight=wt, Minv_warm=Minv, use_warm=step > 0,
+                    schulz_steps=cfg.schulz_steps, return_minv=True)
+            else:
+                m_b, V_b = estep_update(r, kern.a, m_b, f_mean,
+                                        kern.es.k_tilde_b_diag, f_params,
+                                        weight=wt)
             lambda_m, lambda_var = lambda_moments(kern.a, kern.K_b,
                                                   kern.Kvec, m_b, V_b)
         with trace_annotation("fit.estep.fparams"):
@@ -354,37 +409,59 @@ def _estep_block(r, kern: KernelState, m_b, V_b, f_params, lambda_m,
 def _mstep_objective(theta: Theta, x, xtilde, r, es: Eigenspace, m_b, V_b,
                      f_params, shared: bool, cfg: FitConfig, lower, upper,
                      win: Window = None, xcrop=None,
-                     backend: Optional[str] = None, wt=None, wi=None):
+                     backend: Optional[str] = None, wt=None, wi=None,
+                     proj=None):
     """Negative log-marginal as a function of theta with the eigenspace B
     fixed (reference closure: utils.py:2017-2112).  Out-of-bounds trial
     points return +inf (utils.py:2020-2028); the loss is evaluated on the
     clipped theta so its gradient stays finite.  ``xcrop`` holds the
-    window's pre-cropped (x, xtilde), cropped once per EM iteration."""
+    window's pre-cropped (x, xtilde), cropped once per EM iteration.
+
+    ``proj`` (``cfg.mstep_gram == "projected"``): ``(E, xc, xtc, i0, j0)``,
+    the smoothing basis at the iteration-start theta with the crops (or
+    the images and corner 0, 0 on the full frame); the Gram is then
+    ``gram_matrices_projected``'s, and out of tolerance the exact one (one
+    host read) or, under ``mstep_proj_fallback="poison"``, +inf."""
     ok = theta_in_bounds(theta, lower, upper)
     theta_c = clip_theta(theta, lower, upper)
-    if xcrop is not None and win is not None:
-        K_tilde, K, Kvec = _apply_pad_weights(*gram_matrices_precropped(
-            theta_c, xcrop[0], xcrop[1], cfg.n_px_side, shared,
-            win[0], win[1], win[2], cfg.alpha_threshold, backend),
-            shared, wt, wi)
+
+    def exact():
+        if xcrop is not None and win is not None:
+            return gram_matrices_precropped(
+                theta_c, xcrop[0], xcrop[1], cfg.n_px_side, shared, win[0],
+                win[1], win[2], cfg.alpha_threshold, backend)
+        return _masked_grams(theta_c, x, xtilde, shared, cfg, win, backend)
+
+    if proj is None:
+        grams = exact()
     else:
-        K_tilde, K, Kvec = _masked_grams(theta_c, x, xtilde, shared, cfg,
-                                         win, backend, wt, wi)
+        E, xc, xtc, i0, j0 = proj
+        *grams, p_ok = gram_matrices_projected(
+            theta_c, xc, xtc, E, i0, j0, cfg.n_px_side, shared,
+            cfg.alpha_threshold, cfg.mstep_proj_tol, backend)
+        if cfg.mstep_proj_fallback == "exact":
+            if not read_guard(p_ok, "mstep.projected", "mstep.exact_gram"):
+                grams = exact()
+        else:
+            ok = ok & p_ok
+    K_tilde, K, Kvec = _apply_pad_weights(*grams, shared, wt, wi)
     loss = _mstep_loss(K_tilde, K, Kvec, es, m_b, V_b, f_params, r, shared,
-                       wt)
+                       cfg, wt)
     return torch.where(ok & torch.isfinite(loss), loss, float("inf"))
 
 
 def _mstep_ladder(x, xtilde, r, es: Eigenspace, m_b, V_b, f_params,
                   shared: bool, cfg: FitConfig, lower, upper,
                   win: Window = None, xcrop=None,
-                  backend: Optional[str] = None, wt=None, wi=None):
+                  backend: Optional[str] = None, wt=None, wi=None,
+                  proj=None):
     """The batched evaluator of ``_mstep_objective``'s line-search ladders
     (same arguments): theta a dict of (T,) trial tensors -> (T,) values in
     one evaluation, the trials being the (cell, trial) items of one cell of
     ``_mstep_objective_cells``.  Every trial reads the window's crop (or
-    the full frame) as a view, and the Grams run in chunks of
-    ``ladder_items`` items, sized from the card's free memory."""
+    the full frame) and the projection basis as views, and the Grams run
+    in chunks of ``ladder_items`` items, sized from the card's free
+    memory."""
     # imported here: parallel/population imports this module
     from ..parallel.population import ladder_items
     stim = (x, xtilde, None)
@@ -402,7 +479,8 @@ def _mstep_ladder(x, xtilde, r, es: Eigenspace, m_b, V_b, f_params,
                 shared=shared, cfg=cfg, lower=lower, upper=upper,
                 backend=backend, wt=wt, wi=wi,
                 max_items=ladder_items(x.shape[0], xtilde.shape[0],
-                                       stim[0].shape[-1], x.device))
+                                       stim[0].shape[-1], x.device),
+                proj=None if proj is None else proj[0][None])
 
     def ladder(theta: Theta) -> torch.Tensor:
         return _mstep_objective_cells({k: v[None] for k, v in theta.items()},
@@ -411,23 +489,34 @@ def _mstep_ladder(x, xtilde, r, es: Eigenspace, m_b, V_b, f_params,
 
 
 def _mstep_loss(K_tilde, K, Kvec, es: Eigenspace, m_b, V_b, f_params, r,
-                shared: bool, wt=None):
+                shared: bool, cfg: FitConfig, wt=None):
     """The M-step's negative log-marginal from the trial Grams, with the
-    eigenspace fixed (of one cell, or of a stack of items)."""
+    eigenspace fixed (of one cell, or of a stack of items).  The inverse of
+    K_tilde_b and its log-determinant by ``cfg.mstep_inverse`` and
+    ``cfg.mstep_logdet``: the warm forms start from the eigenspace's
+    diagonal ``k_tilde_inv_diag``, exact at the iteration-start theta."""
     B = es.B
     K_tilde_b = B.mT @ (K_tilde @ B)
     K_tilde_b = 0.5 * (K_tilde_b + K_tilde_b.mT)
     K_b = K @ B
-    K_tilde_inv_b = masked_inverse_spd(K_tilde_b, es.keep)
+    if cfg.mstep_inverse == "schulz":
+        K_tilde_inv_b = masked_inverse_warm(
+            K_tilde_b, es.keep, es.k_tilde_inv_diag, steps=cfg.schulz_steps,
+            fallback=cfg.schulz_fallback)
+    else:
+        K_tilde_inv_b = masked_inverse_spd(K_tilde_b, es.keep)
     a = B if shared else K_b @ K_tilde_inv_b
     lambda_m, lambda_var = lambda_moments(a, K_b, Kvec, m_b, V_b)
     f_mean = mean_f_given_lambda_moments(f_params, lambda_m, lambda_var)
     ell = poisson_ell(r, f_mean, lambda_m, f_params, weight=wt)
     # log|V| is constant in theta: omitted.  Cholesky-only logdet: a
     # non-PSD trial K_tilde_b gives NaN -> inf loss -> rejected step.
+    ld_K = None
+    if cfg.mstep_logdet == "series":
+        ld_K = masked_logdet_series(K_tilde_b, es.keep, es.k_tilde_inv_diag)
     kl = kl_divergence(m_b, V_b, es, K_tilde_b=K_tilde_b,
                        K_tilde_inv_b=K_tilde_inv_b, skip_logdet_V=True,
-                       chol_only=True)
+                       chol_only=True, logdet_K=ld_K)
     return -(ell - kl)
 
 
@@ -507,9 +596,13 @@ def _fit_init(x, r, xtilde, theta0: Theta, f_params0: FParams, m0, V0,
 def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
                    cfg: FitConfig, bounds, win: Window = None,
                    do_mstep: bool = True,
-                   backend: Optional[str] = None, wt=None, wi=None) -> Carry:
+                   backend: Optional[str] = None, wt=None, wi=None,
+                   warm: bool = False, log: Optional[list] = None) -> Carry:
     """One EM iteration (reference loop body: utils.py:1794-2125); a no-op
-    once the fit has failed."""
+    once the fit has failed.  ``warm``: the kernel rebuild takes the
+    reduced-rank eigenspace from the warm-started subspace eigensolver,
+    refreshed by the full eigh when i % eigh_refresh_every == 0 (its route
+    goes to ``log``)."""
     if c.failed:
         return c
     lower, upper = bounds
@@ -521,10 +614,13 @@ def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
     # reduced-rank budget, see _slice_carry).
     if cfg.n_mstep > 0:
         rank = m_b.shape[0]
+        refresh = (cfg.eigh_refresh_every > 0
+                   and i % cfg.eigh_refresh_every == 0)
         with trace_annotation("fit.kernel_state"):
             kern_new = _build_kernel_state(
                 theta, x, xtilde, shared, cfg, win, backend, wt, wi,
-                rank=rank if rank < xtilde.shape[0] else None)
+                rank=rank if rank < xtilde.shape[0] else None,
+                es_warm=kern.es if warm else None, refresh=refresh, log=log)
             m_b, V_b = reproject(kern_new.es, kern.es, m_b, V_b)
         kern = kern_new
 
@@ -557,15 +653,26 @@ def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
             xtc = (xc if shared else
                    crop_images(xtilde, win[0], win[1], win[2], cfg.n_px_side))
             xcrop = (xc, xtc)
+        proj = None
+        if cfg.mstep_gram == "projected":
+            # the smoothing basis at the iteration-start theta (theta moves
+            # little within one line search), on the crops; float64 for the
+            # projection's guard (gram_matrices_projected)
+            side = cfg.n_px_side if win is None else win[2]
+            E = smooth_projection_basis(theta, side, cfg.n_px_side,
+                                        min(cfg.mstep_proj_rank, side),
+                                        dtype=torch.float64)
+            proj = ((E, x, xtilde, 0, 0) if win is None
+                    else (E, *xcrop, win[0], win[1]))
         obj = partial(_mstep_objective, x=x, xtilde=xtilde, r=r, es=kern.es,
                       m_b=m_b, V_b=V_b, f_params=f_params, shared=shared,
                       cfg=cfg, lower=lower, upper=upper, win=win, xcrop=xcrop,
-                      backend=backend, wt=wt, wi=wi)
+                      backend=backend, wt=wt, wi=wi, proj=proj)
         ladder = None
         if cfg.linesearch in ("armijo", "speculative"):
             ladder = _mstep_ladder(x, xtilde, r, kern.es, m_b, V_b, f_params,
                                    shared, cfg, lower, upper, win, xcrop,
-                                   backend, wt, wi)
+                                   backend, wt, wi, proj)
         with trace_annotation("fit.mstep"):
             if not _mstep_carries_memory(cfg):
                 theta, _ = _minimize(cfg, obj, theta, cfg.n_mstep,
@@ -692,8 +799,17 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
 
     ``backend`` ("cuda" or "torch") overrides the Gram backend chosen from
     the device.  ``profile`` records host wall-clock per iteration (after a
-    device synchronize) and each iteration's rank budget in ``timing``.
-    The fit's layers are ``fit.*`` spans (``utils/tracing``).
+    device synchronize), each iteration's rank budget and, under the
+    subspace eigensolver, its route ("warm", "refresh", "fallback"; "eigh"
+    at full rank) in ``timing``.  The fit's layers are ``fit.*`` spans
+    (``utils/tracing``).
+
+    Under ``mstep_gram="projected"`` with ``mstep_proj_rank`` None, the
+    rank is sized from the start theta on the full grid
+    (``suggest_proj_rank``, one host read) and the result's config carries
+    it.  The warm-started subspace eigensolver runs at every iteration whose
+    rank budget is below ntilde (``reduced_rank`` with
+    ``eigensolver="subspace"``); ``FitResult.used_warm_basis`` then holds.
     """
     cfg = cfg or FitConfig()
     dtype, device = x.dtype, x.device
@@ -728,6 +844,10 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
     else:
         fp0 = {k: torch.as_tensor(v, dtype=dtype, device=device)
                for k, v in f_params.items()}
+    if cfg.mstep_gram == "projected" and cfg.mstep_proj_rank is None:
+        gr0 = math.exp(float(theta0["-log2rho2"]))
+        cfg = dataclasses.replace(cfg, mstep_proj_rank=suggest_proj_rank(
+            gr0, cfg.n_px_side, cfg.n_px_side))
     n = xtilde.shape[0]
     has_V = V is not None
     m0 = (torch.zeros(n, dtype=dtype, device=device) if m is None
@@ -780,8 +900,10 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
         return time.perf_counter()
 
     bounds = (lower, upper)
-    timing = {"per_iteration": [], "rank": []} if profile else None
+    timing = ({"per_iteration": [], "rank": [], "eigensolver": []}
+              if profile else None)
     n_eig_hist: List[int] = []
+    used_warm = False
     with torch.no_grad():
         t0 = clock() if profile else 0.0
         with trace_annotation("fit.init"):
@@ -800,15 +922,23 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
                 n_eig_hist.append(n_eig)
                 budget = _rank_bucket(max(n_eig_hist[-3:]), cfg, n)
                 carry = _slice_carry(carry, budget, shared)
+            # the warm-started eigensolver at every reduced-rank iteration
+            # (the first one starts from init's full eigh, so it is exact)
+            warm = (cfg.reduced_rank and cfg.eigensolver == "subspace"
+                    and carry.m_b.shape[0] < n)
+            used_warm = used_warm or warm
+            routes: List[str] = []
             with trace_annotation("fit.iteration"):
                 carry = _fit_iteration(i, carry, x, r, xtilde, shared, cfg,
                                        bounds, win,
                                        do_mstep=(i < cfg.maxiter - 1),
-                                       backend=backend, wt=wt, wi=wi)
+                                       backend=backend, wt=wt, wi=wi,
+                                       warm=warm, log=routes)
                 scalars, n_eig = probe(carry.theta, carry.kern.es)
             if profile:
                 timing["per_iteration"].append(clock() - ti)
                 timing["rank"].append(carry.m_b.shape[0])
+                timing["eigensolver"].append(routes[0] if routes else "eigh")
             if not carry.failed and not covers(win, scalars):
                 # the window no longer covers the RF: that iteration's
                 # kernels were inexact -- never return such a fit
@@ -847,7 +977,8 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
         keep=es.keep, eigvals=es.eigvals, k_tilde_b_diag=es.k_tilde_b_diag,
         k_tilde_inv_diag=es.k_tilde_inv_diag, K_tilde=kern.K_tilde,
         K=kern.K, Kvec=kern.Kvec, K_b=kern.K_b, a=kern.a, track=carry.track,
-        failed=carry.failed, failed_at=carry.failed_at, timing=timing)
+        failed=carry.failed, failed_at=carry.failed_at, timing=timing,
+        used_warm_basis=used_warm)
 
 
 # ---------------------------------------------------------------------------
@@ -903,26 +1034,52 @@ def _take(t: torch.Tensor, cells) -> torch.Tensor:
 
 def _cell_grams(theta: Theta, stim: Cells, lane, shared: bool,
                 cfg: FitConfig, backend: Optional[str] = None,
-                max_items: Optional[int] = None):
+                max_items: Optional[int] = None, proj=None):
     """(K_tilde, K, Kvec) of a stack of items at theta (B,): item b belongs
     to cell ``lane[b]`` (None: item b is cell b).  The items run in chunks
     of at most ``max_items`` (the memory budget of one chunk of Grams; None:
-    one chunk)."""
+    one chunk).
+
+    ``proj``: the cells' projection bases (L, w, R); each item's Gram is
+    then ``gram_matrices_projected``'s and the result (K_tilde, K, Kvec,
+    ok).  Under ``mstep_proj_fallback="exact"`` the items out of tolerance
+    take the exact Gram (one host read per chunk; when any fails, the exact
+    Grams of the chunk are built and selected item by item, as the JAX
+    package's vmapped fallback computes both branches) and ``ok`` holds
+    everywhere."""
     x, xtilde, win = stim
     parts = []
     for sl in _chunks(theta["Amp"].shape[0], max_items):
         th = {k: v[sl] for k, v in theta.items()}
-        if win is None:
-            parts.append(gram_matrices(th, x, xtilde, cfg.n_px_side, shared,
-                                       cfg.alpha_threshold, backend))
-            continue
-        i0, j0, w = win
         cells = sl if lane is None else lane[sl]
-        xc = _take(x, cells)
-        parts.append(gram_matrices_precropped(
-            th, xc, xc if shared else _take(xtilde, cells), cfg.n_px_side,
-            shared, _take(i0, cells), _take(j0, cells), w,
-            cfg.alpha_threshold, backend))
+        if win is None:
+            xc, xtc, i0, j0 = x, xtilde, 0, 0
+
+            def exact():
+                return gram_matrices(th, x, xtilde, cfg.n_px_side, shared,
+                                     cfg.alpha_threshold, backend)
+        else:
+            xc = _take(x, cells)
+            xtc = xc if shared else _take(xtilde, cells)
+            i0, j0 = _take(win[0], cells), _take(win[1], cells)
+
+            def exact():
+                return gram_matrices_precropped(
+                    th, xc, xtc, cfg.n_px_side, shared, i0, j0, win[2],
+                    cfg.alpha_threshold, backend)
+        if proj is None:
+            parts.append(exact())
+            continue
+        *grams, ok = gram_matrices_projected(
+            th, xc, xtc, _take(proj, cells), i0, j0, cfg.n_px_side, shared,
+            cfg.alpha_threshold, cfg.mstep_proj_tol, backend)
+        if cfg.mstep_proj_fallback == "exact":
+            if read_guard(ok, "mstep.projected",
+                          "mstep.exact_gram") < ok.numel():
+                grams = [torch.where(ok.view(-1, *[1] * (g.dim() - 1)), g, e)
+                         for g, e in zip(grams, exact())]
+            ok = torch.ones_like(ok)
+        parts.append((*grams, ok))
     if len(parts) == 1:
         return parts[0]
     return tuple(torch.cat(p) for p in zip(*parts))
@@ -959,15 +1116,19 @@ def _gradient_now(loss: torch.Tensor, inputs: Theta) -> torch.Tensor:
 def _mstep_objective_cells(theta: Theta, stim: Cells, r, es: Eigenspace,
                            m_b, V_b, f_params, shared: bool, cfg: FitConfig,
                            lower, upper, backend: Optional[str] = None,
-                           max_items: Optional[int] = None, wt=None, wi=None):
+                           max_items: Optional[int] = None, wt=None, wi=None,
+                           proj=None):
     """The M-step objective of every (cell, trial) item: theta a dict of
     (L, T) tensors, the other arguments the cells' (L, ...) state; returns
     (L, T).  The L x T items run in chunks of at most ``max_items`` (the
     memory budget of one chunk of Grams); under autograd, in chunks of
     ``max_items // GRAD_CHUNK_DIVISOR``, each chunk's gradient taken before
     the next chunk is built.  ``wt``/``wi``: pad weights (nt,)/(ntilde,)
-    shared by every cell (a single-cell ladder's).  With L = 1 (the
-    single-cell ladder), every item is ``_mstep_objective`` at its trial."""
+    shared by every cell (a single-cell ladder's).  ``proj``: the cells'
+    projection bases (L, w, R) under ``mstep_gram="projected"``
+    (``_cell_grams``); an item whose projection fails its guard under the
+    "poison" fallback is +inf.  With L = 1 (the single-cell ladder), every
+    item is ``_mstep_objective`` at its trial."""
     L, T = theta["Amp"].shape
     n = L * T
     flat = {k: v.reshape(n) for k, v in theta.items()}
@@ -981,12 +1142,15 @@ def _mstep_objective_cells(theta: Theta, stim: Cells, r, es: Eigenspace,
         th = {k: v[sl] for k, v in flat.items()}
         ok = theta_in_bounds(th, lower, upper)
         grams = _cell_grams(clip_theta(th, lower, upper), stim, ln, shared,
-                            cfg, backend)
+                            cfg, backend, proj=proj)
+        if proj is not None:
+            *grams, p_ok = grams
+            ok = ok & p_ok
         es_i = Eigenspace(*(_take(t, ln) for t in es))
         loss = _mstep_loss(*_apply_pad_weights(*grams, shared, wt, wi), es_i,
                            _take(m_b, ln), _take(V_b, ln),
                            {k: _take(v, ln) for k, v in f_params.items()},
-                           _take(r, ln), shared, wt)
+                           _take(r, ln), shared, cfg, wt)
         loss = torch.where(ok & torch.isfinite(loss), loss, float("inf"))
         if grad and loss.requires_grad:
             loss = _gradient_now(loss, th)
@@ -1102,10 +1266,17 @@ def _fit_iteration_cells(i: int, c: Carry, stim: Cells, rs, shared: bool,
     theta_start = theta
 
     if cfg.n_mstep > 0 and do_mstep:
+        proj = None
+        if cfg.mstep_gram == "projected":
+            # each cell's smoothing basis at its iteration-start theta
+            side = cfg.n_px_side if stim[2] is None else stim[2][2]
+            proj = smooth_projection_basis(theta, side, cfg.n_px_side,
+                                           min(cfg.mstep_proj_rank, side),
+                                           dtype=torch.float64)
         obj = partial(_mstep_objective_cells, stim=stim, r=rs, es=kern.es,
                       m_b=m_b, V_b=V_b, f_params=f_params, shared=shared,
                       cfg=cfg, lower=lower, upper=upper, backend=backend,
-                      max_items=max_items)
+                      max_items=max_items, proj=proj)
         theta, _ = _minimize(cfg, obj, theta, cfg.n_mstep, lanes=True)
 
     finite = (torch.isfinite(ell - kl) & torch.isfinite(m_b).all(-1)

@@ -72,6 +72,7 @@ def kl_divergence(m_b: torch.Tensor, V_b: torch.Tensor, es: Eigenspace,
                   K_tilde_inv_b: Optional[torch.Tensor] = None,
                   skip_logdet_V: bool = False,
                   chol_only: bool = False,
+                  logdet_K: Optional[torch.Tensor] = None,
                   logdet_V: Optional[torch.Tensor] = None) -> torch.Tensor:
     """KL(q || p) in the stabilized basis (reference: utils.py:1306-1337):
 
@@ -83,7 +84,9 @@ def kl_divergence(m_b: torch.Tensor, V_b: torch.Tensor, es: Eigenspace,
     ``skip_logdet_V`` drops -1/2 log|V| (constant in theta);
     ``chol_only`` uses the Cholesky log-determinant without the eigh
     fallback (a failed factorization gives NaN, which the M-step maps to an
-    infinite loss); ``logdet_V`` supplies log|V| when it has a closed form.
+    infinite loss); ``logdet_K`` supplies log|K_tilde_b| for the dense pair
+    (the M-step's trace series, ``ops/stabilize.masked_logdet_series``);
+    ``logdet_V`` supplies log|V| when it has a closed form.
     """
     keep = es.keep
     if K_tilde_inv_b is None:
@@ -96,10 +99,9 @@ def kl_divergence(m_b: torch.Tensor, V_b: torch.Tensor, es: Eigenspace,
         quad = dot(m_b, mv(K_tilde_inv_b, m_b))
         tr = torch.diagonal(V_b @ K_tilde_inv_b, dim1=-2,
                             dim2=-1).sum(-1)
-        if chol_only:
-            logdet_K = masked_logdet_chol(K_tilde_b, keep)
-        else:
-            logdet_K = logdet_with_fallback(K_tilde_b, keep)
+        if logdet_K is None:
+            logdet_K = (masked_logdet_chol(K_tilde_b, keep) if chol_only
+                        else logdet_with_fallback(K_tilde_b, keep))
     if skip_logdet_V:
         return 0.5 * logdet_K + 0.5 * quad + 0.5 * tr
     if logdet_V is None:

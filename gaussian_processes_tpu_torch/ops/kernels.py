@@ -8,7 +8,9 @@ exactly zero; and the arc-cosine angular factor J carries its analytic
 derivative.  The two big Gram contractions (K_tilde and K) go through
 ``_gram_core``, whose ``backend`` picks the fused kernel
 (``ops/gram_cuda.acos_gram``, the default on CUDA tensors) or the plain
-PyTorch composite (the default on CPU tensors).
+PyTorch composite (the default on CPU tensors).  The M-step's projected
+Gram (``gram_matrices_projected``) hands its cross forms, at contraction
+R^2 instead of w^2, to the same kernel.
 
 theta is a dict of 0-d tensors; every function takes its device and dtype
 from its tensor arguments.  The Gram functions also take a batch: theta a
@@ -304,11 +306,27 @@ def _gram_core(theta: Theta, x, xtilde, alpha_eff, Sy, Sx, side: int,
     """Gram assembly over a (side x side) pixel set (full grid or crop
     window) from a precomputed envelope and smoothing factors.  Batched:
     theta (B,), alpha_eff (B, side^2), Sy/Sx (B, side, side), and x/xtilde
-    either shared (rows, side^2) or per item (B, rows, side^2).
+    either shared (rows, side^2) or per item (B, rows, side^2)."""
+    amp = theta["Amp"].to(x.dtype)[..., None]
+    alpha_rows = alpha_eff[..., None, :]
 
-    ``backend``: "cuda" routes both big contractions through the fused
-    kernel wrapper ``ops/gram_cuda.acos_gram`` (float32 on the card; on a
-    CPU tensor the wrapper runs its plain forward, with the same
+    def forms(rows):
+        u = rows * alpha_rows
+        s = smooth_apply(Sy, u, side, Sx)
+        return u, s, amp * torch.sum(u * s, dim=-1)
+    return _grams_from_forms(theta, forms, x, xtilde, shared, backend)
+
+
+def _grams_from_forms(theta: Theta, forms, x, xtilde, shared: bool,
+                      backend: Optional[str] = None):
+    """K_tilde, K and Kvec from the quadratic forms of the rows:
+    ``forms(rows)`` gives (u, s, q_diag) with the cross form
+    q12 = Amp u1 s2^T and q_diag = diag(q11), so that
+    K = X1X2 J(clip((q12 + s0^2) / (X1X2 + 1e-7), -1, 1)).
+
+    ``backend``: "cuda" routes both cross forms and the epilogue through
+    the fused kernel wrapper ``ops/gram_cuda.acos_gram`` (float32 on the
+    card; on a CPU tensor the wrapper runs its plain forward, with the same
     hand-written backward); "torch" is the plain composite.  None picks
     "cuda" for CUDA tensors and "torch" otherwise."""
     if backend is None:
@@ -319,11 +337,8 @@ def _gram_core(theta: Theta, x, xtilde, alpha_eff, Sy, Sx, side: int,
     amp = theta["Amp"].to(dtype)[..., None]
     sigma0 = theta["sigma_0"].to(dtype)
     s02 = (sigma0 * sigma0)[..., None]
-    alpha_rows = alpha_eff[..., None, :]
 
-    ut = xtilde * alpha_rows
-    st = smooth_apply(Sy, ut, side, Sx)
-    qtt_diag = amp * torch.sum(ut * st, dim=-1)
+    ut, st, qtt_diag = forms(xtilde)
 
     if backend == "cuda":
         from .gram_cuda import acos_gram
@@ -347,9 +362,7 @@ def _gram_core(theta: Theta, x, xtilde, alpha_eff, Sy, Sx, side: int,
         Kvec = qtt_diag + s02
         return K_tilde, K_tilde, Kvec
 
-    u = x * alpha_rows
-    s = smooth_apply(Sy, u, side, Sx)
-    q_diag = amp * torch.sum(u * s, dim=-1)
+    u, _, q_diag = forms(x)
     if backend == "cuda":
         K = gram(u, q_diag, qtt_diag)
     else:
@@ -357,6 +370,129 @@ def _gram_core(theta: Theta, x, xtilde, alpha_eff, Sy, Sx, side: int,
         K = _acos_from_quads(theta, q_diag, qtt_diag, q, symmetrize=False)
     Kvec = q_diag + s02
     return K_tilde, K, Kvec
+
+
+# ---------------------------------------------------------------------------
+# Spectrally projected Gram: the M-step's contraction cut from w^2 to R^2
+# ---------------------------------------------------------------------------
+#
+# The smoothing factor S(gr) = exp(-gr d^2) of a w-pixel window is a Gaussian
+# kernel matrix whose spectrum decays super-exponentially.  Projecting both
+# sides of the separable smoothing onto its top-R eigenbasis E (w, R), taken
+# once per EM iteration at the iteration-start theta, turns each image pair's
+# q12 = Amp tr(U1^T S U2 S) into Amp <vec(Z1), vec(M Z2 M)> with Z = E^T U E
+# and M = E^T S E: the (n1, w^2) x (w^2, n2) contraction becomes
+# (n1, R^2) x (R^2, n2).  The result is the exact arc-cosine kernel of the
+# smoothing operator P S P (P = E E^T), whose distance from S is known in
+# closed form per evaluation, ||S - P S P||_F^2 = ||S||_F^2 - ||M||_F^2
+# (orthonormal E): the guard ``ok`` certifies it within a relative ``tol``.
+
+@functools.lru_cache(maxsize=32)
+def window_smooth_d2(w: int, n_px_side: int, dtype=torch.float32,
+                     device=None) -> torch.Tensor:
+    """(w, w) squared pixel distances of any w-pixel window of the uniform
+    [-1, 1] grid (only differences enter, so the window's place does not),
+    copied to the device once per size, dtype and device.  Callers must
+    not write into it."""
+    delta = 2.0 / (n_px_side - 1)
+    idx = np.arange(w) * delta
+    return torch.as_tensor((idx[:, None] - idx[None, :]) ** 2, dtype=dtype,
+                           device=device)
+
+
+def suggest_proj_rank(gr: float, w: int, n_px_side: int,
+                      tol: float = 1e-8, slack: int = 8,
+                      bucket: int = 8) -> int:
+    """Host-side rank for ``gram_matrices_projected``: the smallest R whose
+    dropped spectrum of S(gr) on a w-pixel window has relative Frobenius
+    mass <= ``tol``, plus ``slack`` directions of headroom for the M-step's
+    drift of rho, rounded up to a multiple of ``bucket`` (at most w, at
+    least ``bucket``).  numpy ``eigvalsh`` at (w, w)."""
+    delta = 2.0 / (n_px_side - 1)
+    idx = np.arange(w) * delta
+    S = np.exp(-float(gr) * (idx[:, None] - idx[None, :]) ** 2)
+    ev = np.linalg.eigvalsh(S)[::-1]
+    tail = np.cumsum((ev * ev)[::-1])[::-1]   # tail[k] = sum_{j>=k} ev_j^2
+    ok = tail <= (tol * tol) * tail[0]
+    R = int(np.argmax(ok)) if ok.any() else w
+    R = ((R + slack + bucket - 1) // bucket) * bucket
+    return max(min(R, w), bucket)
+
+
+def _smooth_window(theta: Theta, w: int, n_px_side: int, dtype,
+                   device) -> torch.Tensor:
+    """S(gr) on a w-pixel window ((B, w, w) for a theta of (B,) tensors)."""
+    gr = torch.exp(theta["-log2rho2"]).to(dtype)
+    return torch.exp(-gr[..., None, None]
+                     * window_smooth_d2(w, n_px_side, dtype, device))
+
+
+def smooth_projection_basis(theta: Theta, w: int, n_px_side: int,
+                            rank: int, dtype=None) -> torch.Tensor:
+    """Top-``rank`` eigenbasis E (w, rank) of the 1-D smoothing factor
+    S(gr) on a w-pixel window ((B, w, rank) for a theta of (B,) tensors).
+    A non-finite theta gives zeros, which drive the projection's residual
+    to ||S||_F, so the guard refuses it."""
+    from .stabilize import _eigh_safe
+    amp = theta["Amp"]
+    dtype = amp.dtype if dtype is None else dtype
+    _, vecs, finite = _eigh_safe(_smooth_window(theta, w, n_px_side, dtype,
+                                                amp.device))
+    E = vecs[..., -rank:]
+    return torch.where(finite[..., None, None], E, torch.zeros_like(E))
+
+
+def gram_matrices_projected(theta: Theta, xc: torch.Tensor,
+                            xtc: torch.Tensor, E: torch.Tensor, i0, j0,
+                            n_px_side: int, shared: bool,
+                            alpha_threshold: float = ALPHA_THRESHOLD,
+                            tol: float = 3e-6,
+                            backend: Optional[str] = None):
+    """``gram_matrices_precropped`` through the projected smoothing
+    operator P S P (P = E E^T): returns ``(K_tilde, K, Kvec, ok)``, where
+    ``ok`` certifies that the projection's relative Frobenius residual is
+    within ``tol``; the caller falls back to the exact Gram or poisons the
+    trial where it is not.
+
+    ``xc``/``xtc`` are the window's crops (n, w^2) at corner (i0, j0) (on
+    the full frame: the images and corner 0, 0), cropped once per EM
+    iteration; ``E`` (w, R) the basis.  Batched as the other Gram functions
+    (theta (B,), per-item corners and crops), with E (B, w, R).  The cross
+    forms go through ``_grams_from_forms``, so on CUDA tensors through the
+    fused kernel at contraction R^2.
+
+    S, M = E^T S E and the residual ||S||_F^2 - ||M||_F^2 are computed in
+    float64 whatever the fit's dtype: in float32 each of the two sums
+    carries ~1e-7 relative rounding, far above the guard's tol^2 = 9e-12,
+    so the comparison would be noise.  For the same reason the basis must
+    be orthonormal to float64 rounding (the fit builds it in float64); the
+    forms take E and M cast to the fit's dtype."""
+    dtype, dev = xc.dtype, xc.device
+    w, R = E.shape[-2:]
+    amp = theta["Amp"].to(dtype)[..., None]
+    xcord, ycord, _, _ = window_coords(i0, j0, w, n_px_side, dtype, dev)
+    alpha_eff, _, _ = _envelope(theta, xcord, ycord, alpha_threshold)
+    alpha_rows = alpha_eff[..., None, :]
+
+    S = _smooth_window(theta, w, n_px_side, torch.float64, dev)
+    E64 = E.to(torch.float64)
+    M64 = E64.mT @ S @ E64
+    s_fro2 = torch.sum(S * S, dim=(-2, -1))
+    resid2 = s_fro2 - torch.sum(M64 * M64, dim=(-2, -1))
+    ok = torch.isfinite(resid2) & (resid2 <= (tol * tol) * s_fro2)
+    E, M = E.to(dtype), M64.to(dtype)
+    # per item: the basis and M against the item's (rows, w, w) images
+    Eb, Mb = (E, M) if E.dim() == 2 else (E[:, None], M[:, None])
+
+    def forms(rows):
+        u = rows * alpha_rows
+        Z = Eb.mT @ u.reshape(*u.shape[:-1], w, w) @ Eb
+        Y = Mb @ Z @ Mb
+        Z = Z.reshape(*Z.shape[:-2], R * R)
+        Y = Y.reshape(*Y.shape[:-2], R * R)
+        return Z, Y, amp * torch.sum(Z * Y, dim=-1)
+
+    return (*_grams_from_forms(theta, forms, xc, xtc, shared, backend), ok)
 
 
 def gram_matrices_windowed(theta: Theta, x: torch.Tensor,

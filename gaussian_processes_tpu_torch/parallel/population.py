@@ -19,6 +19,7 @@ mesh, and the port has neither (the mesh is ROADMAP item 18).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional
 
 import torch
@@ -26,7 +27,7 @@ import torch
 from ..config import FitConfig, resolve_device, use_full_fp32
 from ..models.fit import (Carry, FitResult, cell_stimuli, fit,
                           fit_cells_program)
-from ..ops.kernels import crop_window_for_theta
+from ..ops.kernels import crop_window_for_theta, suggest_proj_rank
 from ..params import default_f_params, generate_theta, theta_bounds
 
 # Bytes of device memory one (cell, trial) item of the M-step's trial ladder
@@ -40,11 +41,15 @@ LADDER_MEMORY_SHARE = 0.5
 
 
 def _vmap_safe_config(cfg: FitConfig) -> FitConfig:
-    """The knobs of the batched program: the branch-free batched Armijo
-    L-BFGS at both inner call sites (the zoom search maps to it, as in the
-    JAX ``fit_population``) and no convergence gates (mstep_gtol,
-    mstep_ftol, mstep_ftol_rel and estep_tol zeroed, as JAX's
-    ``_vmap_safe_config`` does).  The per-cell results carry this config,
+    """The knobs of the batched program (JAX ``_vmap_safe_config``): the
+    branch-free batched Armijo L-BFGS at both inner call sites (the zoom
+    search maps to it, as in the JAX ``fit_population``), no convergence
+    gates (mstep_gtol, mstep_ftol, mstep_ftol_rel and estep_tol zeroed),
+    the warm M-step inverse's and the projected Gram's fallbacks "poison"
+    (a NaN inverse or +inf loss per item, no host read), and the exact
+    forms of the E-step solver ("schulz" -> "chol") and of the M-step
+    log-determinant ("series" -> "chol"), whose fallbacks every cell
+    would otherwise pay on top.  The per-cell results carry this config,
     so the single-cell ``fit`` under it (on the program's window) is each
     lane's oracle.
 
@@ -54,10 +59,8 @@ def _vmap_safe_config(cfg: FitConfig) -> FitConfig:
     which has them all.
 
     The JAX ``fit_population`` also caps ``max_linesearch_steps`` at 5, a
-    budget of the zoom search the program never runs, and switches off what
-    the port does not have: the Newton-Schulz E-step solver and M-step
-    inverse and their fallbacks, the projected Gram's exact fallback, the
-    trace-series log-determinant and ``remat_gram`` (here chunks of Grams
+    budget of the zoom search the program never runs, and sets
+    ``remat_gram``, which the port does not have (here chunks of Grams
     sized by ``ladder_items`` bound the memory instead)."""
     if cfg.linesearch in ("speculative", "backtracking", "zoom_carry"):
         raise ValueError(
@@ -66,9 +69,17 @@ def _vmap_safe_config(cfg: FitConfig) -> FitConfig:
             f"fit_cells_sequential, which supports every search")
     if cfg.linesearch == "zoom":
         cfg = dataclasses.replace(cfg, linesearch="armijo")
+    if cfg.mstep_inverse == "schulz" and cfg.schulz_fallback == "exact":
+        cfg = dataclasses.replace(cfg, schulz_fallback="poison")
+    if cfg.mstep_gram == "projected" and cfg.mstep_proj_fallback == "exact":
+        cfg = dataclasses.replace(cfg, mstep_proj_fallback="poison")
     if cfg.mstep_gtol or cfg.mstep_ftol or cfg.mstep_ftol_rel or cfg.estep_tol:
         cfg = dataclasses.replace(cfg, mstep_gtol=0.0, mstep_ftol=0.0,
                                   mstep_ftol_rel=0.0, estep_tol=0.0)
+    if cfg.estep_solver == "schulz":
+        cfg = dataclasses.replace(cfg, estep_solver="chol")
+    if cfg.mstep_logdet == "series":
+        cfg = dataclasses.replace(cfg, mstep_logdet="chol")
     return cfg
 
 
@@ -170,6 +181,13 @@ def fit_population(x, rs, cfg: Optional[FitConfig] = None, xtilde=None,
     thetas = _per_cell(thetas, ncells, dtype, device)
     f_params = _per_cell(f_params or default_f_params(dtype, device),
                          ncells, dtype, device)
+
+    if cfg.mstep_gram == "projected" and cfg.mstep_proj_rank is None:
+        # one rank for every cell, sized for the sharpest cell's smoothing
+        # spectrum (the rank grows with gr)
+        gr_max = math.exp(float(thetas["-log2rho2"].max()))
+        cfg = dataclasses.replace(cfg, mstep_proj_rank=suggest_proj_rank(
+            gr_max, cfg.n_px_side, cfg.n_px_side))
 
     win = population_window(thetas, cfg)
     stim = cell_stimuli(x, xtilde, shared, cfg, win)

@@ -18,11 +18,22 @@ The reference instruments varGP with ``time.time()`` accumulators per phase
   ``fit.estep`` with ``fit.estep.newton`` and ``fit.estep.fparams``,
   ``fit.mstep``, ``fit.finalize``);
 * ``collect_spans``: the same spans' host wall-clock into a
-  ``PhaseTimer`` without a profiler, for the code run inside it.
+  ``PhaseTimer`` without a profiler, for the code run inside it;
+* ``decisions``: the host decisions of the warm solvers and the projected
+  Gram, counted where the host already reads their guard (no added
+  synchronization): ``eigensolver.warm`` / ``.refresh`` / ``.fallback``
+  per reduced-rank kernel rebuild, ``estep.schulz`` / ``.exact`` per
+  warm-started Newton step (items of a batch), ``mstep.schulz`` /
+  ``.exact`` per M-step inverse under ``schulz_fallback="exact"``,
+  ``mstep.series`` / ``.chol`` per series log-determinant, and
+  ``mstep.projected`` / ``.exact_gram`` per projected Gram under
+  ``mstep_proj_fallback="exact"`` (items).  Callers reset it with
+  ``decisions.clear()``.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import contextvars
 import dataclasses
@@ -30,6 +41,20 @@ import time
 from typing import Dict, Optional
 
 import torch
+
+# the host decisions of the warm solvers and the projected Gram since
+# import (or since the caller cleared it), by name (see the docstring)
+decisions: collections.Counter = collections.Counter()
+
+
+def read_guard(ok: torch.Tensor, passed: str, failed: str) -> int:
+    """How many items of the bool tensor ``ok`` (0-d, or one per item of a
+    batch) hold, read on the host -- one synchronization -- and counted in
+    ``decisions`` under ``passed`` and, for the rest, ``failed``."""
+    n_ok = int(ok.sum())
+    decisions[passed] += n_ok
+    decisions[failed] += ok.numel() - n_ok
+    return n_ok
 
 
 def _synchronize(sync) -> None:

@@ -40,6 +40,10 @@ def test_cli_fit_saves_a_model(tmp_path):
     assert "r2 = " in res.stdout and f"Saved model to {out_dir}" in res.stdout
     model = load_model(out_dir, device="cpu")
     assert model.config.reduced_rank and model.config.n_px_side == 16
+    # the JAX example's solvers (the JAX FitConfig defaults)
+    assert (model.config.eigensolver, model.config.estep_solver,
+            model.config.mstep_inverse, model.config.mstep_logdet) == (
+        "subspace", "schulz", "schulz", "series")
     assert not model.failed and model.xtilde.dtype == torch.float32
     rates, _, _ = predict(model, torch.zeros((3, 256)))
     assert torch.isfinite(rates).all()

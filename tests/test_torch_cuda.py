@@ -556,3 +556,56 @@ def test_mstep_ladder_through_kernel_matches_per_trial_calls(dev):
            / want[:-1].double().abs())
     assert bool(torch.isfinite(got[:-1]).all())
     assert float(err.max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_projected_gram_through_kernel_matches_plain(dev):
+    """The projected Gram hands the kernel its cross forms at contraction
+    R^2 (u1 = Amp Z, s2 = Y): K_tilde and K through the kernel against the
+    plain composite at rank 16 of a 24 px frame (k 256), float32, within
+    1e-5 relative, two launches, and the same float64 guard."""
+    import math
+
+    x, _, xtilde, theta, _ = _planted_on(dev)
+    th = {k: torch.tensor(v, device=dev) for k, v in theta.items()}
+    th["-log2rho2"] = torch.tensor(-math.log(2 * 0.5 ** 2), device=dev)
+    E = kernels.smooth_projection_basis(th, 24, 24, 16, dtype=torch.float64)
+    with torch.no_grad():
+        before = gram_cuda.launches
+        got = kernels.gram_matrices_projected(th, x, xtilde, E, 0, 0, 24,
+                                              False, backend="cuda")
+        torch.cuda.synchronize()
+        assert gram_cuda.launches == before + 2
+        want = kernels.gram_matrices_projected(th, x, xtilde, E, 0, 0, 24,
+                                               False, backend="torch")
+    assert bool(got[3]) and bool(want[3])
+    for g, w in zip(got[:3], want[:3]):
+        assert float((g - w).abs().max() / w.abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_masked_inverse_warm_on_card_matches_cpu_float64(dev):
+    """The warm-seeded M-step inverse on the card (float32, the guard read
+    once) against the float64 inverse on the CPU: a K_tilde_b-like kept
+    block near its diagonal seed, within 1e-5 of max|X| (condition 1e2),
+    and the Schulz route taken."""
+    from gaussian_processes_tpu_torch.ops import stabilize
+    from gaussian_processes_tpu_torch.utils.tracing import decisions
+
+    gen = torch.Generator().manual_seed(0)
+    n, drop = 96, 8
+    ev = 10.0 * torch.exp(-torch.arange(n, dtype=torch.float64)
+                          * 4.6 / n).flip(0)
+    keep = torch.arange(n) >= drop
+    A = torch.randn(n, n, generator=gen, dtype=torch.float64)
+    s = ev.sqrt()
+    M = torch.diag(ev) + 0.005 * s[:, None] * (A + A.T) / 2 * s[None, :]
+    M = M * (keep[:, None] & keep[None, :])
+    inv_diag = torch.where(keep, 1.0 / ev, torch.zeros_like(ev))
+    want = stabilize.masked_inverse_spd(M, keep)
+    decisions.clear()
+    got = stabilize.masked_inverse_warm(M.float().to(dev), keep.to(dev),
+                                        inv_diag.float().to(dev))
+    assert decisions["mstep.schulz"] == 1
+    err = (got.double().cpu() - want).abs().max() / want.abs().max()
+    assert float(err) <= 1e-5
