@@ -143,6 +143,24 @@ Phases (none catches its own failure; any failure exits non-zero):
    beside ``masked_inverse_spd``; (e) the kernel alone at the 2-D shapes
    that launch >= 20 times on the main paths and no phase held: K_tilde
    258 x 258 at 11664, and 512 x 512 and 3160 x 512 at 6400 and 11664.
+13. The mesh at world 1 (one card holds one NCCL rank): (a) a world-1 NCCL
+   process group of this process and ``make_mesh(1, 1)`` on "cuda", with
+   NCCL's version; (b) ``sharded_gram`` at bench.py's shape (x 3160 rows,
+   xtilde 2100, k 11664) through the kernel against ``gram_matrices``
+   with the plain backend (1e-5); (c) ``fit(mesh=)`` at phase 4's data,
+   shape and depth: log-marginal within 1e-5 relative of phase 4's at
+   every iteration, with its seconds, its collectives per EM iteration
+   (``parallel/collectives.calls``) and its ``fit.*`` spans, then one
+   f-param value+grad evaluation at its final moments timed plain and
+   through the collectives (in turns) and one world-1 all-reduce; (d)
+   ``fit_population(mesh=)`` at phase 8's 16 cells cut to 2 EM iterations
+   after init, against ``mesh=None`` at the same depth (1e-5); (e)
+   ``distributed_cholesky`` at n 16384 (K + I of 48 px images) against
+   ``torch.linalg.cholesky``, with ||L L^T - A||_F / ||A||_F and the
+   CUDA-event times of both; (f) ``dryrun_multichip(1)`` on the card, then
+   ``dryrun_multichip(4, device="cpu")`` in a gloo world of four CPU
+   processes.  The kernel launches of (b)-(d) are counted from 0 and added
+   to the kernel table's.
 
 The last two lines of standard output are one JSON object with the kernel
 table and one with the device.
@@ -226,6 +244,9 @@ PINNED_PROJ_RANK = 40
 # the warm M-step inverse in float32 against a float64 inverse: no further
 # from it than this, or than twice the float32 Cholesky inverse
 WARM_INVERSE_RTOL = 1e-4
+# phase 13: the distributed Cholesky at world 1 against cuSOLVER's, and its
+# ||L L^T - A||_F / ||A||_F bound (a float32 factor's is ~n eps ||A||)
+MESH_CHOL_N, MESH_CHOL_RESID = 16384, 1e-5
 # peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds' rates
 TF32_FLOPS, HBM_BYTES = 495e12, 3.35e12
 
@@ -1510,6 +1531,242 @@ def phase12_warm_solvers(torch, np, device, smi, totals, x, r, xtilde,
             raise RuntimeError(f"phase 12 check failed: {what}")
 
 
+@contextlib.contextmanager
+def collectives_by_iteration(fit_module, collectives):
+    """The collectives launched (``parallel/collectives.calls``) during
+    each EM iteration (``_fit_iteration`` call) while the block runs."""
+    per = []
+    real = fit_module._fit_iteration
+
+    def iteration(*args, **kwargs):
+        before = dict(collectives.calls)
+        out = real(*args, **kwargs)
+        per.append({k: v - before.get(k, 0)
+                    for k, v in collectives.calls.items()})
+        return out
+
+    fit_module._fit_iteration = iteration
+    try:
+        yield per
+    finally:
+        fit_module._fit_iteration = real
+
+
+def phase13_mesh(torch, np, device, smi, totals, x, r, xtilde, cfg, res,
+                 fit_s):
+    """The mesh at world 1 on the card (see the module docstring), beside
+    phase 4's fit ``res`` (``fit_s`` seconds).  Adds the launches of (b)-(d)
+    to ``totals``."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from gaussian_processes_tpu_torch.config import FitConfig
+    from gaussian_processes_tpu_torch.entry import dryrun_multichip
+    from gaussian_processes_tpu_torch.models import fit as F
+    from gaussian_processes_tpu_torch.ops import gram_cuda
+    from gaussian_processes_tpu_torch.ops.kernels import gram_matrices
+    from gaussian_processes_tpu_torch.parallel import collectives as C
+    from gaussian_processes_tpu_torch.parallel import (
+        fit_population, large_gram, make_mesh)
+    from gaussian_processes_tpu_torch.parallel.sharded_linalg import (
+        distributed_cholesky, sharded_gram)
+    from gaussian_processes_tpu_torch.utils.tracing import collect_spans
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    # (a) a world-1 process group of this process, and its mesh (the
+    # rendezvous file is the group's store until it is destroyed)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    tmp = tempfile.TemporaryDirectory()
+    dist.init_process_group(backend,
+                            init_method=f"file://{tmp.name}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, 1)
+        nccl = (".".join(map(str, torch.cuda.nccl.version()))
+                if backend == "nccl" else "-")
+        print(f"mesh: world 1, {backend} (NCCL {nccl}), {mesh.device_type}, "
+              f"cells x data = {tuple(mesh.mesh.shape)}")
+        checks = {}
+
+        # (b) sharded_gram at bench.py's shape on the full grid
+        theta = {k: torch.tensor(v, dtype=x.dtype, device=device)
+                 for k, v in THETA0.items()}
+        reset_counts(gram_cuda)
+        with torch.no_grad():
+            grams = sharded_gram(THETA0, x, xtilde, N_PX, mesh)
+            sync()
+            counts = read_counts(gram_cuda)
+            add_counts(totals, counts)
+            plain = gram_matrices(theta, x, xtilde, N_PX, shared=False,
+                                  backend="torch")
+        errs = [float(torch.max(torch.abs(g - p)) / torch.max(torch.abs(p)))
+                for g, p in zip(grams, plain)]
+        print(f"(b) sharded_gram x {tuple(x.shape)}, xtilde "
+              f"{tuple(xtilde.shape)}: K_tilde, K, Kvec against the plain "
+              f"Gram max rel {errs[0]:.3e}, {errs[1]:.3e}, {errs[2]:.3e}; "
+              f"Gram launches {counts['gram']}")
+        checks["(b) sharded Gram within 1e-5 of the plain Gram"] = (
+            max(errs) <= KERNEL_RTOL)
+        checks["(b) the Gram kernel ran on the sharded rows"] = (
+            counts["gram"] > 0)
+        del grams, plain
+
+        # (c) phase 4's fit with its rows over the mesh's "data" axis
+        C.calls.clear()
+        sync()
+        reset_counts(gram_cuda)
+        t0 = time.perf_counter()
+        with collect_spans() as spans, collectives_by_iteration(
+                F, C) as per_iteration:
+            res_m = F.fit(x, r, cfg, xtilde=xtilde, theta=THETA0,
+                          f_params=F_PARAMS0, profile=True, mesh=mesh)
+        sync()
+        mesh_s = time.perf_counter() - t0
+        counts = read_counts(gram_cuda)
+        add_counts(totals, counts)
+        loss = res.track.logmarginal.double().cpu().numpy()
+        loss_m = res_m.track.logmarginal.double().cpu().numpy()
+        err = float(np.max(np.abs(loss_m - loss) / np.abs(loss)))
+        print(f"(c) fit(mesh=) at phase 4's shape: {mesh_s:.3f} s (phase 4: "
+              f"{fit_s:.3f} s); log-marginal {loss_m.tolist()}, max rel "
+              f"{err:.3e} from phase 4's; collectives "
+              f"{dict(C.calls)}, per EM iteration {per_iteration}; Gram "
+              f"launches {counts['gram']}  [{smi}]")
+        print(f"  fit spans (host s): {span_line(spans)}")
+        # what the mesh adds to the host-bound f-param search: one
+        # value+grad evaluation at the fit's final moments (with the host
+        # reads the search makes), plain and through the collectives, in
+        # turns; and one world-1 all-reduce alone
+        rows = C.data_rows(mesh, r.shape[0], r)
+        lam_m, lam_v = F.lambda_moments(res.a, res.K_b, res.Kvec, res.m_b,
+                                        res.V_b)
+
+        def evaluation(rw):
+            logA = res.f_params["logA"].detach().clone().requires_grad_()
+            f = F._fparam_objective(logA, r, lam_m, lam_v, rows=rw)
+            (g,) = torch.autograd.grad(f, [logA])
+            return f.item(), g.item()
+
+        def host_ms(fn, reps):
+            for _ in range(10):
+                fn()
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            sync()
+            return (time.perf_counter() - t0) / reps * 1e3
+        eval_ms = {"plain": [], "rows": []}
+        for name in ("plain", "rows", "rows", "plain"):
+            rw = rows if name == "rows" else None
+            eval_ms[name].append(host_ms(lambda: evaluation(rw), 200))
+        one = torch.zeros(3, device=device)
+        ar_us = 1e3 * host_ms(lambda: C.all_reduce(one, rows.group), 500)
+        print(f"  one f-param value+grad evaluation (host ms, in turns): "
+              f"plain {eval_ms['plain']}, through the collectives "
+              f"{eval_ms['rows']}; one world-1 all-reduce {ar_us:.1f} us of "
+              f"host  [{smi}]")
+        checks["(c) fit(mesh=) within 1e-5 of phase 4's at every "
+               "iteration"] = len(loss_m) == len(loss) and err <= 1e-5
+        checks["(c) fit(mesh=) not failed"] = not res_m.failed
+        checks["(c) the Gram kernel ran"] = counts["gram"] > 0
+
+        # (d) phase 8's population on the 1 x 1 mesh, 2 EM iterations
+        X, R, idx = population_data(np)
+        xp = torch.as_tensor(X, device=device)
+        rp = torch.as_tensor(R[:POP_CELLS], device=device)
+        xtp = xp[torch.as_tensor(idx, device=device)]
+        pcfg = FitConfig(ntilde=POP_NTILDE, n_px_side=N_PX,
+                         track_variational=False,
+                         **dict(POP_STEPS, maxiter=3))
+        kw = dict(xtilde=xtp, thetas=POP_THETA, f_params=F_PARAMS0)
+        sync()
+        reset_counts(gram_cuda)
+        t0 = time.perf_counter()
+        carry_m, _ = fit_population(xp, rp, pcfg, mesh=mesh, **kw)
+        sync()
+        pop_s = time.perf_counter() - t0
+        counts = read_counts(gram_cuda)
+        add_counts(totals, counts)
+        t0 = time.perf_counter()
+        carry_n, _ = fit_population(xp, rp, pcfg, **kw)
+        sync()
+        pop_n_s = time.perf_counter() - t0
+        lm_m = carry_m.track.logmarginal.double().cpu().numpy()
+        lm_n = carry_n.track.logmarginal.double().cpu().numpy()
+        err = float(np.max(np.abs(lm_m - lm_n) / np.abs(lm_n)))
+        print(f"(d) fit_population(mesh=1x1), {POP_CELLS} cells, "
+              f"{pcfg.maxiter - 1} EM iterations after init: {pop_s:.3f} s "
+              f"(mesh=None {pop_n_s:.3f} s); log-marginal max rel {err:.3e}"
+              f"; batched Gram launches {counts['batched']} "
+              f"({counts['items']} items)  [{smi}]")
+        checks["(d) population on the mesh within 1e-5 of mesh=None"] = (
+            err <= 1e-5 and lm_m.shape == lm_n.shape)
+        checks["(d) no lane failed"] = not bool(carry_m.failed.any())
+        checks["(d) the batched Gram kernel ran"] = counts["batched"] > 0
+        del xp, rp, xtp, carry_m, carry_n
+
+        # (e) distributed_cholesky at n 16384 against torch.linalg.cholesky
+        gen = np.random.default_rng(7)
+        xc = torch.as_tensor(gen.standard_normal(
+            (MESH_CHOL_N, LARGE_PX * LARGE_PX)).astype(np.float32),
+            device=device)
+        A0 = large_gram(LARGE_THETA, xc, LARGE_PX)
+        A0.diagonal().add_(LARGE_JITTER)
+        del xc
+        A = A0.clone()
+        L_d = distributed_cholesky(A, mesh)
+        L_t = torch.linalg.cholesky(A0)
+        sync()
+        diff = float(torch.max(torch.abs(L_d - L_t)) / torch.max(
+            torch.abs(L_t)))
+        resid = float(torch.linalg.matrix_norm(L_d @ L_d.mT - A0)
+                      / torch.linalg.matrix_norm(A0))
+        del L_t
+
+        def factor(fn):
+            def run():
+                A.copy_(A0)
+                fn(A)
+            return run
+        ms_d = ms_t = float("nan")
+        if device.type == "cuda":
+            ms_d = cuda_ms(torch, factor(lambda a: distributed_cholesky(
+                a, mesh)), reps=5, warmup=1)
+            ms_t = cuda_ms(torch, factor(torch.linalg.cholesky), reps=5,
+                           warmup=1)
+        print(f"(e) distributed_cholesky n {MESH_CHOL_N} (K + I of "
+              f"{LARGE_PX} px images): max|dL|/max|L| {diff:.3e} from "
+              f"torch.linalg.cholesky, ||L L^T - A||_F / ||A||_F "
+              f"{resid:.3e}; {ms_d:.3f} ms against {ms_t:.3f} ms (CUDA "
+              f"events, each with the 1 GB copy of A)  [{smi}]")
+        checks["(e) the distributed factor equals cuSOLVER's"] = (
+            diff <= KERNEL_RTOL)
+        checks["(e) residual within 1e-5"] = resid <= MESH_CHOL_RESID
+        del A, A0, L_d
+
+        # (f) the dry run on this world, then four CPU ranks
+        t0 = time.perf_counter()
+        dryrun_multichip(1)
+        dry1_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dryrun_multichip(4, device="cpu")
+        print(f"(f) dryrun_multichip(1) on the card: passed in {dry1_s:.1f} "
+              f"s; dryrun_multichip(4, device='cpu'): passed in "
+              f"{time.perf_counter() - t0:.1f} s in a gloo world of 4 CPU "
+              f"processes, float64 -- one card cannot hold four NCCL ranks")
+        for what, ok in checks.items():
+            if not ok:
+                raise RuntimeError(f"mesh check failed: {what}")
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+
+
 def main():
     if not (HERE / "gaussian_processes_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py: gaussian_processes_tpu_torch/ not "
@@ -1931,11 +2188,15 @@ def main():
     phase12_warm_solvers(torch, np, device, smi, totals, x, r, xtilde,
                          reduced, check_kernel)
     del reduced
+    # ---- 13. the mesh at world 1 ----------------------------------------------
+    stamp("13")
+    phase13_mesh(torch, np, device, smi, totals, x, r, xtilde, cfg, res,
+                 fit_s)
 
     stamp("end")
     shapes = totals.pop("shapes", {})
-    print(f"launches over the main paths (phases 4, 6, 8, 9, 10, 11, 12): "
-          f"{totals}")
+    print(f"launches over the main paths (phases 4, 6, 8, 9, 10, 11, 12, "
+          f"13): {totals}")
     print("Gram launches on the main paths by (batch, m, n, k): "
           + ", ".join(f"{shape}: {c}" for shape, c in sorted(
               shapes.items(), key=lambda kv: -kv[1])))

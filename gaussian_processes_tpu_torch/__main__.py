@@ -2,7 +2,8 @@
 
     fit         single-cell EM fit (examples/one_cell_fit.py flags)
     active      closed-loop active training (+ --ab-control)
-    population  all cells in one batched program (no mesh flags)
+    population  all cells in one batched program (--mesh-cells,
+                --mesh-data: over a mesh of ranks, under torchrun)
     bench       not ported yet: the port bench is ROADMAP.md item 12
 
 Every command takes ``--device`` (default: the CUDA card) and ``--help``.

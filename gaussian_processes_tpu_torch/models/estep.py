@@ -30,7 +30,8 @@ def estep_update(r: torch.Tensor, a: torch.Tensor, m_b: torch.Tensor,
                  weight: Optional[torch.Tensor] = None,
                  Minv_warm: Optional[torch.Tensor] = None,
                  use_warm: bool = False, schulz_steps: int = 12,
-                 schulz_tol: float = 1e-3, return_minv: bool = False):
+                 schulz_tol: float = 1e-3, return_minv: bool = False,
+                 rows=None):
     """One Newton update of (m_b, V_b).  ``a`` is KKtilde_inv_b; ``weight``
     (0/1) masks padded training points out of the Newton sums.  A failed
     factorization (non-finite or indefinite system) returns NaN, which the
@@ -41,7 +42,9 @@ def estep_update(r: torch.Tensor, a: torch.Tensor, m_b: torch.Tensor,
     ``schulz_steps`` Newton-Schulz steps from ``Minv_warm``, and by the
     Cholesky route where the residual guard (``schulz_tol``) fails, read
     on the host once per call.  ``return_minv`` also returns that inverse,
-    the next step's seed."""
+    the next step's seed.  ``rows``: the training-point arguments hold this
+    rank's rows of the mesh's "data" axis (``parallel/collectives.Rows``),
+    and g and G are summed over every rank's."""
     A = torch.exp(f_params["logA"])[..., None]
     resid = r - f_mean
     fw = f_mean
@@ -50,6 +53,10 @@ def estep_update(r: torch.Tensor, a: torch.Tensor, m_b: torch.Tensor,
         fw = fw * weight
     g = A * mv(a.mT, resid)
     G = (A * A)[..., None] * (a.mT @ (a * fw[..., :, None]))
+    if rows is not None:
+        n = g.shape[-1]
+        gG = rows.sum(torch.cat([g, G.flatten(-2)], dim=-1))
+        g, G = gG[..., :n], gG[..., n:].unflatten(-1, (n, n))
     s = torch.sqrt(k_tilde_b_diag)
     eye = torch.eye(k_tilde_b_diag.shape[-1], dtype=a.dtype, device=a.device)
     M = eye + s[..., :, None] * G * s[..., None, :]

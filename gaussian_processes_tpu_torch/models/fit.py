@@ -58,6 +58,20 @@ Pad-and-mask (the active loop's fixed-capacity buffers): 0/1
 columns of the Grams and mask those points out of the E-step sums, the
 closed-form lambda0 and the expected log-likelihood, so the fit on the
 active points runs inside buffers of a fixed shape.
+
+The mesh's "data" axis (``fit(mesh=)``, ``fit_cells_program(rows=)``):
+each rank holds its rows of the training points (x, r, K, Kvec, K_b, a,
+the moments) and ``rows`` (``parallel/collectives.Rows``) completes every
+sum over them -- the Newton sums, lambda0's logsumexp, the expected
+log-likelihood -- across the axis; K_tilde, the eigenspace, theta, the
+f-params and the variational state are whole on every rank.  In the two
+differentiated objectives each rank evaluates its share (its rows' terms
+and 1/P of the M-step's KL) and ``rows.enter`` sums the shares' gradients
+where theta, logA and lambda0 enter them.  Every value the host reads to
+decide (a line search's values and gradients, the gates, the guards, the
+crop window, the rank budget, the rollback) is therefore the same on every
+rank, and so is every branch.  With a shared inducing set every rank
+builds K_tilde whole and takes its rows as K.
 """
 
 from __future__ import annotations
@@ -213,9 +227,9 @@ class FitResult:
 
 def _masked_grams(theta: Theta, x, xtilde, shared: bool, cfg: FitConfig,
                   win: Window = None, backend: Optional[str] = None,
-                  wt=None, wi=None):
+                  wt=None, wi=None, rows=None):
     """(K_tilde, K, Kvec), on the crop window when one is given, with the
-    pad weights applied."""
+    pad weights applied (K and Kvec: this rank's rows under ``rows``)."""
     if win is not None:
         grams = gram_matrices_windowed(theta, x, xtilde, cfg.n_px_side,
                                        shared, win[0], win[1], win[2],
@@ -223,20 +237,32 @@ def _masked_grams(theta: Theta, x, xtilde, shared: bool, cfg: FitConfig,
     else:
         grams = gram_matrices(theta, x, xtilde, cfg.n_px_side, shared,
                               cfg.alpha_threshold, backend)
-    return _apply_pad_weights(*grams, shared, wt, wi)
+    return _apply_pad_weights(*grams, shared, wt, wi, rows)
 
 
-def _apply_pad_weights(K_tilde, K, Kvec, shared: bool, wt=None, wi=None):
+def _apply_pad_weights(K_tilde, K, Kvec, shared: bool, wt=None, wi=None,
+                       rows=None):
     """Zero the inactive inducing rows/columns of K_tilde and the inactive
     training rows of K and Kvec: the eigh keep-mask, the E-step and the
-    moments then see only the active subproblem, at an unchanged shape."""
+    moments then see only the active subproblem, at an unchanged shape.
+    With a shared inducing set under ``rows``, K and Kvec are this rank's
+    rows of the whole ones (``wt`` its rows of the one mask)."""
     if wi is not None:
         K_tilde = K_tilde * (wi[:, None] * wi[None, :])
         K = K_tilde if shared else K * wi[None, :]
+    if shared and rows is not None:
+        K, Kvec = rows.take(K, -2), rows.take(Kvec, -1)
     if wt is not None:
-        K = K_tilde if shared else K * wt[:, None]
+        if not shared:
+            K = K * wt[:, None]
         Kvec = Kvec * wt
     return K_tilde, K, Kvec
+
+
+def _shared_a(B: torch.Tensor, rows) -> torch.Tensor:
+    """``a`` of a shared inducing set: the basis (its rows under
+    ``rows``)."""
+    return B if rows is None else rows.take(B, -2)
 
 
 def _build_kernel_state(theta: Theta, x, xtilde, shared: bool,
@@ -244,17 +270,18 @@ def _build_kernel_state(theta: Theta, x, xtilde, shared: bool,
                         backend: Optional[str] = None,
                         wt=None, wi=None, rank: Optional[int] = None,
                         es_warm: Optional[Eigenspace] = None,
-                        refresh: bool = False, log: Optional[list] = None
-                        ) -> KernelState:
+                        refresh: bool = False, log: Optional[list] = None,
+                        rows=None) -> KernelState:
     """Grams and kernel state at theta; with ``es_warm`` the eigenspace
     comes from ``_eigenspace``'s warm route, whose route goes to ``log``."""
-    grams = _masked_grams(theta, x, xtilde, shared, cfg, win, backend, wt, wi)
+    grams = _masked_grams(theta, x, xtilde, shared, cfg, win, backend, wt, wi,
+                          rows)
     es = None
     if es_warm is not None:
         es, route = _eigenspace(grams[0], cfg, rank, es_warm, refresh)
         if log is not None:
             log.append(route)
-    return _kernel_state(*grams, shared, cfg, rank, es)
+    return _kernel_state(*grams, shared, cfg, rank, es, rows)
 
 
 def _eigenspace(K_tilde, cfg: FitConfig, rank: int, es_warm: Eigenspace,
@@ -279,13 +306,14 @@ def _eigenspace(K_tilde, cfg: FitConfig, rank: int, es_warm: Eigenspace,
 
 def _kernel_state(K_tilde, K, Kvec, shared: bool, cfg: FitConfig,
                   rank: Optional[int] = None,
-                  es: Optional[Eigenspace] = None) -> KernelState:
+                  es: Optional[Eigenspace] = None, rows=None) -> KernelState:
     """Eigenspace (``es``, else the top ``rank`` eigenpairs of the eigh, or
     all) and projections of the Grams (of one cell or a stack)."""
     if es is None:
         es = compute_eigenspace(K_tilde, cfg.eigval_tol, rank=rank)
     K_b = K @ es.B
-    a = es.B if shared else K_b * es.k_tilde_inv_diag[..., None, :]
+    a = (_shared_a(es.B, rows) if shared
+         else K_b * es.k_tilde_inv_diag[..., None, :])
     return KernelState(K_tilde, K, Kvec, es, K_b, a)
 
 
@@ -307,7 +335,9 @@ def _minimize(cfg: FitConfig, fun, x0, num_steps: int, lanes: bool = False,
     and speculative searches take their ladders through it.  ``lanes``: x0
     carries a leading cell axis and ``fun`` takes the (cells, trials) form
     of ``lbfgs_minimize_armijo`` (the cell-batched program, which has the
-    Armijo search only)."""
+    Armijo search only).  Under a mesh every value and gradient the
+    searches read on the host is the whole objective's, the same on every
+    rank, so the ranks take the same steps."""
     search = cfg.linesearch
     if lanes:
         if search != "armijo":
@@ -342,17 +372,23 @@ def _mstep_carries_memory(cfg: FitConfig) -> bool:
             and cfg.mstep_memory and cfg.n_mstep > 0)
 
 
-def _fparam_objective(logA, r, lambda_m, lambda_var, wt=None):
+def _fparam_objective(logA, r, lambda_m, lambda_var, wt=None, rows=None):
     """Profiled negative ELL: lambda0 at its closed-form optimum for the
-    trial logA (reference: utils.py:1892-1934)."""
-    lam0 = lambda0_given_logA(logA, r, lambda_m, lambda_var, weight=wt)
+    trial logA (reference: utils.py:1892-1934).  Under ``rows`` each rank
+    evaluates its rows' share; logA and lambda0 enter the shares, so the
+    gradient is the whole objective's on every rank."""
+    if rows is not None:
+        logA = rows.enter(logA)
+    lam0 = lambda0_given_logA(logA, r, lambda_m, lambda_var, weight=wt,
+                              rows=rows)
     f_params = {"logA": logA, "lambda0": lam0}
     f_mean = mean_f_given_lambda_moments(f_params, lambda_m, lambda_var)
-    return -poisson_ell(r, f_mean, lambda_m, f_params, weight=wt)
+    return -poisson_ell(r, f_mean, lambda_m, f_params, weight=wt, rows=rows)
 
 
 def _estep_block(r, kern: KernelState, m_b, V_b, f_params, lambda_m,
-                 lambda_var, cfg: FitConfig, wt=None, lanes: bool = False):
+                 lambda_var, cfg: FitConfig, wt=None, lanes: bool = False,
+                 rows=None):
     """n_estep Newton updates on (m_b, V_b), each followed by an L-BFGS
     update of logA with closed-form lambda0 (reference:
     utils.py:1859-1943).  Under ``cfg.estep_solver == "schulz"`` every
@@ -380,25 +416,29 @@ def _estep_block(r, kern: KernelState, m_b, V_b, f_params, lambda_m,
                 m_b, V_b, Minv = estep_update(
                     r, kern.a, m_b, f_mean, kern.es.k_tilde_b_diag, f_params,
                     weight=wt, Minv_warm=Minv, use_warm=step > 0,
-                    schulz_steps=cfg.schulz_steps, return_minv=True)
+                    schulz_steps=cfg.schulz_steps, return_minv=True,
+                    rows=rows)
             else:
                 m_b, V_b = estep_update(r, kern.a, m_b, f_mean,
                                         kern.es.k_tilde_b_diag, f_params,
-                                        weight=wt)
+                                        weight=wt, rows=rows)
             lambda_m, lambda_var = lambda_moments(kern.a, kern.K_b,
                                                   kern.Kvec, m_b, V_b)
         with trace_annotation("fit.estep.fparams"):
             logA, _ = _minimize(
                 cfg, partial(_fparam_objective, r=trial_axis(r),
                              lambda_m=trial_axis(lambda_m),
-                             lambda_var=trial_axis(lambda_var), wt=wt),
+                             lambda_var=trial_axis(lambda_var), wt=wt,
+                             rows=rows),
                 f_params["logA"], cfg.n_fparamstep, lanes,
                 ladder=None if lanes else partial(
                     _fparam_objective, r=r[None], lambda_m=lambda_m[None],
-                    lambda_var=lambda_var[None], wt=wt))
-        lam0 = lambda0_given_logA(logA, r, lambda_m, lambda_var, weight=wt)
+                    lambda_var=lambda_var[None], wt=wt, rows=rows))
+        lam0 = lambda0_given_logA(logA, r, lambda_m, lambda_var, weight=wt,
+                                  rows=rows)
         f_params = {"logA": logA, "lambda0": lam0}
         if early:
+            # m_b is whole, and the same, on every rank of a mesh
             dm, m_max = torch.stack([torch.max(torch.abs(m_b - m_old)),
                                      torch.max(torch.abs(m_old))]).tolist()
             if dm <= cfg.estep_tol * (1.0 + m_max):
@@ -410,7 +450,7 @@ def _mstep_objective(theta: Theta, x, xtilde, r, es: Eigenspace, m_b, V_b,
                      f_params, shared: bool, cfg: FitConfig, lower, upper,
                      win: Window = None, xcrop=None,
                      backend: Optional[str] = None, wt=None, wi=None,
-                     proj=None):
+                     proj=None, rows=None):
     """Negative log-marginal as a function of theta with the eigenspace B
     fixed (reference closure: utils.py:2017-2112).  Out-of-bounds trial
     points return +inf (utils.py:2020-2028); the loss is evaluated on the
@@ -421,7 +461,10 @@ def _mstep_objective(theta: Theta, x, xtilde, r, es: Eigenspace, m_b, V_b,
     the smoothing basis at the iteration-start theta with the crops (or
     the images and corner 0, 0 on the full frame); the Gram is then
     ``gram_matrices_projected``'s, and out of tolerance the exact one (one
-    host read) or, under ``mstep_proj_fallback="poison"``, +inf."""
+    host read) or, under ``mstep_proj_fallback="poison"``, +inf.  Under
+    ``rows`` theta enters this rank's share (``_mstep_loss``)."""
+    if rows is not None:
+        theta = rows.enter(theta)
     ok = theta_in_bounds(theta, lower, upper)
     theta_c = clip_theta(theta, lower, upper)
 
@@ -440,13 +483,14 @@ def _mstep_objective(theta: Theta, x, xtilde, r, es: Eigenspace, m_b, V_b,
             theta_c, xc, xtc, E, i0, j0, cfg.n_px_side, shared,
             cfg.alpha_threshold, cfg.mstep_proj_tol, backend)
         if cfg.mstep_proj_fallback == "exact":
+            # theta is whole: every rank of a mesh reads the same guard
             if not read_guard(p_ok, "mstep.projected", "mstep.exact_gram"):
                 grams = exact()
         else:
             ok = ok & p_ok
-    K_tilde, K, Kvec = _apply_pad_weights(*grams, shared, wt, wi)
+    K_tilde, K, Kvec = _apply_pad_weights(*grams, shared, wt, wi, rows)
     loss = _mstep_loss(K_tilde, K, Kvec, es, m_b, V_b, f_params, r, shared,
-                       cfg, wt)
+                       cfg, wt, rows)
     return torch.where(ok & torch.isfinite(loss), loss, float("inf"))
 
 
@@ -454,14 +498,14 @@ def _mstep_ladder(x, xtilde, r, es: Eigenspace, m_b, V_b, f_params,
                   shared: bool, cfg: FitConfig, lower, upper,
                   win: Window = None, xcrop=None,
                   backend: Optional[str] = None, wt=None, wi=None,
-                  proj=None):
+                  proj=None, rows=None):
     """The batched evaluator of ``_mstep_objective``'s line-search ladders
     (same arguments): theta a dict of (T,) trial tensors -> (T,) values in
     one evaluation, the trials being the (cell, trial) items of one cell of
     ``_mstep_objective_cells``.  Every trial reads the window's crop (or
     the full frame) and the projection basis as views, and the Grams run
     in chunks of ``ladder_items`` items, sized from the card's free
-    memory."""
+    memory (the least of every rank's under ``rows``)."""
     # imported here: parallel/population imports this module
     from ..parallel.population import ladder_items
     stim = (x, xtilde, None)
@@ -473,14 +517,17 @@ def _mstep_ladder(x, xtilde, r, es: Eigenspace, m_b, V_b, f_params,
         corner = torch.tensor(win[:2], device=x.device)
         stim = (xcrop[0][None], xcrop[1][None],
                 (corner[:1], corner[1:], win[2]))
+    max_items = ladder_items(x.shape[0], xtilde.shape[0], stim[0].shape[-1],
+                             x.device)
+    if rows is not None:
+        # each chunk holds a reduction: every rank runs the same chunks
+        max_items = rows.agree_min(max_items)
     cell = dict(stim=stim, r=r[None], es=Eigenspace(*(t[None] for t in es)),
                 m_b=m_b[None], V_b=V_b[None],
                 f_params={k: v[None] for k, v in f_params.items()},
                 shared=shared, cfg=cfg, lower=lower, upper=upper,
-                backend=backend, wt=wt, wi=wi,
-                max_items=ladder_items(x.shape[0], xtilde.shape[0],
-                                       stim[0].shape[-1], x.device),
-                proj=None if proj is None else proj[0][None])
+                backend=backend, wt=wt, wi=wi, max_items=max_items,
+                proj=None if proj is None else proj[0][None], rows=rows)
 
     def ladder(theta: Theta) -> torch.Tensor:
         return _mstep_objective_cells({k: v[None] for k, v in theta.items()},
@@ -489,12 +536,15 @@ def _mstep_ladder(x, xtilde, r, es: Eigenspace, m_b, V_b, f_params,
 
 
 def _mstep_loss(K_tilde, K, Kvec, es: Eigenspace, m_b, V_b, f_params, r,
-                shared: bool, cfg: FitConfig, wt=None):
+                shared: bool, cfg: FitConfig, wt=None, rows=None):
     """The M-step's negative log-marginal from the trial Grams, with the
     eigenspace fixed (of one cell, or of a stack of items).  The inverse of
     K_tilde_b and its log-determinant by ``cfg.mstep_inverse`` and
     ``cfg.mstep_logdet``: the warm forms start from the eigenspace's
-    diagonal ``k_tilde_inv_diag``, exact at the iteration-start theta."""
+    diagonal ``k_tilde_inv_diag``, exact at the iteration-start theta.
+    Under ``rows`` (K, Kvec, r: this rank's rows) the sum of every rank's
+    share: its rows' ELL less 1/P of the KL, which every rank computes
+    whole."""
     B = es.B
     K_tilde_b = B.mT @ (K_tilde @ B)
     K_tilde_b = 0.5 * (K_tilde_b + K_tilde_b.mT)
@@ -505,7 +555,7 @@ def _mstep_loss(K_tilde, K, Kvec, es: Eigenspace, m_b, V_b, f_params, r,
             fallback=cfg.schulz_fallback)
     else:
         K_tilde_inv_b = masked_inverse_spd(K_tilde_b, es.keep)
-    a = B if shared else K_b @ K_tilde_inv_b
+    a = _shared_a(B, rows) if shared else K_b @ K_tilde_inv_b
     lambda_m, lambda_var = lambda_moments(a, K_b, Kvec, m_b, V_b)
     f_mean = mean_f_given_lambda_moments(f_params, lambda_m, lambda_var)
     ell = poisson_ell(r, f_mean, lambda_m, f_params, weight=wt)
@@ -517,7 +567,9 @@ def _mstep_loss(K_tilde, K, Kvec, es: Eigenspace, m_b, V_b, f_params, r,
     kl = kl_divergence(m_b, V_b, es, K_tilde_b=K_tilde_b,
                        K_tilde_inv_b=K_tilde_inv_b, skip_logdet_V=True,
                        chol_only=True, logdet_K=ld_K)
-    return -(ell - kl)
+    if rows is None:
+        return -(ell - kl)
+    return -rows.sum(ell - kl / rows.size)
 
 
 def _track_update(track: Track, i: int, ell, kl, theta, f_params,
@@ -544,7 +596,7 @@ def _track_update(track: Track, i: int, ell, kl, theta, f_params,
 def _fit_init(x, r, xtilde, theta0: Theta, f_params0: FParams, m0, V0,
               has_V: bool, shared: bool, cfg: FitConfig, win: Window = None,
               backend: Optional[str] = None, wt=None, wi=None,
-              kern0: Optional[KernelState] = None) -> Carry:
+              kern0: Optional[KernelState] = None, rows=None) -> Carry:
     """Kernels, eigenspace, variational state and tracking
     (reference: utils.py:1667-1791).  ``kern0`` is a precomputed
     KernelState (the reference's ``init_kernel`` warm start,
@@ -552,7 +604,7 @@ def _fit_init(x, r, xtilde, theta0: Theta, f_params0: FParams, m0, V0,
     dtype, device = x.dtype, x.device
     ntilde = xtilde.shape[0]
     kern = kern0 if kern0 is not None else _build_kernel_state(
-        theta0, x, xtilde, shared, cfg, win, backend, wt, wi)
+        theta0, x, xtilde, shared, cfg, win, backend, wt, wi, rows=rows)
     es = kern.es
     m_b = es.B.T @ m0
     if has_V:
@@ -567,7 +619,7 @@ def _fit_init(x, r, xtilde, theta0: Theta, f_params0: FParams, m0, V0,
     lambda_m, lambda_var = lambda_moments(kern.a, kern.K_b, kern.Kvec,
                                           m_b, V_b)
     f_mean = mean_f_given_lambda_moments(f_params0, lambda_m, lambda_var)
-    ell0 = poisson_ell(r, f_mean, lambda_m, f_params0, weight=wt)
+    ell0 = poisson_ell(r, f_mean, lambda_m, f_params0, weight=wt, rows=rows)
     kl0 = kl_divergence(m_b, V_b, es, logdet_V=ld_V0)
 
     maxiter = cfg.maxiter
@@ -597,7 +649,8 @@ def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
                    cfg: FitConfig, bounds, win: Window = None,
                    do_mstep: bool = True,
                    backend: Optional[str] = None, wt=None, wi=None,
-                   warm: bool = False, log: Optional[list] = None) -> Carry:
+                   warm: bool = False, log: Optional[list] = None,
+                   rows=None) -> Carry:
     """One EM iteration (reference loop body: utils.py:1794-2125); a no-op
     once the fit has failed.  ``warm``: the kernel rebuild takes the
     reduced-rank eigenspace from the warm-started subspace eigensolver,
@@ -620,7 +673,8 @@ def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
             kern_new = _build_kernel_state(
                 theta, x, xtilde, shared, cfg, win, backend, wt, wi,
                 rank=rank if rank < xtilde.shape[0] else None,
-                es_warm=kern.es if warm else None, refresh=refresh, log=log)
+                es_warm=kern.es if warm else None, refresh=refresh, log=log,
+                rows=rows)
             m_b, V_b = reproject(kern_new.es, kern.es, m_b, V_b)
         kern = kern_new
 
@@ -628,17 +682,18 @@ def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
     lambda_m, lambda_var = lambda_moments(kern.a, kern.K_b, kern.Kvec,
                                           m_b, V_b)
     lam0 = lambda0_given_logA(f_params["logA"], r, lambda_m, lambda_var,
-                              weight=wt)
+                              weight=wt, rows=rows)
     f_params = {"logA": f_params["logA"], "lambda0": lam0}
 
     if cfg.n_estep > 0:
         with trace_annotation("fit.estep"):
             m_b, V_b, f_params, lambda_m, lambda_var = _estep_block(
-                r, kern, m_b, V_b, f_params, lambda_m, lambda_var, cfg, wt)
+                r, kern, m_b, V_b, f_params, lambda_m, lambda_var, cfg, wt,
+                rows=rows)
 
     # loss decomposition (utils.py:1953-1991)
     f_mean = mean_f_given_lambda_moments(f_params, lambda_m, lambda_var)
-    ell = poisson_ell(r, f_mean, lambda_m, f_params, weight=wt)
+    ell = poisson_ell(r, f_mean, lambda_m, f_params, weight=wt, rows=rows)
     kl = kl_divergence(m_b, V_b, kern.es)
     theta_start = theta
 
@@ -667,12 +722,12 @@ def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
         obj = partial(_mstep_objective, x=x, xtilde=xtilde, r=r, es=kern.es,
                       m_b=m_b, V_b=V_b, f_params=f_params, shared=shared,
                       cfg=cfg, lower=lower, upper=upper, win=win, xcrop=xcrop,
-                      backend=backend, wt=wt, wi=wi, proj=proj)
+                      backend=backend, wt=wt, wi=wi, proj=proj, rows=rows)
         ladder = None
         if cfg.linesearch in ("armijo", "speculative"):
             ladder = _mstep_ladder(x, xtilde, r, kern.es, m_b, V_b, f_params,
                                    shared, cfg, lower, upper, win, xcrop,
-                                   backend, wt, wi, proj)
+                                   backend, wt, wi, proj, rows)
         with trace_annotation("fit.mstep"):
             if not _mstep_carries_memory(cfg):
                 theta, _ = _minimize(cfg, obj, theta, cfg.n_mstep,
@@ -691,7 +746,8 @@ def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
                     memory=c.mem, ladder_fun=ladder)
 
     # Rollback on numerical failure (utils.py:2127-2189): keep the state
-    # this iteration started from and freeze.
+    # this iteration started from and freeze.  Every value read here is
+    # whole, and the same, on every rank of a mesh.
     finite = (torch.isfinite(ell - kl) & torch.all(torch.isfinite(m_b))
               & torch.all(torch.isfinite(V_b))
               & torch.all(torch.isfinite(
@@ -718,7 +774,7 @@ def _fit_finalize(c: Carry, cfg: FitConfig) -> Carry:
     return c._replace(V_b=V_b)
 
 
-def _slice_carry(c: Carry, rank: int, shared: bool) -> Carry:
+def _slice_carry(c: Carry, rank: int, shared: bool, rows=None) -> Carry:
     """The carry's stabilized-basis state at another ``rank``.
 
     Shrinking keeps the LAST ``rank`` coordinates (the top of the ascending
@@ -736,7 +792,7 @@ def _slice_carry(c: Carry, rank: int, shared: bool) -> Carry:
         es_new = Eigenspace(es.B[:, sl], es.eigvals[sl], es.keep[sl],
                             es.k_tilde_b_diag[sl], es.k_tilde_inv_diag[sl])
         K_b = c.kern.K_b[:, sl]
-        a = es_new.B if shared else c.kern.a[:, sl]
+        a = _shared_a(es_new.B, rows) if shared else c.kern.a[:, sl]
         m_b = c.m_b[sl]
         V_b = c.V_b[sl, sl]
     else:
@@ -749,7 +805,7 @@ def _slice_carry(c: Carry, rank: int, shared: bool) -> Carry:
 
         es_new = Eigenspace(*(left(t) for t in es))
         K_b = left(c.kern.K_b)
-        a = es_new.B if shared else left(c.kern.a)
+        a = _shared_a(es_new.B, rows) if shared else left(c.kern.a)
         m_b = left(c.m_b)
         V_b = c.V_b.new_zeros((rank, rank))
         V_b[pad:, pad:] = c.V_b
@@ -781,7 +837,7 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
         init_kernel: Optional[KernelState] = None,
         generator: Optional[torch.Generator] = None,
         backend: Optional[str] = None,
-        profile: bool = False) -> FitResult:
+        profile: bool = False, mesh=None) -> FitResult:
     """Fit the spatial GP to (x, r): the ``varGP`` equivalent.
 
     x: (nt, nx) stimuli, r: (nt,) spike counts; the fit runs on their
@@ -810,6 +866,16 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
     it.  The warm-started subspace eigensolver runs at every iteration whose
     rank budget is below ntilde (``reduced_rank`` with
     ``eigensolver="subspace"``); ``FitResult.used_warm_basis`` then holds.
+
+    ``mesh`` (``parallel/mesh.make_mesh``; x on its device type, else
+    ValueError): the training points are split over its "data" axis (the
+    big-nt scale-out of one cell; the cells axis is ``fit_population``'s).
+    Every rank passes the whole x and r, as a JAX global array holds them;
+    the start theta, the inducing draw, the crop window and the projection
+    rank come from them whole, then each rank keeps its rows of x, r and
+    ``sample_weight`` and the sums over rows are completed across the axis
+    (the module docstring).  Every rank returns the whole result: K, Kvec,
+    K_b and a are gathered at the end.
     """
     cfg = cfg or FitConfig()
     dtype, device = x.dtype, x.device
@@ -899,6 +965,23 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
             torch.cuda.synchronize(device)
         return time.perf_counter()
 
+    # this rank's rows under a mesh (a shared inducing set keeps x whole:
+    # its Grams read only xtilde, and K is this rank's rows of K_tilde)
+    rows, xr, rr, wtr, kern0 = None, x, r, wt, init_kernel
+    if mesh is not None:
+        # imported here: parallel/ imports this module
+        from ..parallel.collectives import data_rows
+        rows = data_rows(mesh, nt, x)
+        rr = rows.take(r, 0)
+        wtr = None if wt is None else rows.take(wt, 0)
+        if not shared:
+            xr = rows.take(x, 0)
+        if kern0 is not None:
+            kern0 = kern0._replace(K=rows.take(kern0.K, 0),
+                                   Kvec=rows.take(kern0.Kvec, 0),
+                                   K_b=rows.take(kern0.K_b, 0),
+                                   a=rows.take(kern0.a, 0))
+
     bounds = (lower, upper)
     timing = ({"per_iteration": [], "rank": [], "eigensolver": []}
               if profile else None)
@@ -907,11 +990,13 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
     with torch.no_grad():
         t0 = clock() if profile else 0.0
         with trace_annotation("fit.init"):
-            carry = _fit_init(x, r, xtilde, theta0, fp0, m0, V0, has_V,
+            carry = _fit_init(xr, rr, xtilde, theta0, fp0, m0, V0, has_V,
                               shared, cfg, window(probe(theta0)[0]), backend,
-                              wt, wi, init_kernel)
+                              wtr, wi, kern0, rows)
         if profile:
             timing["init"] = clock() - t0
+        # theta and the eigenspace are whole, and the same, on every rank of
+        # a mesh: so are the window, the budget and the cover test
         scalars, n_eig = probe(carry.theta, carry.kern.es)
         for i in range(1, cfg.maxiter):
             ti = clock() if profile else 0.0
@@ -921,7 +1006,7 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
                 # iterations, so it does not flap between two buckets
                 n_eig_hist.append(n_eig)
                 budget = _rank_bucket(max(n_eig_hist[-3:]), cfg, n)
-                carry = _slice_carry(carry, budget, shared)
+                carry = _slice_carry(carry, budget, shared, rows)
             # the warm-started eigensolver at every reduced-rank iteration
             # (the first one starts from init's full eigh, so it is exact)
             warm = (cfg.reduced_rank and cfg.eigensolver == "subspace"
@@ -929,11 +1014,11 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
             used_warm = used_warm or warm
             routes: List[str] = []
             with trace_annotation("fit.iteration"):
-                carry = _fit_iteration(i, carry, x, r, xtilde, shared, cfg,
+                carry = _fit_iteration(i, carry, xr, rr, xtilde, shared, cfg,
                                        bounds, win,
                                        do_mstep=(i < cfg.maxiter - 1),
-                                       backend=backend, wt=wt, wi=wi,
-                                       warm=warm, log=routes)
+                                       backend=backend, wt=wtr, wi=wi,
+                                       warm=warm, log=routes, rows=rows)
                 scalars, n_eig = probe(carry.theta, carry.kern.es)
             if profile:
                 timing["per_iteration"].append(clock() - ti)
@@ -958,7 +1043,7 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
                            sample_weight=sample_weight,
                            inducing_weight=inducing_weight,
                            init_kernel=init_kernel, backend=backend,
-                           profile=profile)
+                           profile=profile, mesh=mesh)
         with trace_annotation("fit.finalize"):
             carry = _fit_finalize(carry, cfg)
         if profile:
@@ -969,6 +1054,9 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
     # arrays load row-major
     kern = carry.kern._replace(K_b=carry.kern.K_b.contiguous(),
                                a=carry.kern.a.contiguous())
+    if rows is not None:
+        kern = kern._replace(**{name: rows.gather(getattr(kern, name), 0)
+                                for name in ("K", "Kvec", "K_b", "a")})
     es = Eigenspace(*(t.contiguous() for t in kern.es))
     return FitResult(
         config=cfg, xtilde=xtilde, theta=carry.theta, theta_lower=lower,
@@ -1117,7 +1205,7 @@ def _mstep_objective_cells(theta: Theta, stim: Cells, r, es: Eigenspace,
                            m_b, V_b, f_params, shared: bool, cfg: FitConfig,
                            lower, upper, backend: Optional[str] = None,
                            max_items: Optional[int] = None, wt=None, wi=None,
-                           proj=None):
+                           proj=None, rows=None):
     """The M-step objective of every (cell, trial) item: theta a dict of
     (L, T) tensors, the other arguments the cells' (L, ...) state; returns
     (L, T).  The L x T items run in chunks of at most ``max_items`` (the
@@ -1128,7 +1216,10 @@ def _mstep_objective_cells(theta: Theta, stim: Cells, r, es: Eigenspace,
     projection bases (L, w, R) under ``mstep_gram="projected"``
     (``_cell_grams``); an item whose projection fails its guard under the
     "poison" fallback is +inf.  With L = 1 (the single-cell ladder), every
-    item is ``_mstep_objective`` at its trial."""
+    item is ``_mstep_objective`` at its trial.  ``rows``: the mesh's "data"
+    axis, as ``_mstep_objective``'s (every rank runs the same chunks)."""
+    if rows is not None:
+        theta = rows.enter(theta)
     L, T = theta["Amp"].shape
     n = L * T
     flat = {k: v.reshape(n) for k, v in theta.items()}
@@ -1147,10 +1238,10 @@ def _mstep_objective_cells(theta: Theta, stim: Cells, r, es: Eigenspace,
             *grams, p_ok = grams
             ok = ok & p_ok
         es_i = Eigenspace(*(_take(t, ln) for t in es))
-        loss = _mstep_loss(*_apply_pad_weights(*grams, shared, wt, wi), es_i,
-                           _take(m_b, ln), _take(V_b, ln),
+        loss = _mstep_loss(*_apply_pad_weights(*grams, shared, wt, wi, rows),
+                           es_i, _take(m_b, ln), _take(V_b, ln),
                            {k: _take(v, ln) for k, v in f_params.items()},
-                           _take(r, ln), shared, cfg, wt)
+                           _take(r, ln), shared, cfg, wt, rows)
         loss = torch.where(ok & torch.isfinite(loss), loss, float("inf"))
         if grad and loss.requires_grad:
             loss = _gradient_now(loss, th)
@@ -1194,15 +1285,25 @@ def _where_cells(mask, a, b):
     return type(a)(*parts) if hasattr(a, "_fields") else tuple(parts)
 
 
+def _cell_kernel_state(theta: Theta, stim: Cells, shared: bool,
+                       cfg: FitConfig, backend: Optional[str],
+                       max_items: Optional[int], rows) -> KernelState:
+    """Every cell's kernel state at theta (L,) (K and Kvec: this rank's rows
+    under ``rows``)."""
+    grams = _cell_grams(theta, stim, None, shared, cfg, backend, max_items)
+    return _kernel_state(*_apply_pad_weights(*grams, shared, rows=rows),
+                         shared, cfg, rows=rows)
+
+
 def _fit_init_cells(stim: Cells, rs, theta0: Theta, f_params0: FParams,
                     shared: bool, cfg: FitConfig,
                     backend: Optional[str] = None,
-                    max_items: Optional[int] = None) -> Carry:
+                    max_items: Optional[int] = None, rows=None) -> Carry:
     """``_fit_init`` for every cell at once, from m = 0 and V = K_tilde."""
     L, ntilde = rs.shape[0], stim[1].shape[-2]
     dtype, device = rs.dtype, rs.device
-    kern = _kernel_state(*_cell_grams(theta0, stim, None, shared, cfg,
-                                      backend, max_items), shared, cfg)
+    kern = _cell_kernel_state(theta0, stim, shared, cfg, backend, max_items,
+                              rows)
     es = kern.es
     m_b = mv(es.B.mT, torch.zeros((L, ntilde), dtype=dtype, device=device))
     V_b = torch.diag_embed(es.k_tilde_b_diag)
@@ -1211,7 +1312,7 @@ def _fit_init_cells(stim: Cells, rs, theta0: Theta, f_params0: FParams,
     lambda_m, lambda_var = lambda_moments(kern.a, kern.K_b, kern.Kvec,
                                           m_b, V_b)
     f_mean = mean_f_given_lambda_moments(f_params0, lambda_m, lambda_var)
-    ell0 = poisson_ell(rs, f_mean, lambda_m, f_params0)
+    ell0 = poisson_ell(rs, f_mean, lambda_m, f_params0, rows=rows)
     kl0 = kl_divergence(m_b, V_b, es, logdet_V=ld_V0)
 
     maxiter = cfg.maxiter
@@ -1235,7 +1336,7 @@ def _fit_init_cells(stim: Cells, rs, theta0: Theta, f_params0: FParams,
 def _fit_iteration_cells(i: int, c: Carry, stim: Cells, rs, shared: bool,
                          cfg: FitConfig, bounds, do_mstep: bool = True,
                          backend: Optional[str] = None,
-                         max_items: Optional[int] = None) -> Carry:
+                         max_items: Optional[int] = None, rows=None) -> Carry:
     """One EM iteration of every cell (JAX ``_fit_iteration`` under vmap):
     no host branch on the data.  A cell whose iteration is not finite
     reverts to the state it started from and is marked failed at i; a
@@ -1245,23 +1346,23 @@ def _fit_iteration_cells(i: int, c: Carry, stim: Cells, rs, shared: bool,
     m_b, V_b, kern = c.m_b, c.V_b, c.kern
 
     if cfg.n_mstep > 0:
-        kern_new = _kernel_state(*_cell_grams(theta, stim, None, shared, cfg,
-                                              backend, max_items),
-                                 shared, cfg)
+        kern_new = _cell_kernel_state(theta, stim, shared, cfg, backend,
+                                      max_items, rows)
         m_b, V_b = reproject(kern_new.es, kern.es, m_b, V_b)
         kern = kern_new
 
     lambda_m, lambda_var = lambda_moments(kern.a, kern.K_b, kern.Kvec,
                                           m_b, V_b)
-    lam0 = lambda0_given_logA(f_params["logA"], rs, lambda_m, lambda_var)
+    lam0 = lambda0_given_logA(f_params["logA"], rs, lambda_m, lambda_var,
+                              rows=rows)
     f_params = {"logA": f_params["logA"], "lambda0": lam0}
     if cfg.n_estep > 0:
         m_b, V_b, f_params, lambda_m, lambda_var = _estep_block(
             rs, kern, m_b, V_b, f_params, lambda_m, lambda_var, cfg,
-            lanes=True)
+            lanes=True, rows=rows)
 
     f_mean = mean_f_given_lambda_moments(f_params, lambda_m, lambda_var)
-    ell = poisson_ell(rs, f_mean, lambda_m, f_params)
+    ell = poisson_ell(rs, f_mean, lambda_m, f_params, rows=rows)
     kl = kl_divergence(m_b, V_b, kern.es)
     theta_start = theta
 
@@ -1276,7 +1377,7 @@ def _fit_iteration_cells(i: int, c: Carry, stim: Cells, rs, shared: bool,
         obj = partial(_mstep_objective_cells, stim=stim, r=rs, es=kern.es,
                       m_b=m_b, V_b=V_b, f_params=f_params, shared=shared,
                       cfg=cfg, lower=lower, upper=upper, backend=backend,
-                      max_items=max_items, proj=proj)
+                      max_items=max_items, proj=proj, rows=rows)
         theta, _ = _minimize(cfg, obj, theta, cfg.n_mstep, lanes=True)
 
     finite = (torch.isfinite(ell - kl) & torch.isfinite(m_b).all(-1)
@@ -1298,18 +1399,21 @@ def _fit_iteration_cells(i: int, c: Carry, stim: Cells, rs, shared: bool,
 def fit_cells_program(stim: Cells, rs, theta0: Theta, f_params0: FParams,
                       shared: bool, cfg: FitConfig, bounds,
                       backend: Optional[str] = None,
-                      max_items: Optional[int] = None) -> Carry:
+                      max_items: Optional[int] = None, rows=None) -> Carry:
     """The whole EM fit of every cell (JAX ``_fit_program`` vmapped over
     cells, at full rank): init, maxiter - 1 iterations (the last without an
     M-step), finalize.  ``max_items`` bounds the items of one chunk of Grams
-    (None: every item at once).  Returns the cell-stacked carry."""
+    (None: every item at once; under ``rows`` the same on every rank).
+    ``rows``: the stimuli and ``rs`` hold this rank's rows of the mesh's
+    "data" axis (a shared set: x whole), as ``fit``'s.  Returns the
+    cell-stacked carry (this rank's rows of its row leaves)."""
     with torch.no_grad():
         carry = _fit_init_cells(stim, rs, theta0, f_params0, shared, cfg,
-                                backend, max_items)
+                                backend, max_items, rows)
         for i in range(1, cfg.maxiter):
             carry = _fit_iteration_cells(i, carry, stim, rs, shared, cfg,
                                          bounds,
                                          do_mstep=(i < cfg.maxiter - 1),
                                          backend=backend,
-                                         max_items=max_items)
+                                         max_items=max_items, rows=rows)
         return _fit_finalize(carry, cfg)

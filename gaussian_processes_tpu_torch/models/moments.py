@@ -5,7 +5,13 @@ autograd.
 
 Every function also takes a leading cell axis (vectors (L, n), matrices
 (L, n, n), f-params (L,)), and the f-param functions further batch axes in
-the f-params (the line-search trials, (L, T) against (L, 1, nt) moments)."""
+the f-params (the line-search trials, (L, T) against (L, 1, nt) moments).
+
+``rows`` (``parallel/collectives.Rows``; None on one device) is this rank's
+share of the training points under the mesh's "data" axis: the arguments
+over training points then hold this rank's rows, and the sums over them
+are completed across the axis.  ``lambda_moments`` and
+``mean_f_given_lambda_moments`` are row by row and need nothing."""
 
 from __future__ import annotations
 
@@ -41,30 +47,46 @@ def mean_f_given_lambda_moments(f_params: FParams, lambda_m: torch.Tensor,
 
 def lambda0_given_logA(logA: torch.Tensor, r: torch.Tensor,
                        lambda_m: torch.Tensor, lambda_var: torch.Tensor,
-                       weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       weight: Optional[torch.Tensor] = None,
+                       rows=None) -> torch.Tensor:
     """Closed-form optimal lambda0 = log sum(r) - logsumexp(A lam_m +
     0.5 A^2 lam_var) (reference: utils.py:1215-1229).  ``weight`` (0/1)
-    masks padded training points out of both sums."""
+    masks padded training points out of both sums.  With ``rows`` the
+    result is whole on every rank and marked where it enters the rows."""
     A = torch.exp(logA)[..., None]
     z = A * lambda_m + 0.5 * A * A * lambda_var
     if weight is not None:
         z = torch.where(weight > 0, z, float("-inf"))
         r = r * weight
-    return torch.log(torch.sum(r, dim=-1)) - torch.logsumexp(z, dim=-1)
+    if rows is None:
+        return torch.log(torch.sum(r, dim=-1)) - torch.logsumexp(z, dim=-1)
+    # the distributed logsumexp, as torch.logsumexp computes it: the max
+    # over every rank's rows (infinite -> 0; detached, the result does not
+    # depend on it), then the shifted exponentials' sum, in one reduction
+    # with sum(r)
+    m = rows.max(z)
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    sums = rows.sum(torch.stack(torch.broadcast_tensors(
+        torch.sum(r, dim=-1), torch.sum(torch.exp(z - m[..., None]), dim=-1)),
+        dim=-1))
+    lam0 = torch.log(sums[..., 0]) - (torch.log(sums[..., 1]) + m)
+    return rows.enter(lam0)
 
 
 def poisson_ell(r: torch.Tensor, f_mean: torch.Tensor, lambda_m: torch.Tensor,
-                f_params: FParams,
-                weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                f_params: FParams, weight: Optional[torch.Tensor] = None,
+                rows=None) -> torch.Tensor:
     """Expected Poisson log-likelihood A r^T lambda_m + lambda0 sum(r) -
     sum(f) (reference: utils.py:1231-1243; log r! dropped there too).
-    ``weight`` (0/1) masks padded training points."""
+    ``weight`` (0/1) masks padded training points.  With ``rows``, the sum
+    of every rank's share."""
     A = torch.exp(f_params["logA"])
     if weight is not None:
         r = r * weight
         f_mean = f_mean * weight
-    return (A * dot(r, lambda_m) + f_params["lambda0"] * torch.sum(r, dim=-1)
-            - torch.sum(f_mean, dim=-1))
+    ell = (A * dot(r, lambda_m) + f_params["lambda0"] * torch.sum(r, dim=-1)
+           - torch.sum(f_mean, dim=-1))
+    return ell if rows is None else rows.sum(ell)
 
 
 def kl_divergence(m_b: torch.Tensor, V_b: torch.Tensor, es: Eigenspace,

@@ -11,9 +11,12 @@ and no step reads a value back to the host to decide what to do next.
 ``fit_cells_sequential`` fits the cells one after another through the
 single-cell ``fit``.
 
-The JAX package shards the cell axis over a device mesh (``mesh=``) and
-offers an ahead-of-time lowering hook (``lower_only=``); one card has no
-mesh, and the port has neither (the mesh is ROADMAP item 18).
+``mesh=`` (``parallel/mesh.make_mesh``) spreads the program over a
+("cells", "data") mesh as the JAX package's GSPMD program does: each
+"cells" coordinate fits its slice of the cells, with their training points
+split over "data" (``models/fit.fit_cells_program(rows=)``), and every
+rank returns the whole carry.  The JAX package's ahead-of-time lowering
+hook (``lower_only=``) has no counterpart.
 """
 
 from __future__ import annotations
@@ -25,10 +28,12 @@ from typing import Dict, List, Optional
 import torch
 
 from ..config import FitConfig, resolve_device, use_full_fp32
-from ..models.fit import (Carry, FitResult, cell_stimuli, fit,
+from ..models.fit import (Carry, FitResult, KernelState, cell_stimuli, fit,
                           fit_cells_program)
 from ..ops.kernels import crop_window_for_theta, suggest_proj_rank
 from ..params import default_f_params, generate_theta, theta_bounds
+from .collectives import data_rows, gather_cat
+from .mesh import population_shardings
 
 # Bytes of device memory one (cell, trial) item of the M-step's trial ladder
 # takes, per float32 element of its stimuli (rows nt + ntilde, times the
@@ -128,10 +133,38 @@ def population_window(thetas: Dict[str, torch.Tensor], cfg: FitConfig):
             w_max)
 
 
+def _tree_map(fn, tree):
+    """fn over every tensor of a carry (tensors, dicts, tuples and named
+    tuples)."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    parts = [_tree_map(fn, v) for v in tree]
+    return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+
+
+def _gather_carry(carry: Carry, mesh, rows) -> Carry:
+    """The whole cell-stacked carry from every rank's: the row leaves (the
+    Grams' rows and the moments) gathered over "data", then every leaf
+    over "cells"."""
+    def row(t):
+        return rows.gather(t, 1)
+    kern = carry.kern
+    carry = carry._replace(
+        kern=KernelState(kern.K_tilde, row(kern.K), row(kern.Kvec), kern.es,
+                         row(kern.K_b), row(kern.a)),
+        lambda_m=row(carry.lambda_m), lambda_var=row(carry.lambda_var))
+    group = mesh.get_group("cells")
+    n_coords = mesh.size(0)
+    return _tree_map(lambda t: gather_cat(t, group, [t.shape[0]] * n_coords),
+                     carry)
+
+
 def fit_population(x, rs, cfg: Optional[FitConfig] = None, xtilde=None,
                    thetas: Optional[Dict] = None,
                    f_params: Optional[Dict] = None, seed: int = 0,
-                   device=None, backend: Optional[str] = None):
+                   device=None, backend: Optional[str] = None, mesh=None):
     """Fit every cell of ``rs`` (ncells, nt) against the stimuli ``x`` (nt,
     nx) in one batched program.
 
@@ -148,6 +181,13 @@ def fit_population(x, rs, cfg: Optional[FitConfig] = None, xtilde=None,
     grow with the number of cells beyond their (ntilde, ntilde) and (nt,
     ntilde) state.
     ``backend`` overrides the Gram backend.
+
+    ``mesh`` (x on its device type, else ValueError): every rank passes the
+    whole x and rs; the start thetas, the inducing draw, the crop window
+    and the projection rank come from them whole, then each rank fits its
+    slice of the cells on its rows (``population_shardings``; ncells must
+    divide by the "cells" axis), the chunks sized from its rows and agreed
+    over "data".  Every rank returns the whole carry.
 
     Returns ``(carry, (lower, upper))``: the cell-stacked carry (leading
     axis = cell) and the theta bounds; ``population_results`` splits it.
@@ -190,11 +230,26 @@ def fit_population(x, rs, cfg: Optional[FitConfig] = None, xtilde=None,
             gr_max, cfg.n_px_side, cfg.n_px_side))
 
     win = population_window(thetas, cfg)
+    rows = None
+    if mesh is not None:
+        rows = data_rows(mesh, nt, x)
+        cells, row_sl = population_shardings(mesh, ncells, nt)
+        rs = rs[cells, row_sl]
+        thetas = {k: v[cells] for k, v in thetas.items()}
+        f_params = {k: v[cells] for k, v in f_params.items()}
+        if win is not None:
+            win = (win[0][cells], win[1][cells], win[2])
+        if not shared:
+            x = x[row_sl]
     stim = cell_stimuli(x, xtilde, shared, cfg, win)
     k = cfg.n_px_side ** 2 if win is None else win[2] ** 2
-    max_items = ladder_items(nt, xtilde.shape[0], k, device)
+    max_items = ladder_items(rs.shape[-1], xtilde.shape[0], k, device)
+    if rows is not None:
+        max_items = rows.agree_min(max_items)
     carry = fit_cells_program(stim, rs, thetas, f_params, shared, cfg,
-                              (lower, upper), backend, max_items)
+                              (lower, upper), backend, max_items, rows)
+    if mesh is not None:
+        carry = _gather_carry(carry, mesh, rows)
     return carry, (lower, upper)
 
 
@@ -231,16 +286,9 @@ def fit_cells_sequential(x, rs, cfg: Optional[FitConfig] = None, xtilde=None,
 def population_results(carry: Carry, cfg: FitConfig, xtilde, lower,
                        upper) -> List[FitResult]:
     """Split a cell-stacked carry into per-cell ``FitResult`` objects."""
-    def cell(tree, c):
-        if isinstance(tree, torch.Tensor):
-            return tree[c]
-        if isinstance(tree, dict):
-            return {k: cell(v, c) for k, v in tree.items()}
-        return type(tree)(*(cell(v, c) for v in tree))
-
     out = []
     for c in range(carry.m_b.shape[0]):
-        one = cell(carry, c)
+        one = _tree_map(lambda t: t[c], carry)
         kern, es = one.kern, one.kern.es
         out.append(FitResult(
             config=cfg, xtilde=xtilde, theta=one.theta, theta_lower=lower,

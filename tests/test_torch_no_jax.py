@@ -32,7 +32,9 @@ def test_every_module_is_listed():
                      "models.moments", "models.estep", "models.fit",
                      "models.inference", "models.acquisition",
                      "models.active", "optim.lbfgs", "parallel",
-                     "parallel.population", "parallel.large", "utils",
+                     "parallel.population", "parallel.large",
+                     "parallel.mesh", "parallel.collectives",
+                     "parallel.sharded_linalg", "utils",
                      "utils.guards", "utils.io", "utils.metrics",
                      "utils.tracing", "utils.plotting", "examples",
                      "examples.one_cell_fit", "examples.active_training",
