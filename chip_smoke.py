@@ -161,6 +161,24 @@ Phases (none catches its own failure; any failure exits non-zero):
    ``dryrun_multichip(4, device="cpu")`` in a gloo world of four CPU
    processes.  The kernel launches of (b)-(d) are counted from 0 and added
    to the kernel table's.
+14. The functions no fit calls, at phase 4's data and shape, float64 on
+   the card unless said otherwise: (a) at THETA0 with the eigenspace of
+   K_tilde there and a generic kept-subspace (m_b, V_b) from a numpy seed
+   (tests/test_gradients.py's), the M-step gradient composed from the
+   analytic chain (``ops/analytic_grads.analytic_mstep_grad``, dense C and
+   its five derivatives on the full 108 x 108 grid) against autograd of
+   ``_mstep_objective`` called as the fit calls it, on the crop window:
+   (i) float64 plain, within 1e-6; (ii) float32 plain; (iii) float32
+   through the Gram kernel, within max(1e-3, 2 x (ii)), its launches
+   counted from 0 and added to the kernel table's; error max_k |g_k -
+   g_an,k| / max_k |g_an,k|, with the chain's seconds and peak memory.
+   (b) ``update_f_params_newton`` from F_PARAMS0 at the moments of phase
+   4's final state: iterations (one host read each), each component of
+   ``ell_grad_f_params`` at the result below 1e-3, and its ELL no lower
+   than that of phase 4's final f-params.  (c) On phase 4's final state
+   sliced to its kept coordinates, ``estep_update_damped(alpha=1)`` within
+   1e-8 and ``estep_update_V_inv`` within 1e-6 of ``estep_update``,
+   relative to the norm of the result.
 
 The last two lines of standard output are one JSON object with the kernel
 table and one with the device.
@@ -247,6 +265,12 @@ WARM_INVERSE_RTOL = 1e-4
 # phase 13: the distributed Cholesky at world 1 against cuSOLVER's, and its
 # ||L L^T - A||_F / ||A||_F bound (a float32 factor's is ~n eps ||A||)
 MESH_CHOL_N, MESH_CHOL_RESID = 16384, 1e-5
+# phase 14: autograd of the float64 M-step objective against the analytic
+# chain, the legacy f-param Newton's ELL gradient at its result, and the
+# alpha-1 E-step variants against estep_update (relative to the norm)
+ANALYTIC_F64_RTOL = 1e-6
+FPARAM_GRAD_ATOL = 1e-3
+DAMPED_RTOL, V_INV_RTOL = 1e-8, 1e-6
 # peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds' rates
 TF32_FLOPS, HBM_BYTES = 495e12, 3.35e12
 
@@ -1767,6 +1791,169 @@ def phase13_mesh(torch, np, device, smi, totals, x, r, xtilde, cfg, res,
         tmp.cleanup()
 
 
+def _rel_norm(torch, got, want):
+    return float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+
+
+def phase14_unfitted(torch, np, device, smi, totals, x, r, xtilde, cfg, res):
+    """The functions no fit calls, at phase 4's data and shape (see the
+    module docstring), float64 unless said otherwise.  Adds (a)'s kernel
+    launches to ``totals``."""
+    from gaussian_processes_tpu_torch.models.estep import (
+        estep_update, estep_update_V_inv, estep_update_damped,
+        update_f_params_newton)
+    from gaussian_processes_tpu_torch.models.fit import _mstep_objective
+    from gaussian_processes_tpu_torch.models.moments import (
+        ell_grad_f_params, lambda_moments, mean_f_given_lambda_moments,
+        poisson_ell)
+    from gaussian_processes_tpu_torch.ops import gram_cuda
+    from gaussian_processes_tpu_torch.ops.analytic_grads import (
+        analytic_mstep_grad)
+    from gaussian_processes_tpu_torch.ops.kernels import (
+        crop_images, crop_window_for_theta, gram_matrices)
+    from gaussian_processes_tpu_torch.ops.stabilize import (
+        Eigenspace, compute_eigenspace)
+    from gaussian_processes_tpu_torch.params import THETA_KEYS, theta_bounds
+    from gaussian_processes_tpu_torch.utils.tracing import decisions
+
+    f64 = torch.float64
+    x64, xt64, r64 = x.to(f64), xtilde.to(f64), r.to(f64)
+    checks = {}
+
+    # (a) the M-step gradient: the analytic chain on the full grid against
+    # autograd of the objective on the crop window, as the fit calls it
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    th64 = {k: torch.tensor(v, dtype=f64, device=device)
+            for k, v in THETA0.items()}
+    fp64 = {k: torch.tensor(v, dtype=f64, device=device)
+            for k, v in F_PARAMS0.items()}
+    K_tilde, _, _ = gram_matrices(th64, x64, xt64, N_PX, shared=False,
+                                  backend="torch")
+    es = compute_eigenspace(K_tilde)
+    del K_tilde
+    keep = es.keep.cpu().numpy()
+    # tests/test_gradients.py's generic kept-subspace state
+    rng = np.random.default_rng(3)
+    W = rng.standard_normal((NTILDE, NTILDE)) * 0.05
+    V_b = torch.as_tensor((W @ W.T + np.eye(NTILDE)) * np.outer(keep, keep),
+                          device=device)
+    m_b = torch.as_tensor(rng.standard_normal(NTILDE) * keep, device=device)
+    g_an = analytic_mstep_grad(th64, x64, xt64, r64, es, m_b, V_b, fp64,
+                               N_PX, cfg.alpha_threshold)
+    g_an = torch.stack([g_an[k] for k in THETA_KEYS])
+    torch.cuda.synchronize()
+    an_s = time.perf_counter() - t0
+    an_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lower, upper = theta_bounds()
+    crop = crop_window_for_theta(th64, N_PX, cfg.alpha_threshold,
+                                 cfg.crop_margin, cfg.crop_bucket)
+    reset_counts(gram_cuda)
+
+    def autograd_grad(dtype, backend):
+        xs, xts, rs = x.to(dtype), xtilde.to(dtype), r.to(dtype)
+        xcrop = tuple(crop_images(v, *crop, N_PX) for v in (xs, xts))
+        es_d = Eigenspace(*(t if t.dtype == torch.bool else t.to(dtype)
+                            for t in es))
+        leaf = {k: torch.tensor(v, dtype=dtype, device=device,
+                                requires_grad=True)
+                for k, v in THETA0.items()}
+        loss = _mstep_objective(
+            leaf, xs, xts, rs, es_d, m_b.to(dtype), V_b.to(dtype),
+            {k: v.to(dtype) for k, v in fp64.items()}, False, cfg, lower,
+            upper, win=crop, xcrop=xcrop, backend=backend)
+        g = torch.autograd.grad(loss, [leaf[k] for k in THETA_KEYS])
+        g = torch.stack(g).to(f64)
+        err = float(torch.max(torch.abs(g - g_an)) / torch.max(
+            torch.abs(g_an)))
+        return err, float(loss.detach()), g
+
+    t0 = time.perf_counter()
+    runs = {"(i) float64, plain": autograd_grad(f64, "torch"),
+            "(ii) float32, plain": autograd_grad(torch.float32, "torch")}
+    launched = gram_cuda.launches
+    runs["(iii) float32, kernel"] = autograd_grad(torch.float32, None)
+    torch.cuda.synchronize()
+    auto_s = time.perf_counter() - t0
+    counts = read_counts(gram_cuda)
+    kernel_launches = gram_cuda.launches - launched
+    add_counts(totals, counts)
+    print(f"(a) M-step gradient at THETA0 ({int(keep.sum())} of {NTILDE} "
+          f"eigendirections kept; crop window {crop}): analytic chain on the "
+          f"full {N_PX} x {N_PX} grid {g_an.tolist()} in {an_s:.2f} s, peak "
+          f"{an_peak:.2f} GiB allocated  [{smi}]")
+    for name, (err, loss, g) in runs.items():
+        print(f"  autograd {name}: loss {loss:.6f}, max_k|g - g_an| / "
+              f"max_k|g_an| = {err:.3e}; g {g.tolist()}")
+    print(f"  the three autograd gradients in {auto_s:.2f} s; Gram kernel "
+          f"launches in (iii) {kernel_launches} (by shape "
+          f"{counts['shapes']}); peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+          f"GiB allocated")
+    err_i = runs["(i) float64, plain"][0]
+    err_ii = runs["(ii) float32, plain"][0]
+    err_iii = runs["(iii) float32, kernel"][0]
+    checks["(a) float64 autograd within 1e-6 of the analytic chain"] = (
+        err_i <= ANALYTIC_F64_RTOL)
+    checks["(a) kernel autograd within max(1e-3, 2 x the plain float32's)"] = (
+        err_iii <= max(GRAD_RTOL, 2.0 * err_ii))
+    checks["(a) the Gram kernel launched in (iii)"] = kernel_launches > 0
+    del es, V_b, m_b, runs
+
+    # the final state of phase 4's fit, in float64
+    fp_fit = {k: v.to(f64) for k, v in res.f_params.items()}
+    a, m_fit, V_fit = res.a.to(f64), res.m_b.to(f64), res.V_b.to(f64)
+    lam_m, lam_var = lambda_moments(a, res.K_b.to(f64), res.Kvec.to(f64),
+                                    m_fit, V_fit)
+
+    # (b) the legacy f-param Newton update from F_PARAMS0
+    decisions.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, ell, f_new = update_f_params_newton(fp64, r64, lam_m, lam_var)
+    torch.cuda.synchronize()
+    newton_ms = (time.perf_counter() - t0) * 1e3
+    stops = decisions["fparams_newton.stop"]
+    iters = stops + decisions["fparams_newton.step"]
+    g = ell_grad_f_params(r64, f_new, lam_m, lam_var, out)
+    g = {k: float(v) for k, v in g.items()}
+    f_fit = mean_f_given_lambda_moments(fp_fit, lam_m, lam_var)
+    ell_fit = float(poisson_ell(r64, f_fit, lam_m, fp_fit))
+    ell = float(ell)
+    print(f"(b) update_f_params_newton from {F_PARAMS0}: {iters} iterations, "
+          f"{'met tol 1e-6' if stops else 'stopped at nit 1000'}; "
+          f"{newton_ms:.1f} ms with {iters} host reads  [{smi}]")
+    print(f"  result { {k: float(v) for k, v in out.items()} }, "
+          f"ell_grad_f_params {g}; ELL {ell:.6f} against {ell_fit:.6f} at "
+          f"phase 4's final f-params "
+          f"{ {k: float(v) for k, v in fp_fit.items()} }")
+    checks["(b) each ELL gradient component below 1e-3"] = all(
+        abs(v) < FPARAM_GRAD_ATOL for v in g.values())
+    checks["(b) the Newton update's ELL is no lower than the fit's"] = (
+        ell >= ell_fit - 1e-12 * abs(ell_fit))
+
+    # (c) at alpha 1 the damped form and the explicit inverse are the
+    # Newton E-step, on the kept coordinates
+    k = res.keep
+    kd = res.k_tilde_b_diag.to(f64)
+    m_ref, V_ref = estep_update(r64, a, m_fit, f_fit, kd, fp_fit)
+    m_ref, V_ref = m_ref[k], V_ref[k][:, k]
+    m_d, V_d = estep_update_damped(r64, a[:, k], m_fit[k], V_fit[k][:, k],
+                                   f_fit, kd[k], fp_fit, alpha=1.0)
+    m_i, V_i = estep_update_V_inv(r64, a[:, k], m_fit[k], f_fit,
+                                  res.k_tilde_inv_diag.to(f64)[k], fp_fit)
+    err_d = max(_rel_norm(torch, m_d, m_ref), _rel_norm(torch, V_d, V_ref))
+    err_v = max(_rel_norm(torch, m_i, m_ref), _rel_norm(torch, V_i, V_ref))
+    print(f"(c) alpha 1 on phase 4's final state ({int(k.sum())} kept "
+          f"coordinates) against estep_update, ||d|| / ||estep_update||: "
+          f"estep_update_damped {err_d:.3e}, estep_update_V_inv {err_v:.3e}")
+    checks["(c) the damped form within 1e-8"] = err_d <= DAMPED_RTOL
+    checks["(c) the explicit inverse within 1e-6"] = err_v <= V_INV_RTOL
+    for what, ok in checks.items():
+        if not ok:
+            raise RuntimeError(f"phase 14 check failed: {what}")
+
+
 def main():
     if not (HERE / "gaussian_processes_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py: gaussian_processes_tpu_torch/ not "
@@ -2192,11 +2379,14 @@ def main():
     stamp("13")
     phase13_mesh(torch, np, device, smi, totals, x, r, xtilde, cfg, res,
                  fit_s)
+    # ---- 14. the functions no fit calls, at bench shape -------------------
+    stamp("14")
+    phase14_unfitted(torch, np, device, smi, totals, x, r, xtilde, cfg, res)
 
     stamp("end")
     shapes = totals.pop("shapes", {})
     print(f"launches over the main paths (phases 4, 6, 8, 9, 10, 11, 12, "
-          f"13): {totals}")
+          f"13, 14): {totals}")
     print("Gram launches on the main paths by (batch, m, n, k): "
           + ", ".join(f"{shape}: {c}" for shape, c in sorted(
               shapes.items(), key=lambda kv: -kv[1])))

@@ -89,6 +89,20 @@ def poisson_ell(r: torch.Tensor, f_mean: torch.Tensor, lambda_m: torch.Tensor,
     return ell if rows is None else rows.sum(ell)
 
 
+def ell_grad_f_params(r: torch.Tensor, f_mean: torch.Tensor,
+                      lambda_m: torch.Tensor, lambda_var: torch.Tensor,
+                      f_params: FParams) -> Dict[str, torch.Tensor]:
+    """Hand-derived ELL gradients with respect to (logA, lambda0)
+    (reference: utils.py:1248-1259), an oracle for autograd; no fit calls
+    it."""
+    A = torch.exp(f_params["logA"])
+    return {
+        "logA": A * (dot(r, lambda_m)
+                     - dot(lambda_m + A[..., None] * lambda_var, f_mean)),
+        "lambda0": torch.sum(r, dim=-1) - torch.sum(f_mean, dim=-1),
+    }
+
+
 def kl_divergence(m_b: torch.Tensor, V_b: torch.Tensor, es: Eigenspace,
                   K_tilde_b: Optional[torch.Tensor] = None,
                   K_tilde_inv_b: Optional[torch.Tensor] = None,

@@ -286,6 +286,26 @@ def acosker(theta: Theta, x1: torch.Tensor, x2: Optional[torch.Tensor] = None,
     return _acos_from_quads(theta, q11, q22, q12, symmetrize=same)
 
 
+def linker(theta: Theta, x1: torch.Tensor, x2: Optional[torch.Tensor] = None,
+           n_px_side: int = 108, diag: bool = False,
+           alpha_threshold: float = ALPHA_THRESHOLD) -> torch.Tensor:
+    """Linear kernel k(x1, x2) = x1^T C x2 through the localized + smooth
+    prior (the reference's vestigial ``linker``, utils.py:916-937, marked
+    "does not work" there): ``diag=True`` gives diag(x1^T C x1); x1 with
+    itself a symmetrized Gram with 1e-9 on the diagonal; else the cross
+    Gram.  Not used by any fit."""
+    if diag:
+        q11, _, _ = quad_forms(theta, x1, None, n_px_side, alpha_threshold)
+        return q11
+    same = x2 is None or x2 is x1
+    x2c = x1 if x2 is None else x2
+    _, _, q12 = quad_forms(theta, x1, x2c, n_px_side, alpha_threshold)
+    if same:
+        eye = torch.eye(q12.shape[0], dtype=q12.dtype, device=q12.device)
+        q12 = 0.5 * (q12 + q12.T) + 1e-9 * eye
+    return q12
+
+
 def gram_matrices(theta: Theta, x: torch.Tensor, xtilde: torch.Tensor,
                   n_px_side: int, shared: bool,
                   alpha_threshold: float = ALPHA_THRESHOLD,

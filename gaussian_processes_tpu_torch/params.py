@@ -112,6 +112,30 @@ def generate_xtilde(ntilde: int, x: torch.Tensor,
     return xt + eps * noise.to(x.device)
 
 
+def theta_from_samuele(logsigma_b, logrho_sam, eps_0x, eps_0y, logbeta_sam,
+                       Amp=1.0, dtype=torch.float32, device=None) -> Theta:
+    """Import hyperparameters in the NumPy-ancestor ("Samuele") encoding
+    (the workflow of the reference's import_initialized_theta.ipynb;
+    Spatial_GP_repo/hyperparameters_conversion.txt:40-85):
+
+        sigma_0    = exp(logsigma_b)
+        -2log2beta = logbeta_sam - log 2
+        -log2rho2  = logrho_sam - log 2
+
+    0-d tensors of ``dtype`` on ``device`` (torch's default when None), as
+    ``default_f_params`` makes them."""
+    values = {
+        "sigma_0": math.exp(float(logsigma_b)),
+        "eps_0x": float(eps_0x),
+        "eps_0y": float(eps_0y),
+        "-2log2beta": float(logbeta_sam) - math.log(2.0),
+        "-log2rho2": float(logrho_sam) - math.log(2.0),
+        "Amp": float(Amp),
+    }
+    return {k: torch.tensor(v, dtype=dtype, device=device)
+            for k, v in values.items()}
+
+
 def default_f_params(dtype=torch.float32, device=None) -> Dict[str, torch.Tensor]:
     """Firing-rate parameters {logA, lambda0}
     (reference: one_cell_fit.ipynb:cell6 -- A=0.01, lambda0=1)."""

@@ -27,7 +27,9 @@ The reference instruments varGP with ``time.time()`` accumulators per phase
   ``.exact`` per M-step inverse under ``schulz_fallback="exact"``,
   ``mstep.series`` / ``.chol`` per series log-determinant, and
   ``mstep.projected`` / ``.exact_gram`` per projected Gram under
-  ``mstep_proj_fallback="exact"`` (items).  Callers reset it with
+  ``mstep_proj_fallback="exact"`` (items); and the legacy f-param
+  Newton update's stop test, ``fparams_newton.stop`` / ``.step`` per
+  iteration (``models/estep.update_f_params_newton``).  Callers reset it with
   ``decisions.clear()``.
 """
 

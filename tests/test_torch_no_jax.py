@@ -29,6 +29,7 @@ def test_every_module_is_listed():
     names = _modules()
     for expected in ("config", "params", "data", "convert", "ops.kernels",
                      "ops.gram_cuda", "ops.stabilize", "ops.lambertw",
+                     "ops.analytic_grads",
                      "models.moments", "models.estep", "models.fit",
                      "models.inference", "models.acquisition",
                      "models.active", "optim.lbfgs", "parallel",
