@@ -101,7 +101,8 @@ Phases (none catches its own failure; any failure exits non-zero):
    (1e-5) for K_tilde and K* on entry()'s operands.  Then the kernel
    against its plain version (as in phase 2) at every 2-D shape that
    (a)-(d) launched and phases 2 and 5 had not held.  (e) The large path's
-   8192-row block (n 50,000, k 2304, ``out=``) alone against the plain
+   Grams alone (n 50,000, k 2304): its first 8192-row block and its last
+   848-row block (``out=``) and its K* 8 x 50,000, each against the plain
    version, with CUDA-event times of kernel, plain and the cuBLAS product.
    Each path's launches are counted from 0 and added to the kernel
    table's.
@@ -179,6 +180,21 @@ Phases (none catches its own failure; any failure exits non-zero):
    sliced to its kept coordinates, ``estep_update_damped(alpha=1)`` within
    1e-8 and ``estep_update_V_inv`` within 1e-6 of ``estep_update``,
    relative to the norm of the result.
+15. The port's bench (``gaussian_processes_tpu_torch/bench.py``, the
+   counterpart of bench.py) at full shape and depth, once: the kernel
+   against its plain version at the bench's five Gram operands (1e-5, and
+   each K_tilde diagonal); bench.py's data with the JAX package's inducing
+   rows, 30 EM iterations of 10/10/10 steps under the JAX bench's knobs,
+   timed on the host clock; the easy gate (final loss within 25 of
+   1604.0) with the easy r^2 beside it; the hard gate (synthetic_retina_hard
+   seed 0, STA init, r^2 >= 0.565), both r^2 with the JAX bootstrap's
+   permutations.  Prints the bench's JSON record, the launches by shape,
+   the objective evaluations and the ``fit.*`` spans; fails when a fit
+   fails or goes non-finite, the kernel check misses, the fit or the hard
+   fit launches the kernel zero times, or a gate fails.  Both fits'
+   launches are added to the kernel table's.  Then the kernel against its
+   plain version (as in phase 2) at every 2-D shape the bench launched
+   and no earlier phase held (the crop windows its fits move through).
 
 The last two lines of standard output are one JSON object with the kernel
 table and one with the device.
@@ -195,7 +211,8 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 
-# bench.py's shape and data (bench.py:56-65, 261-270, 399-404, 464-474)
+# bench.py's shape and init (bench.py:56-65, 399-404); its data comes from
+# the port's bench (make_data, make_test_data)
 NT, N_PX, NTILDE = 3160, 108, 2100
 THETA0 = {"sigma_0": 1.0, "eps_0x": 0.0001, "eps_0y": 0.0001,
           "-2log2beta": -2 * math.log(2 * 0.1),
@@ -275,20 +292,6 @@ DAMPED_RTOL, V_INV_RTOL = 1e-8, 1e-6
 TF32_FLOPS, HBM_BYTES = 495e12, 3.35e12
 
 
-def bench_data(np, seed=0):
-    rng = np.random.default_rng(seed)
-    X = rng.standard_normal((NT, N_PX * N_PX)).astype(np.float32)
-    lin = np.linspace(-1, 1, N_PX)
-    yy, xx = np.meshgrid(lin, lin, indexing="ij")
-    w = np.exp(-((xx - 0.1) ** 2 + (yy + 0.2) ** 2) / (2 * 0.1 ** 2)).ravel()
-    w = (w / np.linalg.norm(w)).astype(np.float32)
-    R = rng.poisson(np.exp(0.8 * X @ w)).astype(np.float32)
-    rng_t = np.random.default_rng(1)
-    Xt = rng_t.standard_normal((30, N_PX * N_PX)).astype(np.float32)
-    Rt = rng_t.poisson(np.exp(0.8 * Xt @ w)[None, :].repeat(30, 0))
-    return X, R, Xt, Rt.astype(np.float32)
-
-
 def cuda_ms(torch, fn, reps=20, warmup=3):
     """Median milliseconds of fn() by CUDA events."""
     for _ in range(warmup):
@@ -324,73 +327,11 @@ def split_bound(rows, k):
     return 4 * rows * k * 3 / HBM_BYTES * 1e3, "bytes"
 
 
-@contextlib.contextmanager
-def objective_counts(fit_module, ladders=None):
-    """Evaluations of the fit's two inner objectives (the E-step's f-param
-    L-BFGS and the M-step's) while the block runs: the host-bound work.
-    The batched ladder calls of the speculative and Armijo searches are
-    counted apart, with the trials they held ("*_ladder", "*_items"), and
-    so are the E-step's Newton steps.  Each M-step ladder's trial thetas
-    go to the list ``ladders`` when one is given."""
-    counts = {"fparam": 0, "mstep": 0, "fparam_ladder": 0, "fparam_items": 0,
-              "mstep_ladder": 0, "mstep_items": 0, "newton": 0}
-    names = ("_fparam_objective", "_mstep_objective",
-             "_mstep_objective_cells", "estep_update")
-    real = {name: getattr(fit_module, name) for name in names}
-
-    def fparam(logA, *args, **kwargs):
-        if logA.dim() > 0:              # a ladder: (T,) trials of logA
-            counts["fparam_ladder"] += 1
-            counts["fparam_items"] += logA.numel()
-        else:
-            counts["fparam"] += 1
-        return real["_fparam_objective"](logA, *args, **kwargs)
-
-    def mstep(*args, **kwargs):
-        counts["mstep"] += 1
-        return real["_mstep_objective"](*args, **kwargs)
-
-    def mstep_ladder(theta, *args, **kwargs):
-        counts["mstep_ladder"] += 1
-        counts["mstep_items"] += theta["Amp"].numel()
-        if ladders is not None:
-            ladders.append({k: v.detach().cpu() for k, v in theta.items()})
-        return real["_mstep_objective_cells"](theta, *args, **kwargs)
-
-    def newton(*args, **kwargs):
-        counts["newton"] += 1
-        return real["estep_update"](*args, **kwargs)
-
-    for name, fn in zip(names, (fparam, mstep, mstep_ladder, newton)):
-        setattr(fit_module, name, fn)
-    try:
-        yield counts
-    finally:
-        for name, fn in real.items():
-            setattr(fit_module, name, fn)
-
-
 def span_line(timer):
     """A PhaseTimer's totals on one line, largest first."""
     return ", ".join(f"{name} {sec:.3f} ({timer.counts[name]})"
                      for name, sec in sorted(timer.totals.items(),
                                              key=lambda kv: -kv[1]))
-
-
-def reset_counts(gram_cuda):
-    gram_cuda.launches = gram_cuda.batched_launches = 0
-    gram_cuda.items = gram_cuda.split_launches = 0
-    gram_cuda.shape_launches.clear()
-
-
-def read_counts(gram_cuda):
-    """Launches of the 2-D Gram, of the batched Gram, the Grams (items) the
-    batched launches computed, launches of the split pass, and the Gram's
-    launches by (batch, m, n, k)."""
-    return {"gram": gram_cuda.launches - gram_cuda.batched_launches,
-            "batched": gram_cuda.batched_launches, "items": gram_cuda.items,
-            "split": gram_cuda.split_launches,
-            "shapes": dict(gram_cuda.shape_launches)}
 
 
 def add_counts(total, counts):
@@ -401,25 +342,6 @@ def add_counts(total, counts):
                 shapes[shape] = shapes.get(shape, 0) + c
         else:
             total[key] = total.get(key, 0) + v
-
-
-def recorded_operands(torch, gram_cuda, build):
-    """The (u1, s2, q11, q22, sigma0) of every Gram that ``build()`` hands
-    the kernel wrapper, in call order."""
-    calls = []
-    real = gram_cuda.acos_gram
-
-    def record(*args):
-        calls.append([a.detach() for a in args])
-        return real(*args)
-
-    gram_cuda.acos_gram = record
-    try:
-        with torch.no_grad():
-            build()
-    finally:
-        gram_cuda.acos_gram = real
-    return calls
 
 
 @contextlib.contextmanager
@@ -575,7 +497,7 @@ def phase7_batched(torch, np, device, smi, x, xtilde):
     theta = {key: torch.tensor(v + steps * dirs[:, i], dtype=torch.float32,
                                device=device)
              for i, (key, v) in enumerate(POP_THETA.items())}
-    calls = recorded_operands(torch, gram_cuda, lambda: gram_matrices(
+    calls = gram_cuda.recorded_operands(lambda: gram_matrices(
         theta, x, xtilde, N_PX, shared=False))
     print(f"batched kernel: {batch} (cell, trial) items in one chunk "
           f"(ladder_items on this card)")
@@ -645,9 +567,9 @@ def phase8_population(torch, np, device, smi, totals):
                 (torch.cuda.max_memory_allocated(device) - base) / 2 ** 30)
 
     chunk = P.ladder_items(NT, POP_NTILDE, N_PX * N_PX, device)
-    reset_counts(gram_cuda)
+    gram_cuda.reset_counts()
     carry, pop_s, pop_gib = population(r, cfg)
-    counts = read_counts(gram_cuda)
+    counts = gram_cuda.read_counts()
     add_counts(totals, counts)
     lm = carry.track.logmarginal.double().cpu().numpy()
     print(f"fit_population (kernel): {pop_s:.3f} s, {pop_s / POP_CELLS:.3f} "
@@ -700,13 +622,13 @@ def phase8_population(torch, np, device, smi, totals):
 
     # sequential, the zoom search
     torch.cuda.synchronize()
-    reset_counts(gram_cuda)
+    gram_cuda.reset_counts()
     t0 = time.perf_counter()
     seq = P.fit_cells_sequential(x, r[:POP_SEQ_CELLS], cfg, xtilde=xtilde,
                                  thetas=POP_THETA, f_params=F_PARAMS0)
     torch.cuda.synchronize()
     seq_s = time.perf_counter() - t0
-    counts = read_counts(gram_cuda)
+    counts = gram_cuda.read_counts()
     add_counts(totals, counts)
     seq_final = [float(res.track.logmarginal[-1]) for res in seq]
     print(f"fit_cells_sequential ({POP_SEQ_CELLS} cells, zoom): {seq_s:.3f} "
@@ -723,9 +645,9 @@ def phase8_population(torch, np, device, smi, totals):
 
     # the lab's 41-cell recording in one population
     rec_cfg = dataclasses.replace(cfg, maxiter=POP_RECORDING_ITERS)
-    reset_counts(gram_cuda)
+    gram_cuda.reset_counts()
     rec, rec_s, rec_gib = population(r_all, rec_cfg)
-    add_counts(totals, read_counts(gram_cuda))
+    add_counts(totals, gram_cuda.read_counts())
     lm_r = rec.track.logmarginal.double().cpu().numpy()
     print(f"fit_population, the {POP_RECORDING_CELLS}-cell recording, "
           f"{POP_RECORDING_ITERS} EM iterations: {rec_s:.3f} s, "
@@ -809,7 +731,7 @@ def phase8_population(torch, np, device, smi, totals):
 
 def phase9_large(torch, np, device, smi, totals):
     """The large-ntilde path (see the module docstring); adds its launches
-    to ``totals``."""
+    to ``totals`` and returns its Grams' operands for phase 10(e)."""
     from gaussian_processes_tpu_torch.ops import gram_cuda
     from gaussian_processes_tpu_torch.parallel import large as L
 
@@ -846,10 +768,10 @@ def phase9_large(torch, np, device, smi, totals):
     # twice: the first (cold) run also pays the 10 GB allocation and the
     # solver's set-up
     for run in ("cold", "warm"):
-        reset_counts(gram_cuda)
+        gram_cuda.reset_counts()
         K, gram_s = timed(lambda: L.large_gram(theta, xt, LARGE_PX,
                                                nb=LARGE_NB), diag_sample)
-        counts = read_counts(gram_cuda)
+        counts = gram_cuda.read_counts()
         print(f"large_gram n={n} ({LARGE_PX}x{LARGE_PX} px, k {k}), row "
               f"blocks of {LARGE_NB}, {run}: {gram_s:.3f} s, "
               f"{counts['gram']} Gram launches  [{smi}]")
@@ -887,13 +809,13 @@ def phase9_large(torch, np, device, smi, totals):
     xstar = torch.as_tensor(np.random.default_rng(2).standard_normal(
         (8, k)).astype(np.float32), device=device)
     torch.cuda.synchronize()
-    reset_counts(gram_cuda)
+    gram_cuda.reset_counts()
     t0 = time.perf_counter()
     mu, alpha = L.large_posterior_mean(theta, xt, y, xstar, LARGE_PX,
                                        noise_var=LARGE_JITTER)
     torch.cuda.synchronize()
     post_s = time.perf_counter() - t0
-    counts = read_counts(gram_cuda)
+    counts = gram_cuda.read_counts()
     add_counts(totals, counts)
     # (K + I) alpha - y and ||K + I||_F, by row blocks, in float64
     a64, y64 = alpha.double(), y.double()
@@ -921,8 +843,14 @@ def phase9_large(torch, np, device, smi, totals):
     if not ok:
         raise RuntimeError("the large path's posterior mean failed its "
                            "checks")
-    # the first row block's operands, for phase 10's timing of it alone
-    return ut_amp[:LARGE_NB], st, qd[:LARGE_NB], qd, s0
+    # the operands of the first and the last row block and of K*, for
+    # phase 10's timing of each alone: (name, operands, written by out=)
+    last = (n - 1) // LARGE_NB * LARGE_NB
+    us_amp, _, qs = L._gram_prep(theta, xstar, LARGE_PX)
+    return [("row block", (ut_amp[:LARGE_NB], st, qd[:LARGE_NB], qd, s0),
+             True),
+            ("last row block", (ut_amp[last:], st, qd[last:], qd, s0), True),
+            ("K*", (us_amp, st, qs, qd, s0), False)]
 
 
 def phase10_entry_points(torch, np, device, smi, totals, x, r, xtilde, Xt,
@@ -932,25 +860,26 @@ def phase10_entry_points(torch, np, device, smi, totals, x, r, xtilde, Xt,
     beside phase 4's full-rank fit ``res_full`` (same data, shape and
     steps; ``stats_full`` its objective evaluations and spans),
     state_at_iteration,
-    the CLI's fit and its checkpoint, entry(), and the large path's row
-    block alone.  Adds each path's launches to ``totals``, and holds the
-    kernel against its plain version (``check_kernel``) at every 2-D shape
-    these paths launched that phases 2 and 5 did not (``checked``); returns
-    the row block's max |dK| for the kernel table and (a)'s fit, seconds,
-    spans and config for phase 12."""
+    the CLI's fit and its checkpoint, entry(), and the large path's Grams
+    alone (``block_ops``, from phase 9).  Adds each path's launches to
+    ``totals``, and holds the kernel against its plain version
+    (``check_kernel``) at every 2-D shape these paths launched that phases
+    2 and 5 did not (``checked``); returns the large Grams' max |dK| for
+    the kernel table and (a)'s fit, seconds, spans and config for phase
+    12."""
     import shutil
     import tempfile
 
     from gaussian_processes_tpu_torch import entry as entry_module
     from gaussian_processes_tpu_torch.examples import one_cell_fit
-    from gaussian_processes_tpu_torch.models import fit as fit_module
     from gaussian_processes_tpu_torch.models.fit import fit
     from gaussian_processes_tpu_torch.models.inference import (
         evaluate, predict, predict_rates, state_at_iteration)
     from gaussian_processes_tpu_torch.ops import gram_cuda
     from gaussian_processes_tpu_torch.ops.kernels import gram_matrices
     from gaussian_processes_tpu_torch.utils.io import load_model
-    from gaussian_processes_tpu_torch.utils.tracing import collect_spans
+    from gaussian_processes_tpu_torch.utils.tracing import (
+        collect_spans, objective_counts)
 
     checks = {}
     xt = torch.as_tensor(Xt, device=device)
@@ -963,13 +892,13 @@ def phase10_entry_points(torch, np, device, smi, totals, x, r, xtilde, Xt,
         counts of that run alone (added to ``totals``); the operands of
         each new Gram shape it launches go to ``seen``."""
         torch.cuda.synchronize()
-        reset_counts(gram_cuda)
+        gram_cuda.reset_counts()
         t0 = time.perf_counter()
         with operands_by_shape(gram_cuda, seen, path):
             out = fn()
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        counts = read_counts(gram_cuda)
+        counts = gram_cuda.read_counts()
         add_counts(totals, counts)
         return out, sec, counts
 
@@ -982,7 +911,7 @@ def phase10_entry_points(torch, np, device, smi, totals, x, r, xtilde, Xt,
                    f_params=F_PARAMS0, profile=True)
 
     evals_full, spans_full = stats_full
-    with objective_counts(fit_module) as evals, collect_spans() as spans:
+    with objective_counts() as evals, collect_spans() as spans:
         res, red_s, counts = counted(reduced_fit, "reduced fit")
     loss = res.track.logmarginal.double().cpu().numpy()
     loss_full = res_full.track.logmarginal.double().cpu().numpy()
@@ -1018,7 +947,7 @@ def phase10_entry_points(torch, np, device, smi, totals, x, r, xtilde, Xt,
     turns = []
     for name, c in (("full", cfg), ("reduced", cfg_r), ("reduced", cfg_r),
                     ("full", cfg)):
-        with objective_counts(fit_module) as ev:
+        with objective_counts() as ev:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fit(x, r, c, xtilde=xtilde, theta=THETA0, f_params=F_PARAMS0)
@@ -1171,33 +1100,36 @@ def phase10_entry_points(torch, np, device, smi, totals, x, r, xtilde, Xt,
         check_kernel(f"{kind} ({path})", ops)
     seen.clear()
 
-    # (e) the large path's row block alone
-    m, n, k = block_ops[0].shape[0], block_ops[1].shape[0], block_ops[0].shape[1]
-    buf = torch.empty((m, n), device=device)
-    with torch.no_grad():
-        gram_cuda.acos_gram(*block_ops, out=buf)
-        ref = gram_cuda.acos_gram_torch(*block_ops)
-        blk_abs = float(torch.max(torch.abs(buf - ref)))
-        blk_rel = blk_abs / float(torch.max(torch.abs(ref)))
-        del ref
-        blk_ms = cuda_ms(torch, lambda: gram_cuda.acos_gram(*block_ops,
-                                                            out=buf), reps=10)
-        blk_plain = cuda_ms(torch, lambda: gram_cuda.acos_gram_torch(
-            *block_ops), reps=10)
-        blk_lib = cuda_ms(torch, lambda: torch.matmul(block_ops[0],
-                                                      block_ops[1].T),
-                          reps=10)
-    del buf
-    blk_bound, blk_by = gram_bound(1, m, n, k)
-    plan = gram_cuda.plan_gram(m, n, k, torch.cuda.get_device_properties(
-        device).multi_processor_count)
-    print(f"large row block {m}x{n} k={k} (out=): max rel {blk_rel:.3e}, "
-          f"kernel {blk_ms:.3f} ms, plain {blk_plain:.3f} ms, cuBLAS FP32 "
-          f"product alone {blk_lib:.3f} ms, bound {blk_bound:.3f} ms "
-          f"({blk_by})  [{smi}]")
-    print(f"  plan: {plan}")
-    checks[f"row block within {KERNEL_RTOL} of plain"] = (
-        blk_rel <= KERNEL_RTOL)
+    # (e) the large path's Grams alone: its first and last row blocks and
+    # its K*, each called as the path calls it
+    blk_abs = 0.0
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for name, ops, use_out in block_ops:
+        m, n, k = ops[0].shape[0], ops[1].shape[0], ops[0].shape[1]
+        buf = torch.empty((m, n), device=device) if use_out else None
+        with torch.no_grad():
+            got = gram_cuda.acos_gram(*ops, out=buf)
+            ref = gram_cuda.acos_gram_torch(*ops)
+            abs_err = float(torch.max(torch.abs(got - ref)))
+            rel = abs_err / float(torch.max(torch.abs(ref)))
+            del ref, got
+            blk_ms = cuda_ms(torch, lambda: gram_cuda.acos_gram(*ops,
+                                                                out=buf),
+                             reps=10)
+            blk_plain = cuda_ms(torch, lambda: gram_cuda.acos_gram_torch(
+                *ops), reps=10)
+            blk_lib = cuda_ms(torch, lambda: torch.matmul(ops[0], ops[1].T),
+                              reps=10)
+        del buf
+        blk_abs = max(blk_abs, abs_err)
+        blk_bound, blk_by = gram_bound(1, m, n, k)
+        print(f"large {name} {m}x{n} k={k}{' (out=)' if use_out else ''}: "
+              f"max rel {rel:.3e}, kernel {blk_ms:.3f} ms, plain "
+              f"{blk_plain:.3f} ms, cuBLAS FP32 product alone {blk_lib:.3f} "
+              f"ms, bound {blk_bound:.3f} ms ({blk_by})  [{smi}]")
+        print(f"  plan: {gram_cuda.plan_gram(m, n, k, sms)}")
+        checks[f"large {name} within {KERNEL_RTOL} of plain"] = (
+            rel <= KERNEL_RTOL)
     for what, ok in checks.items():
         if not ok:
             raise RuntimeError(f"entry-point check failed: {what}")
@@ -1234,6 +1166,7 @@ def phase11_linesearches(torch, np, device, smi, totals, x, r, xtilde, cfg,
     from gaussian_processes_tpu_torch.ops import gram_cuda
     from gaussian_processes_tpu_torch.ops.kernels import crop_window_for_theta
     from gaussian_processes_tpu_torch.params import theta_bounds
+    from gaussian_processes_tpu_torch.utils.tracing import objective_counts
 
     loss_full = res_full.track.logmarginal.double().cpu().numpy()
     print(f"phase 4's fit (zoom): objective evaluations {evals_full}, final "
@@ -1241,17 +1174,17 @@ def phase11_linesearches(torch, np, device, smi, totals, x, r, xtilde, cfg,
     checks, ladder_ops, ladder_thetas = {}, [], []
     for arm, (what, knobs) in LS_FITS.items():
         c = dataclasses.replace(cfg, **knobs)
-        with objective_counts(fit_module, ladder_thetas if arm == "a"
+        with objective_counts(ladder_thetas if arm == "a"
                               else None) as ev, first_batched_operands(
                 gram_cuda, ladder_ops if arm == "a" else []):
             torch.cuda.synchronize()
-            reset_counts(gram_cuda)
+            gram_cuda.reset_counts()
             t0 = time.perf_counter()
             res = fit(x, r, c, xtilde=xtilde, theta=THETA0,
                       f_params=F_PARAMS0)
             torch.cuda.synchronize()
             sec = time.perf_counter() - t0
-        counts = read_counts(gram_cuda)
+        counts = gram_cuda.read_counts()
         add_counts(totals, counts)
         loss = res.track.logmarginal.double().cpu().numpy()
         print(f"({arm}) {what}: {sec:.3f} s; objective evaluations {ev}; "
@@ -1380,7 +1313,7 @@ def phase12_warm_solvers(torch, np, device, smi, totals, x, r, xtilde,
         to ``totals``) and the solvers' host decisions; the first operands
         of each 2-D Gram shape go to ``seen``."""
         torch.cuda.synchronize()
-        reset_counts(gram_cuda)
+        gram_cuda.reset_counts()
         decisions.clear()
         t0 = time.perf_counter()
         with collect_spans() as spans, operands_by_shape(
@@ -1389,7 +1322,7 @@ def phase12_warm_solvers(torch, np, device, smi, totals, x, r, xtilde,
                       f_params=F_PARAMS0, profile=True, backend=backend)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        counts = read_counts(gram_cuda)
+        counts = gram_cuda.read_counts()
         add_counts(totals, counts)
         return res, sec, spans, counts, dict(decisions)
 
@@ -1479,7 +1412,7 @@ def phase12_warm_solvers(torch, np, device, smi, totals, x, r, xtilde,
     xtc = crop_images(xtilde, i0, j0, w, N_PX)
     E = smooth_projection_basis(th0, w, N_PX, PINNED_PROJ_RANK,
                                 dtype=torch.float64)
-    pinned = recorded_operands(torch, gram_cuda, lambda: (
+    pinned = gram_cuda.recorded_operands(lambda: (
         gram_matrices_projected(th0, xc, xtc, E, i0, j0, N_PX, False)))
     del xc, xtc
     for R, ops_pair in (
@@ -1539,11 +1472,11 @@ def phase12_warm_solvers(torch, np, device, smi, totals, x, r, xtilde,
     x_cap[:N_START] = x[:N_START]
     x512 = xtilde[:POP_NTILDE]
     shapes = [
-        ("K_tilde cap", recorded_operands(torch, gram_cuda, lambda: (
+        ("K_tilde cap", gram_cuda.recorded_operands(lambda: (
             gram_matrices(theta, x_cap, x_cap, N_PX, shared=True)))[:1]),
-        ("512", recorded_operands(torch, gram_cuda, lambda: (
+        ("512", gram_cuda.recorded_operands(lambda: (
             gram_matrices_windowed(theta, x, x512, N_PX, False, *crop)))),
-        ("512", recorded_operands(torch, gram_cuda, lambda: gram_matrices(
+        ("512", gram_cuda.recorded_operands(lambda: gram_matrices(
             theta, x, x512, N_PX, shared=False))),
     ]
     for what, calls in shapes:
@@ -1619,11 +1552,11 @@ def phase13_mesh(torch, np, device, smi, totals, x, r, xtilde, cfg, res,
         # (b) sharded_gram at bench.py's shape on the full grid
         theta = {k: torch.tensor(v, dtype=x.dtype, device=device)
                  for k, v in THETA0.items()}
-        reset_counts(gram_cuda)
+        gram_cuda.reset_counts()
         with torch.no_grad():
             grams = sharded_gram(THETA0, x, xtilde, N_PX, mesh)
             sync()
-            counts = read_counts(gram_cuda)
+            counts = gram_cuda.read_counts()
             add_counts(totals, counts)
             plain = gram_matrices(theta, x, xtilde, N_PX, shared=False,
                                   backend="torch")
@@ -1642,7 +1575,7 @@ def phase13_mesh(torch, np, device, smi, totals, x, r, xtilde, cfg, res,
         # (c) phase 4's fit with its rows over the mesh's "data" axis
         C.calls.clear()
         sync()
-        reset_counts(gram_cuda)
+        gram_cuda.reset_counts()
         t0 = time.perf_counter()
         with collect_spans() as spans, collectives_by_iteration(
                 F, C) as per_iteration:
@@ -1650,7 +1583,7 @@ def phase13_mesh(torch, np, device, smi, totals, x, r, xtilde, cfg, res,
                           f_params=F_PARAMS0, profile=True, mesh=mesh)
         sync()
         mesh_s = time.perf_counter() - t0
-        counts = read_counts(gram_cuda)
+        counts = gram_cuda.read_counts()
         add_counts(totals, counts)
         loss = res.track.logmarginal.double().cpu().numpy()
         loss_m = res_m.track.logmarginal.double().cpu().numpy()
@@ -1709,12 +1642,12 @@ def phase13_mesh(torch, np, device, smi, totals, x, r, xtilde, cfg, res,
                          **dict(POP_STEPS, maxiter=3))
         kw = dict(xtilde=xtp, thetas=POP_THETA, f_params=F_PARAMS0)
         sync()
-        reset_counts(gram_cuda)
+        gram_cuda.reset_counts()
         t0 = time.perf_counter()
         carry_m, _ = fit_population(xp, rp, pcfg, mesh=mesh, **kw)
         sync()
         pop_s = time.perf_counter() - t0
-        counts = read_counts(gram_cuda)
+        counts = gram_cuda.read_counts()
         add_counts(totals, counts)
         t0 = time.perf_counter()
         carry_n, _ = fit_population(xp, rp, pcfg, **kw)
@@ -1849,7 +1782,7 @@ def phase14_unfitted(torch, np, device, smi, totals, x, r, xtilde, cfg, res):
     lower, upper = theta_bounds()
     crop = crop_window_for_theta(th64, N_PX, cfg.alpha_threshold,
                                  cfg.crop_margin, cfg.crop_bucket)
-    reset_counts(gram_cuda)
+    gram_cuda.reset_counts()
 
     def autograd_grad(dtype, backend):
         xs, xts, rs = x.to(dtype), xtilde.to(dtype), r.to(dtype)
@@ -1876,7 +1809,7 @@ def phase14_unfitted(torch, np, device, smi, totals, x, r, xtilde, cfg, res):
     runs["(iii) float32, kernel"] = autograd_grad(torch.float32, None)
     torch.cuda.synchronize()
     auto_s = time.perf_counter() - t0
-    counts = read_counts(gram_cuda)
+    counts = gram_cuda.read_counts()
     kernel_launches = gram_cuda.launches - launched
     add_counts(totals, counts)
     print(f"(a) M-step gradient at THETA0 ({int(keep.sum())} of {NTILDE} "
@@ -1954,6 +1887,81 @@ def phase14_unfitted(torch, np, device, smi, totals, x, r, xtilde, cfg, res):
             raise RuntimeError(f"phase 14 check failed: {what}")
 
 
+def _shape_key(text):
+    """(batch, m, n, k) from the bench's "BxMxN kK" launch keys."""
+    dims, k = text.split(" k")
+    return tuple(int(v) for v in dims.split("x")) + (int(k),)
+
+
+def phase15_bench(torch, np, device, smi, totals, check_kernel, checked,
+                  **shape):
+    """bench.py's headline through the port's bench at full shape and
+    depth, once (the process is warm), with both quality gates (see the
+    module docstring).  ``shape`` overrides ``run_bench``'s (a rehearsal on
+    the CPU).  Adds the timed fit's and the gates' launches to ``totals``
+    and holds the kernel against its plain version (``check_kernel``) at
+    every 2-D shape the bench launched that no earlier phase held
+    (``checked``)."""
+    from gaussian_processes_tpu_torch import bench
+    from gaussian_processes_tpu_torch.ops import gram_cuda
+
+    t0 = time.perf_counter()
+    seen = {}
+    with operands_by_shape(gram_cuda, seen, "bench"):
+        rec, ok = bench.run_bench(repeats=1, warmup=False, device=device,
+                                  **shape)
+    print(json.dumps(rec))
+    q, prof = rec["quality"], rec["profile"]
+    print(f"bench fit: {rec['value']} s against {bench.BASELINE_SECONDS} s; "
+          f"final loss {q['easy_final_loss']} (golden "
+          f"{bench.GOLDEN['easy_ungated_loss']} + "
+          f"{bench.GOLDEN['easy_loss_budget']}); easy r2 "
+          f"{q.get('easy_r2_saturated')}; hard r2 {q.get('hard_r2')} +/- "
+          f"{q.get('hard_r2_sigma')} (min {bench.GOLDEN['hard_r2_min']}, "
+          f"rung {q.get('hard_config')}), hard fit {q.get('hard_fit_s')} s"
+          f"  [{smi}]")
+    print(f"  kernel check (max rel err): {q.get('kernel_max_rel_err')}")
+    print(f"  objective evaluations {prof['evaluations']}; kept rank per "
+          f"iteration {prof['kept_rank']}")
+    print("  fit spans (host s, calls): " + ", ".join(
+        f"{k} {v[0]:.3f} ({v[1]})" for k, v in prof["spans_s"].items()))
+    print(f"  Gram launches, the 30-iteration fit: {prof['launches']}; by "
+          f"shape {prof['launches_by_shape']}; the gates' (both r2 "
+          f"evaluations and the hard fit): {prof['gate_launches']}")
+    for counts in (dict(prof["launches"], shapes=prof["launches_by_shape"]),
+                   prof["gate_launches"]):
+        add_counts(totals, dict(counts, shapes={
+            _shape_key(k): c for k, c in counts["shapes"].items()}))
+    errors = q.get("kernel_max_rel_err", {})
+    checks = {
+        "kernel within 1e-5 of its plain version at the bench's operands":
+            len(errors) == 7 and max(errors.values()) <= KERNEL_RTOL,
+        "the fit launched the kernel": prof["launches"]["gram"] > 0,
+        "the hard fit launched the kernel":
+            prof["gate_launches"]["gram"] > 0,
+        "the fit neither failed nor went non-finite":
+            math.isfinite(rec["value"]),
+        "the easy gate passed": q["easy_gate_ok"],
+        "the hard gate passed": q.get("hard_gate_ok", False),
+    }
+    new = sorted(shape for shape in seen if shape not in checked)
+    print(f"the bench launched the 2-D Gram at {len(seen)} shapes, "
+          f"{len(new)} of them new: {new}")
+    for key in new:
+        _, ops = seen.pop(key)
+        kind = ("K_tilde" if key[0] == key[1]
+                and torch.equal(ops[2], ops[3]) else "K")
+        check_kernel(f"{kind} (bench)", ops)
+    seen.clear()
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    for what, passed in checks.items():
+        if not passed:
+            raise RuntimeError(f"phase 15 check failed: {what} "
+                               f"({rec.get('note')})")
+    if not ok:
+        raise RuntimeError(f"phase 15: {rec.get('note')}")
+
+
 def main():
     if not (HERE / "gaussian_processes_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py: gaussian_processes_tpu_torch/ not "
@@ -1964,19 +1972,20 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device")
 
+    from gaussian_processes_tpu_torch import bench
     from gaussian_processes_tpu_torch.config import FitConfig, use_full_fp32
     from gaussian_processes_tpu_torch.models.acquisition import (
         score_candidates)
     from gaussian_processes_tpu_torch.models.active import (
         active_loop, active_loop_pipelined)
-    from gaussian_processes_tpu_torch.models import fit as fit_module
     from gaussian_processes_tpu_torch.models.fit import fit
     from gaussian_processes_tpu_torch.models.inference import evaluate
     from gaussian_processes_tpu_torch.ops import gram_cuda
     from gaussian_processes_tpu_torch.ops.kernels import (
         crop_window_for_theta, crop_window_from_scalars, gram_matrices,
         gram_matrices_windowed)
-    from gaussian_processes_tpu_torch.utils.tracing import collect_spans
+    from gaussian_processes_tpu_torch.utils.tracing import (
+        collect_spans, objective_counts)
 
     # ---- 1. set-up -------------------------------------------------------
     t_start = time.perf_counter()
@@ -1999,7 +2008,8 @@ def main():
         if any(key in line for key in PTXAS_KEYS):
             print("  ptxas:", line.strip())
 
-    X, R, Xt, Rt = bench_data(np)
+    X, R = bench.make_data()
+    Xt, Rt = bench.make_test_data()
     x = torch.as_tensor(X, device=device)
     r = torch.as_tensor(R, device=device)
     idx = np.random.default_rng(0).permutation(NT)[:NTILDE]
@@ -2020,10 +2030,10 @@ def main():
         makes (inference.py:37) at the start theta ("predict"; its K_tilde
         is the full grid's)."""
         if where == "crop":
-            calls = recorded_operands(torch, gram_cuda, lambda: gram_matrices_windowed(
+            calls = gram_cuda.recorded_operands(lambda: gram_matrices_windowed(
                 theta, x, xtilde, N_PX, False, *crop))
         else:
-            calls = recorded_operands(torch, gram_cuda, lambda: gram_matrices(
+            calls = gram_cuda.recorded_operands(lambda: gram_matrices(
                 theta, xt_test if where == "predict" else x, xtilde, N_PX,
                 shared=False))
         if where == "predict":
@@ -2157,9 +2167,9 @@ def main():
                     n_fparamstep=10, n_px_side=N_PX, track_variational=False)
     totals = {}
     torch.cuda.synchronize()
-    reset_counts(gram_cuda)
+    gram_cuda.reset_counts()
     t0 = time.perf_counter()
-    with objective_counts(fit_module) as evals_full, \
+    with objective_counts() as evals_full, \
             collect_spans() as spans_full:
         res = fit(x, r, cfg, xtilde=xtilde, theta=THETA0, f_params=F_PARAMS0,
                   profile=True)
@@ -2173,7 +2183,7 @@ def main():
     torch.cuda.synchronize()
     launches_main = gram_cuda.launches
     split_launches_main = gram_cuda.split_launches
-    add_counts(totals, read_counts(gram_cuda))
+    add_counts(totals, gram_cuda.read_counts())
 
     loss = res.track.logmarginal.double().cpu().numpy()
     print(f"fit init {res.timing['init']:.3f} s; per-iteration s "
@@ -2217,13 +2227,13 @@ def main():
     x_cap = torch.zeros((CAPACITY, N_PX * N_PX), device=device)
     x_cap[:N_START] = x[:N_START]
     loop_operands = [
-        ("K_tilde cap", recorded_operands(torch, gram_cuda, lambda: gram_matrices_windowed(
+        ("K_tilde cap", gram_cuda.recorded_operands(lambda: gram_matrices_windowed(
             theta, x_cap, x_cap, N_PX, True, *crop))[0]),
-        ("K* pool", recorded_operands(torch, gram_cuda, lambda: gram_matrices_windowed(
+        ("K* pool", gram_cuda.recorded_operands(lambda: gram_matrices_windowed(
             theta, x, x_cap, N_PX, False, *crop))[1]),
-        ("K* pool", recorded_operands(torch, gram_cuda, lambda: gram_matrices(
+        ("K* pool", gram_cuda.recorded_operands(lambda: gram_matrices(
             theta, x, x_cap, N_PX, shared=False))[1]),
-        ("K* test", recorded_operands(torch, gram_cuda, lambda: gram_matrices(
+        ("K* test", gram_cuda.recorded_operands(lambda: gram_matrices(
             theta, xt_test, x_cap, N_PX, shared=False))[1]),
     ]
     for name, ops in loop_operands:
@@ -2253,14 +2263,14 @@ def main():
     out, launches_loop, split_launches_loop = {}, {}, {}
     for arm, (loop, select, extra) in arms.items():
         torch.cuda.synchronize()
-        reset_counts(gram_cuda)
+        gram_cuda.reset_counts()
         t0 = time.perf_counter()
         o = loop(x, r, select=select, **loop_kw, **extra)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches_loop[arm] = gram_cuda.launches
         split_launches_loop[arm] = gram_cuda.split_launches
-        add_counts(totals, read_counts(gram_cuda))
+        add_counts(totals, gram_cuda.read_counts())
         out[arm] = o
         print(f"loop ({arm}) {loop.__name__}, {select}: {wall:.3f} s, "
               f"{wall / (N_ADD + 1):.3f} s per round over {N_ADD + 1} refits"
@@ -2382,11 +2392,14 @@ def main():
     # ---- 14. the functions no fit calls, at bench shape -------------------
     stamp("14")
     phase14_unfitted(torch, np, device, smi, totals, x, r, xtilde, cfg, res)
+    # ---- 15. the port's bench at full depth, and its gates ---------------
+    stamp("15")
+    phase15_bench(torch, np, device, smi, totals, check_kernel, checked)
 
     stamp("end")
     shapes = totals.pop("shapes", {})
     print(f"launches over the main paths (phases 4, 6, 8, 9, 10, 11, 12, "
-          f"13, 14): {totals}")
+          f"13, 14, 15): {totals}")
     print("Gram launches on the main paths by (batch, m, n, k): "
           + ", ".join(f"{shape}: {c}" for shape, c in sorted(
               shapes.items(), key=lambda kv: -kv[1])))

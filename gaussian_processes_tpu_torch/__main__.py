@@ -4,7 +4,9 @@
     active      closed-loop active training (+ --ab-control)
     population  all cells in one batched program (--mesh-cells,
                 --mesh-data: over a mesh of ranks, under torchrun)
-    bench       not ported yet: the port bench is ROADMAP.md item 12
+    bench       the headline benchmark: the single-cell fit at the
+                reference's shape, its two quality gates and the kernel
+                check, as one JSON line (--repeats)
 
 Every command takes ``--device`` (default: the CUDA card) and ``--help``.
 """
@@ -13,10 +15,11 @@ from __future__ import annotations
 
 import sys
 
+from . import bench
 from .examples import active_training, one_cell_fit, population_fit
 
 COMMANDS = {"fit": one_cell_fit, "active": active_training,
-            "population": population_fit}
+            "population": population_fit, "bench": bench}
 
 
 def main(argv=None) -> int:
@@ -25,14 +28,11 @@ def main(argv=None) -> int:
         print(__doc__)
         return 0
     cmd, rest = argv[0], argv[1:]
-    if cmd == "bench":
-        print("bench: the port has no bench yet (ROADMAP.md item 12); "
-              "chip_smoke.py drives its main paths on the GPU")
-        return 2
     if cmd not in COMMANDS:
-        print(f"unknown command {cmd!r}; choose from "
-              f"{sorted(COMMANDS) + ['bench']}")
+        print(f"unknown command {cmd!r}; choose from {sorted(COMMANDS)}")
         return 2
+    if cmd == "bench":
+        return bench.main(rest)
     COMMANDS[cmd].main(rest)
     return 0
 

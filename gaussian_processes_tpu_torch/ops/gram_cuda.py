@@ -34,7 +34,10 @@ with ``ctypes``.  ``launches`` counts launches of the Gram kernel (one per
 ``acos_gram`` call on the card, whatever helper kernels it runs),
 ``batched_launches`` those of them with a batch axis, ``items`` the Grams
 they computed (the batch sizes summed), ``shape_launches`` the launches by
-(batch, m, n, k), and ``split_launches`` launches of the split pass.
+(batch, m, n, k), and ``split_launches`` launches of the split pass;
+``reset_counts`` sets them to 0 and ``read_counts`` reads them.
+``recorded_operands`` keeps the operands of the Grams a block of code hands
+the wrapper, to hold the kernel against its plain version on them.
 """
 
 from __future__ import annotations
@@ -88,6 +91,42 @@ shape_launches = collections.Counter()
 build_seconds: Optional[float] = None
 build_log: str = ""
 _lib = None
+
+
+def reset_counts() -> None:
+    """Set every launch count to 0."""
+    global launches, batched_launches, items, split_launches
+    launches = batched_launches = items = split_launches = 0
+    shape_launches.clear()
+
+
+def read_counts() -> dict:
+    """Launches of the 2-D Gram, of the batched Gram, the Grams (items) the
+    batched launches computed, launches of the split pass, and the Gram's
+    launches by (batch, m, n, k)."""
+    return {"gram": launches - batched_launches,
+            "batched": batched_launches, "items": items,
+            "split": split_launches, "shapes": dict(shape_launches)}
+
+
+def recorded_operands(build) -> list:
+    """The (u1, s2, q11, q22, sigma0) of every Gram that ``build()`` hands
+    ``acos_gram``, in call order (``build`` runs without a gradient)."""
+    global acos_gram
+    calls = []
+    real = acos_gram
+
+    def record(*args, **kwargs):
+        calls.append([a.detach() for a in args])
+        return real(*args, **kwargs)
+
+    acos_gram = record
+    try:
+        with torch.no_grad():
+            build()
+    finally:
+        acos_gram = real
+    return calls
 
 
 def _nvcc() -> str:

@@ -19,6 +19,9 @@ The reference instruments varGP with ``time.time()`` accumulators per phase
   ``fit.mstep``, ``fit.finalize``);
 * ``collect_spans``: the same spans' host wall-clock into a
   ``PhaseTimer`` without a profiler, for the code run inside it;
+* ``objective_counts``: the evaluations of the fit's two inner objectives
+  (the E-step's f-param L-BFGS and the M-step's) and its Newton steps
+  while a block runs;
 * ``decisions``: the host decisions of the warm solvers and the projected
   Gram, counted where the host already reads their guard (no added
   synchronization): ``eigensolver.warm`` / ``.refresh`` / ``.fallback``
@@ -130,6 +133,55 @@ def collect_spans(timer: Optional[PhaseTimer] = None):
         yield timer
     finally:
         _span_timer.reset(token)
+
+
+@contextlib.contextmanager
+def objective_counts(ladders: Optional[list] = None):
+    """Evaluations of the fit's two inner objectives (the E-step's f-param
+    L-BFGS and the M-step's) while the block runs: the host-bound work.
+    The batched ladder calls of the speculative and Armijo searches are
+    counted apart, with the trials they held ("*_ladder", "*_items"), and
+    so are the E-step's Newton steps.  Each M-step ladder's trial thetas
+    go to the list ``ladders`` when one is given.  The counters wrap the
+    functions in ``models/fit`` for the block's duration."""
+    from ..models import fit as fit_module
+
+    counts = {"fparam": 0, "mstep": 0, "fparam_ladder": 0, "fparam_items": 0,
+              "mstep_ladder": 0, "mstep_items": 0, "newton": 0}
+    names = ("_fparam_objective", "_mstep_objective",
+             "_mstep_objective_cells", "estep_update")
+    real = {name: getattr(fit_module, name) for name in names}
+
+    def fparam(logA, *args, **kwargs):
+        if logA.dim() > 0:              # a ladder: (T,) trials of logA
+            counts["fparam_ladder"] += 1
+            counts["fparam_items"] += logA.numel()
+        else:
+            counts["fparam"] += 1
+        return real["_fparam_objective"](logA, *args, **kwargs)
+
+    def mstep(*args, **kwargs):
+        counts["mstep"] += 1
+        return real["_mstep_objective"](*args, **kwargs)
+
+    def mstep_ladder(theta, *args, **kwargs):
+        counts["mstep_ladder"] += 1
+        counts["mstep_items"] += theta["Amp"].numel()
+        if ladders is not None:
+            ladders.append({k: v.detach().cpu() for k, v in theta.items()})
+        return real["_mstep_objective_cells"](theta, *args, **kwargs)
+
+    def newton(*args, **kwargs):
+        counts["newton"] += 1
+        return real["estep_update"](*args, **kwargs)
+
+    for name, fn in zip(names, (fparam, mstep, mstep_ladder, newton)):
+        setattr(fit_module, name, fn)
+    try:
+        yield counts
+    finally:
+        for name, fn in real.items():
+            setattr(fit_module, name, fn)
 
 
 @dataclasses.dataclass

@@ -68,7 +68,8 @@ def test_cli_workflows_run_on_the_cpu(cmd, args, expect):
 
 @pytest.mark.parametrize("argv,rc,text", [
     (["--help"], 0, "population"), ([], 0, "fit"),
-    (["bench"], 2, "ROADMAP.md item 12"), (["train"], 2, "unknown command"),
+    (["bench", "--help"], 0, "one_cell_fit"),
+    (["train"], 2, "unknown command"),
 ])
 def test_cli_commands(argv, rc, text, capsys):
     assert cli.main(argv) == rc
@@ -83,10 +84,12 @@ def test_cli_subprocess_exit_codes():
     assert res.returncode == 0 and "--device" in res.stdout
 
 
-def test_cli_fit_defaults_to_the_card(monkeypatch):
+@pytest.mark.parametrize("argv", [["fit", *SMALL_FIT], ["bench"]],
+                         ids=["fit", "bench"])
+def test_cli_fit_defaults_to_the_card(monkeypatch, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        cli.main(["fit", *SMALL_FIT])
+        cli.main(argv)
 
 
 def test_examples_return_their_results(tmp_path):

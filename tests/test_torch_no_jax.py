@@ -1,7 +1,8 @@
-"""The port imports neither jax nor optax nor the JAX package: every module
-of gaussian_processes_tpu_torch is imported in a fresh interpreter, which
-must end with no jax, optax or gaussian_processes_tpu module loaded (and no
-matplotlib: the plotting module imports it inside its functions)."""
+"""The port imports neither jax nor optax nor the JAX package nor the JAX
+bench (the repository's bench.py): every module of
+gaussian_processes_tpu_torch is imported in a fresh interpreter, which must
+end with no jax, optax, gaussian_processes_tpu or bench module loaded (and
+no matplotlib: the plotting module imports it inside its functions)."""
 
 import json
 import os
@@ -40,7 +41,8 @@ def test_every_module_is_listed():
                      "utils.tracing", "utils.plotting", "examples",
                      "examples.one_cell_fit", "examples.active_training",
                      "examples.population_fit",
-                     "examples.large_scale_posterior", "__main__", "entry"):
+                     "examples.large_scale_posterior", "__main__", "entry",
+                     "bench"):
         assert f"gaussian_processes_tpu_torch.{expected}" in names
 
 
@@ -51,7 +53,7 @@ def test_port_imports_no_jax_or_optax():
         "    importlib.import_module(name)\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         "    if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'matplotlib',\n"
-        "                           'gaussian_processes_tpu'))))\n")
+        "                           'gaussian_processes_tpu', 'bench'))))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=REPO, timeout=120)
@@ -63,7 +65,7 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     """By the text: every module of the port and chip_smoke.py (which runs
     where jax is not installed)."""
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|optax|"
-                         r"gaussian_processes_tpu)(\.|\s|$)", re.M)
+                         r"gaussian_processes_tpu|bench)(\.|\s|$)", re.M)
     pkg = os.path.join(REPO, "gaussian_processes_tpu_torch")
     files = [os.path.join(REPO, "chip_smoke.py")] + [
         os.path.join(root, f) for root, _, names in os.walk(pkg)
