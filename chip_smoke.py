@@ -75,7 +75,9 @@ Phases (none catches its own failure; any failure exits non-zero):
    50,000 images of 48 x 48 px, its theta, jitter 1.0).  ``large_gram``
    (row blocks of 8192 through the kernel's ``out=``) with 3 sampled row
    blocks against the plain version (<= 1e-5), ``large_cholesky``, each
-   timed by CUDA events closed by a value readback; then
+   timed by CUDA events closed by a value readback; the same again, warm,
+   through the benchmark module's ``large_ntilde.run`` (its record, which
+   phase 16 holds to n = 50,000); then
    ``large_posterior_mean`` with y and 8 test images from the seed, its
    residual ||(K + I) alpha - y|| / ||y|| accumulated by row blocks in
    float64 (bound LARGE_RESIDUAL) and its normwise backward error
@@ -195,6 +197,22 @@ Phases (none catches its own failure; any failure exits non-zero):
    launches are added to the kernel table's.  Then the kernel against its
    plain version (as in phase 2) at every 2-D shape the bench launched
    and no earlier phase held (the crop windows its fits move through).
+16. The JAX bench's five secondaries and its parity script, through the
+   port's ``gaussian_processes_tpu_torch/benchmarks/`` modules, in process,
+   each ``run()`` at its script's full shape and defaults, the pipelined
+   loop's depth cut to 4 acquisitions (the script: 24; the CLI's ``bench
+   --secondary`` runs the bench's 16): the acquisition scorer, the active
+   refit and its reduced arm, the pipelined loop's three arms, the
+   population batched and sequential, and the posterior's float32 arms
+   against float64.  The 50k Gram and Cholesky ran in phase 9 (its warm
+   pass is ``large_ntilde.run``); its record is held here.  Each module's
+   launches are counted from 0 and added to the kernel table's; then the
+   kernel against its plain version (as in phase 2) at every 2-D shape it
+   launched that no earlier phase held, and the batched kernel (as in
+   phase 7) on its first two batched Grams.  Prints each record; fails
+   when a module raises or its own check fails, a kernel check misses 1e-5
+   (entries or a K_tilde diagonal), the large path did not run at n =
+   50,000, or the parity module's kernel arm misses 1e-5.
 
 The last two lines of standard output are one JSON object with the kernel
 table and one with the device.
@@ -288,6 +306,9 @@ MESH_CHOL_N, MESH_CHOL_RESID = 16384, 1e-5
 ANALYTIC_F64_RTOL = 1e-6
 FPARAM_GRAD_ATOL = 1e-3
 DAMPED_RTOL, V_INV_RTOL = 1e-8, 1e-6
+# phase 16: the pipelined loop's acquisitions (the script's 24, the
+# bench's 16)
+PIPE_N_ADD = 4
 # peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds' rates
 TF32_FLOPS, HBM_BYTES = 495e12, 3.35e12
 
@@ -731,18 +752,14 @@ def phase8_population(torch, np, device, smi, totals):
 
 def phase9_large(torch, np, device, smi, totals):
     """The large-ntilde path (see the module docstring); adds its launches
-    to ``totals`` and returns its Grams' operands for phase 10(e)."""
+    to ``totals`` and returns its Grams' operands for phase 10(e) and the
+    record of ``benchmarks/large_ntilde.run`` for phase 16."""
+    from gaussian_processes_tpu_torch.benchmarks import large_ntilde
     from gaussian_processes_tpu_torch.ops import gram_cuda
     from gaussian_processes_tpu_torch.parallel import large as L
 
     n, k = LARGE_N, LARGE_PX * LARGE_PX
-    rng = np.random.default_rng(0)
-    xt_np = np.empty((n, k), np.float32)
-    for i in range(0, n, 8192):
-        j = min(i + 8192, n)
-        xt_np[i:j] = rng.standard_normal((j - i, k)).astype(np.float32)
-    xt = torch.as_tensor(xt_np, device=device)
-    del xt_np
+    xt = torch.as_tensor(large_ntilde.make_data(n, LARGE_PX), device=device)
     theta = {key: torch.tensor(v, device=device)
              for key, v in LARGE_THETA.items()}
 
@@ -765,44 +782,58 @@ def phase9_large(torch, np, device, smi, totals):
     s0 = theta["sigma_0"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    # twice: the first (cold) run also pays the 10 GB allocation and the
-    # solver's set-up
-    for run in ("cold", "warm"):
-        gram_cuda.reset_counts()
-        K, gram_s = timed(lambda: L.large_gram(theta, xt, LARGE_PX,
-                                               nb=LARGE_NB), diag_sample)
-        counts = gram_cuda.read_counts()
-        print(f"large_gram n={n} ({LARGE_PX}x{LARGE_PX} px, k {k}), row "
-              f"blocks of {LARGE_NB}, {run}: {gram_s:.3f} s, "
-              f"{counts['gram']} Gram launches  [{smi}]")
-        if run == "cold":
-            worst = 0.0
-            with torch.no_grad():
-                last = (n - 1) // LARGE_NB
-                for r0 in (0, last // 2 * LARGE_NB, last * LARGE_NB):
-                    r1 = min(r0 + LARGE_NB, n)
-                    ref = gram_cuda.acos_gram_torch(ut_amp[r0:r1], st,
-                                                    qd[r0:r1], qd, s0)
-                    rel = float(torch.max(torch.abs(K[r0:r1] - ref))
-                                / torch.max(torch.abs(ref)))
-                    worst = max(worst, rel)
-                    print(f"  row block [{r0}, {r1}) vs plain: max rel "
-                          f"{rel:.3e}")
-                    del ref
-            if not worst <= KERNEL_RTOL:
-                raise RuntimeError(f"large_gram disagrees with the plain "
-                                   f"Gram: {worst:.3e}")
-        Lf, chol_s = timed(lambda: L.large_cholesky(K, jitter=LARGE_JITTER),
-                           diag_sample)
-        d = Lf.diagonal()
-        if not bool(torch.isfinite(d).all() & (d > 0).all()):
-            raise RuntimeError("large_cholesky: non-finite or non-positive "
-                               "diagonal")
-        print(f"large_cholesky n={n}, {run}: {chol_s:.3f} s, "
-              f"{n ** 3 / 3 / chol_s / 1e12:.2f} TFLOP/s (n^3/3)  [{smi}]")
-        del K, Lf, d
+    # cold: the first run also pays the 10 GB allocation and the solver's
+    # set-up
+    gram_cuda.reset_counts()
+    K, gram_s = timed(lambda: L.large_gram(theta, xt, LARGE_PX,
+                                           nb=LARGE_NB), diag_sample)
+    counts = gram_cuda.read_counts()
+    print(f"large_gram n={n} ({LARGE_PX}x{LARGE_PX} px, k {k}), row "
+          f"blocks of {LARGE_NB}, cold: {gram_s:.3f} s, "
+          f"{counts['gram']} Gram launches  [{smi}]")
+    worst = 0.0
+    with torch.no_grad():
+        last = (n - 1) // LARGE_NB
+        for r0 in (0, last // 2 * LARGE_NB, last * LARGE_NB):
+            r1 = min(r0 + LARGE_NB, n)
+            ref = gram_cuda.acos_gram_torch(ut_amp[r0:r1], st,
+                                            qd[r0:r1], qd, s0)
+            rel = float(torch.max(torch.abs(K[r0:r1] - ref))
+                        / torch.max(torch.abs(ref)))
+            worst = max(worst, rel)
+            print(f"  row block [{r0}, {r1}) vs plain: max rel "
+                  f"{rel:.3e}")
+            del ref
+    if not worst <= KERNEL_RTOL:
+        raise RuntimeError(f"large_gram disagrees with the plain "
+                           f"Gram: {worst:.3e}")
+    Lf, chol_s = timed(lambda: L.large_cholesky(K, jitter=LARGE_JITTER),
+                       diag_sample)
+    d = Lf.diagonal()
+    if not bool(torch.isfinite(d).all() & (d > 0).all()):
+        raise RuntimeError("large_cholesky: non-finite or non-positive "
+                           "diagonal")
+    print(f"large_cholesky n={n}, cold: {chol_s:.3f} s, "
+          f"{n ** 3 / 3 / chol_s / 1e12:.2f} TFLOP/s (n^3/3)  [{smi}]")
+    del K, Lf, d
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
     print(f"peak device memory of the Gram and the Cholesky: {peak:.2f} GiB")
+    # warm: the same work through the benchmark module, its launches counted
+    torch.cuda.synchronize()
+    gram_cuda.reset_counts()
+    large_rec, _ = large_ntilde.run(device=device)
+    torch.cuda.synchronize()
+    counts = gram_cuda.read_counts()
+    add_counts(totals, counts)
+    print(json.dumps(large_rec))
+    detail = large_rec["detail"] or {}
+    print(f"large_ntilde.run, warm: n {detail.get('n')}, large_gram "
+          f"{detail.get('gram_s', float('nan')):.3f} s, large_cholesky "
+          f"{detail.get('cholesky_s', float('nan')):.3f} s "
+          f"({large_rec['value']} TFLOP/s), peak {detail.get('peak_gib')} "
+          f"GiB; Gram launches {counts['gram']}  [{smi}]")
+    if not large_rec["ok"]:
+        raise RuntimeError("large_ntilde.run: no size ran")
 
     y = torch.as_tensor(np.random.default_rng(1).standard_normal(n)
                         .astype(np.float32), device=device)
@@ -850,7 +881,7 @@ def phase9_large(torch, np, device, smi, totals):
     return [("row block", (ut_amp[:LARGE_NB], st, qd[:LARGE_NB], qd, s0),
              True),
             ("last row block", (ut_amp[last:], st, qd[last:], qd, s0), True),
-            ("K*", (us_amp, st, qs, qd, s0), False)]
+            ("K*", (us_amp, st, qs, qd, s0), False)], large_rec
 
 
 def phase10_entry_points(torch, np, device, smi, totals, x, r, xtilde, Xt,
@@ -1962,6 +1993,83 @@ def phase15_bench(torch, np, device, smi, totals, check_kernel, checked,
         raise RuntimeError(f"phase 15: {rec.get('note')}")
 
 
+def phase16_benchmarks(torch, np, device, smi, totals, check_kernel,
+                       checked, large_rec):
+    """The port's ``benchmarks/`` modules in process (see the module
+    docstring).  Adds each module's launches to ``totals``; holds the
+    kernel against its plain version (``check_kernel``) at every 2-D shape
+    a module launched that no earlier phase held (``checked``), and the
+    batched kernel on a module's first two batched Grams; ``large_rec``
+    is phase 9's ``large_ntilde`` record."""
+    from gaussian_processes_tpu_torch.benchmarks import (
+        acquisition, active_pipelined, active_refit, parity_production,
+        population)
+    from gaussian_processes_tpu_torch.ops import gram_cuda
+
+    t0 = time.perf_counter()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = [("acquisition", acquisition, {}),
+            ("active_refit", active_refit, {}),
+            ("active_pipelined", active_pipelined, {"n_add": PIPE_N_ADD}),
+            ("population", population, {}),
+            ("parity_production", parity_production, {})]
+    records = {}
+    for name, module, kw in plan:
+        seen, batched = {}, []
+        torch.cuda.synchronize()
+        gram_cuda.reset_counts()
+        t = time.perf_counter()
+        with operands_by_shape(gram_cuda, seen, name), \
+                first_batched_operands(gram_cuda, batched):
+            rec, values = module.run(device=device, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        del values
+        counts = gram_cuda.read_counts()
+        add_counts(totals, counts)
+        records[name] = rec
+        print(json.dumps(rec))
+        print(f"{name}: {seconds:.1f} s; Gram launches 2-D {counts['gram']}, "
+              f"batched {counts['batched']}, split pass {counts['split']}; "
+              f"by (batch, m, n, k) {dict(counts['shapes'])}  [{smi}]")
+        if not rec.get("ok"):
+            raise RuntimeError(f"phase 16: {name}'s own check failed")
+        new = sorted(shape for shape in seen if shape not in checked)
+        print(f"  {name} launched the 2-D Gram at {len(seen)} shapes, "
+              f"{len(new)} of them new: {new}")
+        for key in new:
+            _, ops = seen.pop(key)
+            kind = ("K_tilde" if key[0] == key[1]
+                    and torch.equal(ops[2], ops[3]) else "K")
+            check_kernel(f"{kind} ({name})", ops)
+        for ops in batched:
+            kind = ("K_tilde" if ops[0].shape[1] == ops[1].shape[1]
+                    and torch.equal(ops[2], ops[3]) else "K")
+            check_batched(torch, gram_cuda, sms, smi, f"{kind} ({name})",
+                          ops)
+        seen.clear()
+        batched.clear()
+        torch.cuda.empty_cache()
+
+    large = large_rec["rows"][0]
+    parity = records["parity_production"]
+    print("parity arms against float64 (rel_mu, rel_var): " + ", ".join(
+        f"{arm} {a['rel_mu']:.3e} {a['rel_var']:.3e}"
+        for arm, a in parity["arms"].items())
+        + f"; n_keep {parity['detail']['n_keep']}  [{smi}]")
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s")
+    checks = {
+        "the large path ran at n = 50,000":
+            large["n"] == LARGE_N and "error" not in large,
+        "the parity module's kernel arm within 1e-5":
+            parity["arms"]["kernel"]["pass"],
+    }
+    for what, passed in checks.items():
+        if not passed:
+            raise RuntimeError(f"phase 16 check failed: {what}")
+    return records
+
+
 def main():
     if not (HERE / "gaussian_processes_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py: gaussian_processes_tpu_torch/ not "
@@ -2368,7 +2476,7 @@ def main():
     batched = phase8_population(torch, np, device, smi, totals)
     # ---- 9. the large-ntilde path ------------------------------------------
     stamp("9")
-    block_ops = phase9_large(torch, np, device, smi, totals)
+    block_ops, large_rec = phase9_large(torch, np, device, smi, totals)
     # ---- 10. the entry points ----------------------------------------------
     stamp("10")
     block_abs, reduced = phase10_entry_points(
@@ -2395,11 +2503,15 @@ def main():
     # ---- 15. the port's bench at full depth, and its gates ---------------
     stamp("15")
     phase15_bench(torch, np, device, smi, totals, check_kernel, checked)
+    # ---- 16. the bench's secondaries and the parity script ---------------
+    stamp("16")
+    phase16_benchmarks(torch, np, device, smi, totals, check_kernel, checked,
+                       large_rec)
 
     stamp("end")
     shapes = totals.pop("shapes", {})
     print(f"launches over the main paths (phases 4, 6, 8, 9, 10, 11, 12, "
-          f"13, 14, 15): {totals}")
+          f"13, 14, 15, 16): {totals}")
     print("Gram launches on the main paths by (batch, m, n, k): "
           + ", ".join(f"{shape}: {c}" for shape, c in sorted(
               shapes.items(), key=lambda kv: -kv[1])))

@@ -1,8 +1,9 @@
 """The port imports neither jax nor optax nor the JAX package nor the JAX
-bench (the repository's bench.py): every module of
-gaussian_processes_tpu_torch is imported in a fresh interpreter, which must
-end with no jax, optax, gaussian_processes_tpu or bench module loaded (and
-no matplotlib: the plotting module imports it inside its functions)."""
+bench and its scripts (the repository's bench.py and benchmarks/): every
+module of gaussian_processes_tpu_torch is imported in a fresh interpreter,
+which must end with no jax, optax, gaussian_processes_tpu, bench or
+benchmarks module loaded (and no matplotlib: the plotting module imports it
+inside its functions)."""
 
 import json
 import os
@@ -42,7 +43,11 @@ def test_every_module_is_listed():
                      "examples.one_cell_fit", "examples.active_training",
                      "examples.population_fit",
                      "examples.large_scale_posterior", "__main__", "entry",
-                     "bench"):
+                     "bench", "benchmarks", "benchmarks.common",
+                     "benchmarks.acquisition", "benchmarks.active_refit",
+                     "benchmarks.large_ntilde", "benchmarks.active_pipelined",
+                     "benchmarks.population",
+                     "benchmarks.parity_production"):
         assert f"gaussian_processes_tpu_torch.{expected}" in names
 
 
@@ -53,7 +58,8 @@ def test_port_imports_no_jax_or_optax():
         "    importlib.import_module(name)\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         "    if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'matplotlib',\n"
-        "                           'gaussian_processes_tpu', 'bench'))))\n")
+        "                           'gaussian_processes_tpu', 'bench',\n"
+        "                           'benchmarks'))))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=REPO, timeout=120)
@@ -65,7 +71,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     """By the text: every module of the port and chip_smoke.py (which runs
     where jax is not installed)."""
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|optax|"
-                         r"gaussian_processes_tpu|bench)(\.|\s|$)", re.M)
+                         r"gaussian_processes_tpu|bench|benchmarks)(\.|\s|$)",
+                         re.M)
     pkg = os.path.join(REPO, "gaussian_processes_tpu_torch")
     files = [os.path.join(REPO, "chip_smoke.py")] + [
         os.path.join(root, f) for root, _, names in os.walk(pkg)
