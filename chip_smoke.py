@@ -29,14 +29,14 @@ Phases (none catches its own failure; any failure exits non-zero):
    (backend="torch") on the card: the kernel fit's log-marginal must stay
    within 1e-3 relative of it at every iteration.
 5. Kernel at the active loop's shapes: the operands the loop hands the
-   kernel at its 258-point capacity buffer (the first 250 pool images and 8
-   padded zero rows) -- the refit's K_tilde 258 x 258 at contraction 6400,
-   the pool's K* 3160 x 258 at 6400 (the host loop's crop window) and 11664
-   (the pipelined loop's full frame), and the per-round test K* 30 x 258 at
+   kernel at its 254-point capacity buffer (the first 250 pool images and 4
+   padded zero rows) -- the refit's K_tilde 254 x 254 at contraction 6400,
+   the pool's K* 3160 x 254 at 6400 (the host loop's crop window) and 11664
+   (the pipelined loop's full frame), and the per-round test K* 30 x 254 at
    11664 -- against the plain version, with the same bounds as phase 2 and
    finite padded rows.
 6. The closed loop at full width: pool = the main path's 3160 images and
-   responses, start set the first 250, 8 acquisitions, 4 EM iterations of
+   responses, start set the first 250, 4 acquisitions, 4 EM iterations of
    5 E-, 5 M- and 5 f-param steps per refit (benchmarks/
    bench_active_pipelined.py's configuration with depth cut from 24
    acquisitions and 10 EM iterations).  Four arms, kernel launch counts
@@ -89,7 +89,7 @@ Phases (none catches its own failure; any failure exits non-zero):
    log-marginal stays within 1e-3 relative of phase 4's at every
    iteration; both fits' inner-objective evaluations (the host-bound
    work) and their ``fit.*`` spans' host seconds (``collect_spans``); then
-   the two fits in turns (full, reduced, reduced, full).
+   one more fit of each, back to back (full, reduced).
    (b) ``state_at_iteration`` and ``evaluate(at_iteration=)`` on that fit:
    finite rates at iteration 1, and the last iteration's reconstruction
    within RECON_RTOL (3e-5) relative of ``predict``, then rebuilt with the
@@ -145,7 +145,7 @@ Phases (none catches its own failure; any failure exits non-zero):
    trial K_tilde_b near (a)'s final state against a float64 inverse, timed
    beside ``masked_inverse_spd``; (e) the kernel alone at the 2-D shapes
    that launch >= 20 times on the main paths and no phase held: K_tilde
-   258 x 258 at 11664, and 512 x 512 and 3160 x 512 at 6400 and 11664.
+   254 x 254 at 11664, and 512 x 512 and 3160 x 512 at 6400 and 11664.
 13. The mesh at world 1 (one card holds one NCCL rank): (a) a world-1 NCCL
    process group of this process and ``make_mesh(1, 1)`` on "cuda", with
    NCCL's version; (b) ``sharded_gram`` at bench.py's shape (x 3160 rows,
@@ -199,13 +199,16 @@ Phases (none catches its own failure; any failure exits non-zero):
    and no earlier phase held (the crop windows its fits move through).
 16. The JAX bench's five secondaries and its parity script, through the
    port's ``gaussian_processes_tpu_torch/benchmarks/`` modules, in process,
-   each ``run()`` at its script's full shape and defaults, the pipelined
-   loop's depth cut to 4 acquisitions (the script: 24; the CLI's ``bench
-   --secondary`` runs the bench's 16): the acquisition scorer, the active
-   refit and its reduced arm, the pipelined loop's three arms, the
-   population batched and sequential, and the posterior's float32 arms
-   against float64.  The 50k Gram and Cholesky ran in phase 9 (its warm
-   pass is ``large_ntilde.run``); its record is held here.  Each module's
+   each ``run()`` at its script's full shape and defaults but three depths:
+   the pipelined loop at 1 acquisition (the script: 24; the CLI's ``bench
+   --secondary`` runs the bench's 16; phase 6 drives both pipelined arms
+   at 4), the refit timed twice (the script: 6) and the population at 8
+   cells (the script: 16, 8 and 4; the bench's secondary: 8; phase 8 runs
+   16 and 41): the acquisition scorer, the active refit and its reduced
+   arm, the pipelined loop's three arms, the population batched and
+   sequential, and the posterior's float32 arms against float64.  The 50k
+   Gram and Cholesky ran in phase 9 (its warm pass is
+   ``large_ntilde.run``); its record is held here.  Each module's
    launches are counted from 0 and added to the kernel table's; then the
    kernel against its plain version (as in phase 2) at every 2-D shape it
    launched that no earlier phase held, and the batched kernel (as in
@@ -213,6 +216,19 @@ Phases (none catches its own failure; any failure exits non-zero):
    when a module raises or its own check fails, a kernel check misses 1e-5
    (entries or a K_tilde diagonal), the large path did not run at n =
    50,000, or the parity module's kernel arm misses 1e-5.
+17. The quality benchmarks, through the port's modules in process at full
+   width, their depth cut, each counted and held as in phase 16: (a)
+   ``hard_quality.run`` on the hard data of seed 0 (the bench's shape, JAX's
+   inducing rows, the STA init), rungs exact, mid, gated and rel_1e-4 (every
+   knob value the ladder sets: absolute ftol 0.3 and 1.0, relative ftol,
+   estep_tol, zoom budgets 15, 8 and 4) at 3 EM iterations, no warm fit,
+   with the oracle's r^2; (b) ``bad_init.run`` at 3 EM iterations, with
+   the coverage re-runs that fired and the eps; (c)
+   ``ab_active_vs_random_hard.run`` for seed 0 at 2 acquisitions from its 50
+   start images (the script: 150), at the script's refit depth.  Fails
+   when a module raises or its own check fails, a kernel check misses
+   1e-5, an A/B arm's picks repeat or fall in the start set, an r^2 is not
+   finite, or the one-seed summary's SEM is not null.
 
 The last two lines of standard output are one JSON object with the kernel
 table and one with the device.
@@ -238,7 +254,7 @@ THETA0 = {"sigma_0": 1.0, "eps_0x": 0.0001, "eps_0y": 0.0001,
 F_PARAMS0 = {"logA": math.log(0.01), "lambda0": 1.0}
 KERNEL_RTOL = 1e-5
 # the active loop (benchmarks/bench_active_pipelined.py:31-32, 54-65)
-N_START, N_ADD = 250, 8
+N_START, N_ADD = 250, 4
 CAPACITY = N_START + N_ADD
 SCORER_RTOL = 1e-4     # pool utilities, kernel vs plain Gram, of max|u|
 TIE_RTOL = 1e-5        # two picks whose utilities agree this well tie
@@ -307,8 +323,20 @@ ANALYTIC_F64_RTOL = 1e-6
 FPARAM_GRAD_ATOL = 1e-3
 DAMPED_RTOL, V_INV_RTOL = 1e-8, 1e-6
 # phase 16: the pipelined loop's acquisitions (the script's 24, the
-# bench's 16)
-PIPE_N_ADD = 4
+# bench's 16; phase 6 drives both pipelined arms at full width), the
+# refit's timed fits (the script's 6) and the population's cells (the
+# script's 16, 8 and 4; the bench's secondary sets 8)
+PIPE_N_ADD = 1
+REFIT_REPS = 2
+POP_CELLS = 8
+# phase 17: four rungs that set every knob value the ladder sets (absolute
+# ftol 0.3 and 1.0, relative ftol, estep_tol, zoom budgets 15, 8 and 4),
+# the fits' depth (3 EM iterations hold one M-step, where the gates and
+# budgets act), and the A/B's acquisitions (the script's 150)
+QUALITY_RUNGS = ("exact", "mid", "gated", "rel_1e-4")
+QUALITY_MAXITER = 3
+BAD_INIT_MAXITER = 3
+AB_N_ADD = 2
 # peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds' rates
 TF32_FLOPS, HBM_BYTES = 495e12, 3.35e12
 
@@ -973,11 +1001,10 @@ def phase10_entry_points(torch, np, device, smi, totals, x, r, xtilde, Xt,
 
     print(f"  spans (host s): {span_line(spans)}; full rank "
           f"{span_line(spans_full)}")
-    # the two fits in turns on this card (phase 4 ran minutes earlier, and
-    # these host-bound fits move with the host's speed)
+    # one more fit of each, back to back on this card (phase 4 ran minutes
+    # earlier, and these host-bound fits move with the host's speed)
     turns = []
-    for name, c in (("full", cfg), ("reduced", cfg_r), ("reduced", cfg_r),
-                    ("full", cfg)):
+    for name, c in (("full", cfg), ("reduced", cfg_r)):
         with objective_counts() as ev:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -985,7 +1012,7 @@ def phase10_entry_points(torch, np, device, smi, totals, x, r, xtilde, Xt,
             torch.cuda.synchronize()
         turns.append(f"{name} {time.perf_counter() - t0:.3f} s "
                      f"({ev['fparam']} f-param evaluations)")
-    print(f"  in turns: {', '.join(turns)}  [{smi}]")
+    print(f"  back to back: {', '.join(turns)}  [{smi}]")
 
     # (b) state_at_iteration and evaluate(at_iteration=)
     def reconstruct():
@@ -1993,27 +2020,19 @@ def phase15_bench(torch, np, device, smi, totals, check_kernel, checked,
         raise RuntimeError(f"phase 15: {rec.get('note')}")
 
 
-def phase16_benchmarks(torch, np, device, smi, totals, check_kernel,
-                       checked, large_rec):
-    """The port's ``benchmarks/`` modules in process (see the module
-    docstring).  Adds each module's launches to ``totals``; holds the
-    kernel against its plain version (``check_kernel``) at every 2-D shape
-    a module launched that no earlier phase held (``checked``), and the
-    batched kernel on a module's first two batched Grams; ``large_rec``
-    is phase 9's ``large_ntilde`` record."""
-    from gaussian_processes_tpu_torch.benchmarks import (
-        acquisition, active_pipelined, active_refit, parity_production,
-        population)
+def drive_modules(torch, device, smi, totals, check_kernel, checked, plan,
+                  phase):
+    """Each ``(name, module, kwargs)`` of ``plan``: ``module.run(device=,
+    **kwargs)`` in process with the kernel launches counted from 0 and added
+    to ``totals``; the record printed with its seconds; then the kernel
+    against its plain version (``check_kernel``) at every 2-D shape it
+    launched that no earlier phase held (``checked``), and the batched
+    kernel (as in phase 7) on its first two batched Grams.  Raises when a
+    module's own check fails.  Returns the records and seconds by name."""
     from gaussian_processes_tpu_torch.ops import gram_cuda
 
-    t0 = time.perf_counter()
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    plan = [("acquisition", acquisition, {}),
-            ("active_refit", active_refit, {}),
-            ("active_pipelined", active_pipelined, {"n_add": PIPE_N_ADD}),
-            ("population", population, {}),
-            ("parity_production", parity_production, {})]
-    records = {}
+    records, seconds = {}, {}
     for name, module, kw in plan:
         seen, batched = {}, []
         torch.cuda.synchronize()
@@ -2023,17 +2042,18 @@ def phase16_benchmarks(torch, np, device, smi, totals, check_kernel,
                 first_batched_operands(gram_cuda, batched):
             rec, values = module.run(device=device, **kw)
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t
+        seconds[name] = time.perf_counter() - t
         del values
         counts = gram_cuda.read_counts()
         add_counts(totals, counts)
         records[name] = rec
         print(json.dumps(rec))
-        print(f"{name}: {seconds:.1f} s; Gram launches 2-D {counts['gram']}, "
-              f"batched {counts['batched']}, split pass {counts['split']}; "
-              f"by (batch, m, n, k) {dict(counts['shapes'])}  [{smi}]")
+        print(f"{name}: {seconds[name]:.1f} s; Gram launches 2-D "
+              f"{counts['gram']}, batched {counts['batched']}, split pass "
+              f"{counts['split']}; by (batch, m, n, k) "
+              f"{dict(counts['shapes'])}  [{smi}]")
         if not rec.get("ok"):
-            raise RuntimeError(f"phase 16: {name}'s own check failed")
+            raise RuntimeError(f"phase {phase}: {name}'s own check failed")
         new = sorted(shape for shape in seen if shape not in checked)
         print(f"  {name} launched the 2-D Gram at {len(seen)} shapes, "
               f"{len(new)} of them new: {new}")
@@ -2050,7 +2070,26 @@ def phase16_benchmarks(torch, np, device, smi, totals, check_kernel,
         seen.clear()
         batched.clear()
         torch.cuda.empty_cache()
+    return records, seconds
 
+
+def phase16_benchmarks(torch, np, device, smi, totals, check_kernel,
+                       checked, large_rec):
+    """The port's ``benchmarks/`` secondaries and parity module in process
+    (see the module docstring and ``drive_modules``); ``large_rec`` is
+    phase 9's ``large_ntilde`` record."""
+    from gaussian_processes_tpu_torch.benchmarks import (
+        acquisition, active_pipelined, active_refit, parity_production,
+        population)
+
+    t0 = time.perf_counter()
+    plan = [("acquisition", acquisition, {}),
+            ("active_refit", active_refit, {"reps": REFIT_REPS}),
+            ("active_pipelined", active_pipelined, {"n_add": PIPE_N_ADD}),
+            ("population", population, {"cells": [POP_CELLS]}),
+            ("parity_production", parity_production, {})]
+    records, _ = drive_modules(torch, device, smi, totals, check_kernel,
+                               checked, plan, 16)
     large = large_rec["rows"][0]
     parity = records["parity_production"]
     print("parity arms against float64 (rel_mu, rel_var): " + ", ".join(
@@ -2067,6 +2106,66 @@ def phase16_benchmarks(torch, np, device, smi, totals, check_kernel,
     for what, passed in checks.items():
         if not passed:
             raise RuntimeError(f"phase 16 check failed: {what}")
+    return records
+
+
+def phase17_quality(torch, np, device, smi, totals, check_kernel, checked):
+    """The port's three quality benchmarks in process (see the module
+    docstring and ``drive_modules``), with the A/B's picks and its
+    one-seed summary held."""
+    from gaussian_processes_tpu_torch.benchmarks import (
+        ab_active_vs_random_hard, bad_init, hard_quality)
+
+    t0 = time.perf_counter()
+    plan = [("hard_quality", hard_quality,
+             dict(seed=0, names=QUALITY_RUNGS, maxiter=QUALITY_MAXITER,
+                  warm=False, oracle=True)),
+            ("bad_init", bad_init, dict(maxiter=BAD_INIT_MAXITER)),
+            ("ab_active_vs_random_hard", ab_active_vs_random_hard,
+             dict(seeds=(0,), n_add=AB_N_ADD))]
+    records, seconds = drive_modules(torch, device, smi, totals,
+                                     check_kernel, checked, plan, 17)
+    ladder = records["hard_quality"]
+    print(f"(a) hard data seed 0, {QUALITY_MAXITER} EM iterations: oracle "
+          f"r2 {ladder['oracle_r2']:.4f} +/- {ladder['oracle_r2_sigma']:.4f};"
+          + "; ".join(f" {r['name']} r2 {r['r2']:.4f} +/- "
+                      f"{r['r2_sigma']:.4f}, loss {r['final_loss']:.2f}, "
+                      f"{r['wallclock_s']:.3f} s" for r in ladder["ladder"])
+          + f"  [{smi}]")
+    bad = records["bad_init"]
+    print(f"(b) bad init, {bad['maxiter']} EM iterations: {bad['value']:.3f} "
+          f"s against {bad['good_init_s']:.3f} s; loss "
+          f"{bad['final_loss_bad_init']:.2f} against "
+          f"{bad['final_loss_good_init']:.2f}; eps {bad['eps_bad_init']} "
+          f"(planted {bad['planted_center']}), crop margin "
+          f"{bad['crop_margin_bad_init']}; fallbacks that fired: "
+          f"{bad['fallbacks']}; the good arm's: {bad['good_init_fallbacks']}"
+          f"  [{smi}]")
+    ab = records["ab_active_vs_random_hard"]
+    checks = {}
+    for arm in ab["arms"]:
+        picks, start = arm["picks"], set(arm["start_idx"])
+        print(f"(c) seed {arm['seed']} {arm['arm']}: picks {picks}, r2 per "
+              f"round {arm['r2_history']}, {arm['wallclock_s']:.3f} s  "
+              f"[{smi}]")
+        checks[f"(c) {arm['arm']}: {AB_N_ADD} distinct picks outside the "
+               f"start set"] = (len(set(picks)) == len(picks) == AB_N_ADD
+                                and not set(picks) & start)
+        checks[f"(c) {arm['arm']}: r2 finite every round"] = (
+            len(arm["r2_history"]) == AB_N_ADD + 1
+            and all(v is not None for v in arm["r2_history"]))
+    print(f"(c) summary: gap at the last round "
+          f"{ab['r2_gap_mean_final']} (SEM {ab['r2_gap_sem_final']})")
+    checks["(c) the one-seed summary's SEM is null and the record strict "
+           "JSON"] = (ab["r2_gap_sem_final"] is None and all(
+               v is None for v in ab["r2_gap_sem_at_round"].values())
+               and bool(json.dumps(ab, allow_nan=False)))
+    print("phase 17 seconds by module: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"; phase 17: {time.perf_counter() - t0:.1f} s")
+    for what, passed in checks.items():
+        if not passed:
+            raise RuntimeError(f"phase 17 check failed: {what}")
     return records
 
 
@@ -2507,11 +2606,14 @@ def main():
     stamp("16")
     phase16_benchmarks(torch, np, device, smi, totals, check_kernel, checked,
                        large_rec)
+    # ---- 17. the quality benchmarks: gate ladder, bad init, A/B ---------
+    stamp("17")
+    phase17_quality(torch, np, device, smi, totals, check_kernel, checked)
 
     stamp("end")
     shapes = totals.pop("shapes", {})
     print(f"launches over the main paths (phases 4, 6, 8, 9, 10, 11, 12, "
-          f"13, 14, 15, 16): {totals}")
+          f"13, 14, 15, 16, 17): {totals}")
     print("Gram launches on the main paths by (batch, m, n, k): "
           + ", ".join(f"{shape}: {c}" for shape, c in sorted(
               shapes.items(), key=lambda kv: -kv[1])))

@@ -221,7 +221,11 @@ def make_hard_problem(seed: int = 0, **kwargs):
     on; its defaults give the bench's 3,160 train images of 108 x 108 and
     30 test images x 30 repeats): (X, R, Xte, Rte) in float32, Rte
     (nrep, nimg) (benchmarks/bench_hard_quality.py:73-83)."""
-    ds = synthetic_retina_hard(n_cells=1, seed=seed, **kwargs)
+    return hard_arrays(synthetic_retina_hard(n_cells=1, seed=seed, **kwargs))
+
+
+def hard_arrays(ds):
+    """``make_hard_problem``'s arrays of a one-cell dataset."""
     X, R = ds.full_train()
     Xte, _ = ds.test()
     Rte = ds.responses_test[:, :, 0]

@@ -134,7 +134,8 @@ def active_loop(X_pool, R_pool, start_idx, n_add: int,
                 verbose: bool = False,
                 device=None,
                 round_times: Optional[list] = None,
-                utility_history: Optional[list] = None
+                utility_history: Optional[list] = None,
+                refits: Optional[list] = None
                 ) -> ActiveLoopResult:
     """Run ``n_add`` acquisition rounds starting from ``start_idx``.
 
@@ -154,7 +155,8 @@ def active_loop(X_pool, R_pool, start_idx, n_add: int,
     each ending in a device synchronize: "refit", "evaluate" (with a test
     set) and "select" (scoring, the pick and the buffer growth; not in the
     last round).  ``utility_history`` (a list) receives each round's pool
-    utilities as read for the pick, used rows at -inf.
+    utilities as read for the pick, used rows at -inf.  ``refits`` (a
+    list) receives each refit's (failed, final log-marginal).
     """
     _check_select(select)
     X_pool, R_pool, start_idx, x_buf, r_buf, used = _start_buffers(
@@ -189,6 +191,9 @@ def active_loop(X_pool, R_pool, start_idx, n_add: int,
             t1 = _clock(device)
             times = {"refit": t1 - t0}
             round_times.append(times)
+        if refits is not None:
+            refits.append((bool(res.failed),
+                           float(res.track.logmarginal[-1])))
 
         if score_r2:
             _, _, r2, s = evaluate(res, X_test, R_test, nbootstrap=nbootstrap)

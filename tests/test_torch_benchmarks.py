@@ -38,15 +38,17 @@ from gaussian_processes_tpu.parallel import large as jlarge
 from gaussian_processes_tpu.parallel import population as jpop
 from gaussian_processes_tpu_torch import bench as tb
 from gaussian_processes_tpu_torch.benchmarks import (
-    acquisition, active_pipelined, active_refit, common, large_ntilde,
-    parity_production, population)
+    ab_active_vs_random_hard, acquisition, active_pipelined, active_refit,
+    bad_init, common, hard_quality, large_ntilde, parity_production,
+    population)
 
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 12
 MODULES = (acquisition, active_refit, large_ntilde, active_pipelined,
-           population, parity_production)
+           population, parity_production, hard_quality, bad_init,
+           ab_active_vs_random_hard)
 SMALL = dict(maxiter=3, n_estep=3, n_mstep=2, n_fparamstep=3)
 
 
@@ -387,8 +389,11 @@ def test_run_defaults_to_the_card(module, monkeypatch):
 @pytest.mark.parametrize("module", MODULES, ids=lambda m: m.__name__)
 def test_main_exits_nonzero_when_its_check_fails(module, monkeypatch,
                                                  capsys):
+    """Run from the command line with no arguments."""
+    monkeypatch.setattr(sys, "argv", [module.__name__])
     for ok, code in ((True, 0), (False, 1)):
-        monkeypatch.setattr(module, "run", lambda: ({"ok": ok}, {}))
+        monkeypatch.setattr(module, "run",
+                            lambda *args, **kwargs: ({"ok": ok}, {}))
         assert module.main() == code
         assert json.loads(capsys.readouterr().out.splitlines()[-1]) == {
             "ok": ok}

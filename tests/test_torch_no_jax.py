@@ -47,7 +47,9 @@ def test_every_module_is_listed():
                      "benchmarks.acquisition", "benchmarks.active_refit",
                      "benchmarks.large_ntilde", "benchmarks.active_pipelined",
                      "benchmarks.population",
-                     "benchmarks.parity_production"):
+                     "benchmarks.parity_production",
+                     "benchmarks.hard_quality", "benchmarks.bad_init",
+                     "benchmarks.ab_active_vs_random_hard"):
         assert f"gaussian_processes_tpu_torch.{expected}" in names
 
 
