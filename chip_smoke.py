@@ -6,8 +6,9 @@ Phases (none catches its own failure; any failure exits non-zero):
 
 1. Set-up: requires a CUDA device, prints the card's name and power limit
    (nvidia-smi), builds the hand-written kernels
-   (gaussian_processes_tpu_torch/csrc/acos_gram.cu) from the checkout and
-   prints ptxas's register, spill and shared-memory lines for each.
+   (gaussian_processes_tpu_torch/csrc/acos_gram.cu and fparam_lbfgs.cu,
+   one nvcc each, started together) from the checkout and prints ptxas's
+   register, spill and shared-memory lines for each.
 2. Kernels: at the main path's operands -- K_tilde 2100 x 2100 and
    K 3160 x 2100 at contraction 6400 (the 80 x 80 crop window) and 11664
    (the full 108 x 108 grid), and the prediction's K* 30 x 2100 at 11664 --
@@ -25,9 +26,10 @@ Phases (none catches its own failure; any failure exits non-zero):
    images of 108 x 108 px, ntilde 2100, 3 EM iterations of 10 E-, 10 M- and
    10 f-param steps), then the r^2 evaluation on 30 test images x 30
    repeats with 200 bootstrap draws.  Kernel launch counts are reset just
-   before and read just after.  Then the same fit through the plain Gram
-   (backend="torch") on the card: the kernel fit's log-marginal must stay
-   within 1e-3 relative of it at every iteration.
+   before and read just after; the f-param search kernel launches once a
+   search.  Then the same fit through the plain Gram and the plain
+   f-param search (backend="torch") on the card: the kernel fit's
+   log-marginal must stay within 1e-3 relative of it at every iteration.
 5. Kernel at the active loop's shapes: the operands the loop hands the
    kernel at its 254-point capacity buffer (the first 250 pool images and 4
    padded zero rows) -- the refit's K_tilde 254 x 254 at contraction 6400,
@@ -45,6 +47,14 @@ Phases (none catches its own failure; any failure exits non-zero):
    utility; (c) active_loop_pipelined, random; (d) active_loop, random.
    Then the scorer on (a)'s round-0 fit through the kernel against the
    plain Gram (backend="torch") on the card.
+6b. The f-param search kernel (csrc/fparam_lbfgs.cu) against its plain
+   version (the host-driven zoom L-BFGS through autograd) at the main
+   paths' operands: the r, lambda_m, lambda_var and logA that phase 4's
+   fit handed its first and its last search (nt 3160), and loop (a)'s
+   first search (the 254-row buffer with 4 weight-0 rows), each in
+   float64 and float32 at 15 and 4 line-search trials, with the bounds
+   stated beside FPARAM_TRIALS; CUDA-event medians per search and per
+   evaluation of the kernel, the plain route's per search, and the bound.
 
 7. The batched kernel at the population's shapes: one chunk of (cell,
    line-search trial) items of the M-step's ladder (as many as
@@ -151,8 +161,12 @@ Phases (none catches its own failure; any failure exits non-zero):
    NCCL's version; (b) ``sharded_gram`` at bench.py's shape (x 3160 rows,
    xtilde 2100, k 11664) through the kernel against ``gram_matrices``
    with the plain backend (1e-5); (c) ``fit(mesh=)`` at phase 4's data,
-   shape and depth: log-marginal within 1e-5 relative of phase 4's at
-   every iteration, with its seconds, its collectives per EM iteration
+   shape and depth: log-marginal within 1e-5 relative at every iteration
+   of phase 4's fit run on the mesh's own f-param route, the host-driven
+   search (the mesh does not take the f-param kernel), and within
+   MESH_KERNEL_RTOL of phase 4's fit (the kernel), beside phase 4's fit
+   against its float64 twin on the plain routes; with its seconds, its
+   collectives per EM iteration
    (``parallel/collectives.calls``) and its ``fit.*`` spans, then one
    f-param value+grad evaluation at its final moments timed plain and
    through the collectives (in turns) and one world-1 all-reduce; (d)
@@ -231,7 +245,9 @@ Phases (none catches its own failure; any failure exits non-zero):
    finite, or the one-seed summary's SEM is not null.
 
 The last two lines of standard output are one JSON object with the kernel
-table and one with the device.
+table (acos_gram, acos_gram_batched, tf32_split, fparam_lbfgs; launches
+over the main paths, the f-param search's times from phase 6b at phase
+4's last search in float32) and one with the device.
 """
 
 import contextlib
@@ -241,6 +257,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -316,6 +333,14 @@ WARM_INVERSE_RTOL = 1e-4
 # phase 13: the distributed Cholesky at world 1 against cuSOLVER's, and its
 # ||L L^T - A||_F / ||A||_F bound (a float32 factor's is ~n eps ||A||)
 MESH_CHOL_N, MESH_CHOL_RESID = 16384, 1e-5
+# phase 13(c): fit(mesh=) (the host-driven f-param search) against phase 4's
+# fit (the f-param kernel).  The two differ only in the search's float32
+# path, which stops within the minimum's float32 flat width (phase 6b), so
+# they agree to float32 rounding, not to 1e-5: 1.724e-5 in every reading on
+# the H100.  The bound sits above that and below phase 4's own float32
+# rounding, which its float64 twin on the plain routes shows in the same
+# phase (2.786e-4 on the H100).
+MESH_KERNEL_RTOL = 5e-5
 # phase 14: autograd of the float64 M-step objective against the analytic
 # chain, the legacy f-param Newton's ELL gradient at its result, and the
 # alpha-1 E-step variants against estep_update (relative to the norm)
@@ -337,8 +362,38 @@ QUALITY_RUNGS = ("exact", "mid", "gated", "rel_1e-4")
 QUALITY_MAXITER = 3
 BAD_INIT_MAXITER = 3
 AB_N_ADD = 2
+# phase 6b: the f-param search kernel against its plain version, at each
+# trial budget the fits use (FitConfig's 15, the quality ladder's 4).
+# float64 is held step by step: run for k = 1, 2, ... steps, the kernel
+# takes as many evaluations as the plain search and lands within
+# FPARAM_F64_ATOL of it, until the plain search sits at its minimum (value
+# within FPARAM_CONVERGED of its final one); past that point the trials are
+# decided by last-ulp differences of the two evaluations.  At the full step
+# count both values within FPARAM_CONVERGED and both logA within
+# FPARAM_F64_ATOL (a float64 minimum is flat over sqrt(2 * 2^-52 |f| / f''),
+# about 2e-8 at these operands, so the bound holds the two searches to one
+# point, not to the flat width), and float32 by outcome: the profiled objective
+# (float64, on the same inputs) at the two results within
+# FPARAM_F32_VALUE_RTOL, and logA within FPARAM_F32_ATOL or, where the
+# objective is flatter, within the distance over which it rises by one
+# float32 rounding of its value, sqrt(2 * 2^-23 |f| / f''): two float32
+# searches cannot tell such points apart (phase 4's first E-step on the
+# H100: 1.2e-4 apart, the objective 9e-9 relative, the width 4e-4).
+FPARAM_TRIALS = (15, 4)
+FPARAM_F64_ATOL, FPARAM_CONVERGED = 1e-9, 1e-12
+FPARAM_F32_ATOL, FPARAM_F32_VALUE_RTOL = 1e-4, 1e-5
+# operations the function needs a row of one evaluation, each row's work
+# counted once (the kernel's three passes recompute z; the bound does not):
+# z = A lambda_m + (A^2 / 2) lambda_var 3 (two products, a sum), its max 1,
+# exp(z - max) 2 and its sum 1, g = A lambda_m + 2 (A^2 / 2) lambda_var from
+# z's two products 2, f = exp(z - max) exp(max + lambda0) 1 and its sum 1, f g
+# and its sum 2: 13, and 1 more where a weight selects the rows.
+# sum(p g) = sum(w f g) / sum(w r) takes no work a row.  Once a search:
+# sum(w r lambda_m) and sum(w r), 3 a row (4 with a weight).
+FPARAM_ROW_FLOPS, FPARAM_ROW_FLOPS_ONCE = 13, 3
 # peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds' rates
 TF32_FLOPS, HBM_BYTES = 495e12, 3.35e12
+FP32_FLOPS, FP64_FLOPS = 67e12, 34e12
 
 
 def cuda_ms(torch, fn, reps=20, warmup=3):
@@ -376,11 +431,165 @@ def split_bound(rows, k):
     return 4 * rows * k * 3 / HBM_BYTES * 1e3, "bytes"
 
 
+def fparam_bound(nt, weighted, itemsize, evals):
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for one f-param search -- reading r, lambda_m, lambda_var (and the
+    weight) once at the HBM rate, or FPARAM_ROW_FLOPS a row for each of
+    this search's evaluations and FPARAM_ROW_FLOPS_ONCE a row once (one
+    more each with a weight) at the non-tensor peak of its type."""
+    bytes_ms = itemsize * (nt * (4 if weighted else 3) + 3) / HBM_BYTES * 1e3
+    peak = FP32_FLOPS if itemsize == 4 else FP64_FLOPS
+    w = int(weighted)
+    ops = nt * ((FPARAM_ROW_FLOPS + w) * evals + FPARAM_ROW_FLOPS_ONCE + w)
+    ops_ms = ops / peak * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                             "bytes")
+
+
+@contextlib.contextmanager
+def fparam_operands(store):
+    """Keeps in ``store`` a copy of the (logA0, r, lambda_m, lambda_var,
+    wt, num_steps) of every search that the fit hands ``fparam_search``
+    while the block runs."""
+    from gaussian_processes_tpu_torch.models import fit as fit_module
+    real = fit_module.fparam_search
+
+    def record(logA0, r, lambda_m, lambda_var, wt, num_steps, *args,
+               **kwargs):
+        store.append([None if t is None else t.detach().clone()
+                      for t in (logA0, r, lambda_m, lambda_var, wt)]
+                     + [num_steps])
+        return real(logA0, r, lambda_m, lambda_var, wt, num_steps, *args,
+                    **kwargs)
+
+    fit_module.fparam_search = record
+    try:
+        yield store
+    finally:
+        fit_module.fparam_search = real
+
+
+def check_fparam(torch, smi, name, ops, found):
+    """The f-param search kernel against its plain version (the host-driven
+    zoom L-BFGS through autograd) on one search's operands, in float64 and
+    float32 at each of FPARAM_TRIALS, with the bounds stated beside those
+    constants; CUDA-event medians per search and per evaluation of both.
+    Appends one dict a case to ``found``; raises past a bound."""
+    from gaussian_processes_tpu_torch.ops import fparam_search as fs
+    from gaussian_processes_tpu_torch.utils.tracing import objective_counts
+
+    logA0, r, lm, lv, wt, steps = ops
+    nt = r.shape[0]
+    pad = 0 if wt is None else int((wt <= 0).sum())
+
+    def objective64(x, args):
+        """The profiled objective and its derivative at logA x, float64,
+        on ``args``."""
+        a64 = [None if t is None else t.double() for t in args]
+        v, g = fs.fparam_value_and_grad_torch(
+            torch.tensor(x, dtype=torch.float64, device=r.device), *a64)
+        return float(v), float(g)
+
+    def flat_width(x, args, rel):
+        """How far logA may move from x (a minimum) before the objective
+        rises by ``rel`` of its value: sqrt(2 rel |f| / f''), f'' by a
+        central difference of the closed-form derivative."""
+        h = 1e-4
+        f = objective64(x, args)[0]
+        curv = (objective64(x + h, args)[1] - objective64(x - h, args)[1]) / (
+            2 * h)
+        return math.sqrt(2 * rel * abs(f) / curv) if curv > 0 else math.inf
+
+    for dtype in (torch.float64, torch.float32):
+        args = [None if t is None else t.to(dtype) for t in (r, lm, lv, wt)]
+        x0 = logA0.to(dtype)
+        for max_ls in FPARAM_TRIALS:
+            def search(k, backend=None):
+                with objective_counts() as ev:
+                    x, f = fs.fparam_search(x0, *args, k, max_ls,
+                                            backend=backend)
+                    x, f = float(x), float(f)
+                return x, f, ev["fparam"]
+
+            xk, fk, nk = search(steps)
+            xp, fp, npl = search(steps, "torch")
+            # float64: the kernel's path, step count by step count, until
+            # it leaves the plain search's at its minimum
+            path = []
+            if dtype == torch.float64:
+                for k in range(1, steps + 1):
+                    xpk, fpk, npk = search(k, "torch")
+                    xkk, _, nkk = search(k)
+                    off = abs(xkk - xpk) > FPARAM_F64_ATOL or nkk != npk
+                    if off and abs(fpk - fp) <= FPARAM_CONVERGED * abs(fp):
+                        break
+                    path.append((k, abs(xkk - xpk), nkk, npk))
+            ms = cuda_ms(torch, lambda: fs.fparam_search(x0, *args, steps,
+                                                         max_ls))
+            plain_ms = cuda_ms(torch, lambda: fs.fparam_search(
+                x0, *args, steps, max_ls, backend="torch"), reps=3, warmup=1)
+            bound_ms, bound_by = fparam_bound(nt, wt is not None,
+                                              args[0].element_size(), nk)
+            dx = abs(xk - xp)
+            v_k, v_p = objective64(xk, args)[0], objective64(xp, args)[0]
+            dv = abs(v_k - v_p) / abs(v_p)
+            # float32 tells logA apart no better than its rounding of the
+            # value does
+            x_tol = (FPARAM_F64_ATOL if dtype == torch.float64 else max(
+                FPARAM_F32_ATOL, flat_width(xp, args, 2.0 ** -23)))
+            tag = "float64" if dtype == torch.float64 else "float32"
+            print(f"fparam_lbfgs {name}: nt {nt} ({pad} weight-0 rows), "
+                  f"{tag}, {steps} steps, {max_ls} trials: kernel logA "
+                  f"{xk!r} value {fk!r} ({nk} evaluations), plain logA "
+                  f"{xp!r} value {fp!r} ({npl}); |dlogA| {dx:.3e} (bound "
+                  f"{x_tol:.3e}), "
+                  f"objective at the two results rel {dv:.3e}; kernel "
+                  f"{ms:.4f} ms a search ({ms / max(nk, 1) * 1e3:.2f} us an "
+                  f"evaluation), plain {plain_ms:.2f} ms a search, bound "
+                  f"{bound_ms:.4f} ms ({bound_by})  [{smi}]")
+            if path:
+                print("  on the plain search's path (steps, |dlogA|, kernel "
+                      "/ plain evaluations): "
+                      + ", ".join(f"{k}: {d:.1e} {a}/{b}"
+                                  for k, d, a, b in path))
+            found.append(dict(name=name, dtype=tag, nt=nt, pad=pad,
+                              trials=max_ls, dlogA=dx, dvalue=dv, ms=ms,
+                              us_per_eval=ms / max(nk, 1) * 1e3,
+                              plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, evals=nk, plain_evals=npl))
+            if dtype == torch.float64:
+                bad = [p for p in path
+                       if p[1] > FPARAM_F64_ATOL or p[2] != p[3]]
+                ok = (not bad and abs(fk - fp) <= FPARAM_CONVERGED * abs(fp)
+                      and dv <= FPARAM_CONVERGED and dx <= FPARAM_F64_ATOL)
+            else:
+                bad = []
+                ok = dx <= x_tol and dv <= FPARAM_F32_VALUE_RTOL
+            if not (ok and math.isfinite(fk)):
+                raise RuntimeError(
+                    f"the f-param search kernel disagrees with its plain "
+                    f"version ({name}, {tag}, {max_ls} trials): |dlogA| "
+                    f"{dx:.3e}, objective rel {dv:.3e}, steps off the "
+                    f"plain path {bad}")
+
+
 def span_line(timer):
     """A PhaseTimer's totals on one line, largest first."""
     return ", ".join(f"{name} {sec:.3f} ({timer.counts[name]})"
                      for name, sec in sorted(timer.totals.items(),
                                              key=lambda kv: -kv[1]))
+
+
+def reset_counts():
+    """Set every kernel's launch counts to 0."""
+    from gaussian_processes_tpu_torch.utils import tracing
+    tracing.reset_launch_counts()
+
+
+def read_counts():
+    """Every kernel's launch counts (the f-param search's as "fparam")."""
+    from gaussian_processes_tpu_torch.utils import tracing
+    return tracing.read_launch_counts()
 
 
 def add_counts(total, counts):
@@ -578,7 +787,6 @@ def phase8_population(torch, np, device, smi, totals):
     counted paths' launches to ``totals``."""
     from gaussian_processes_tpu_torch.config import FitConfig
     from gaussian_processes_tpu_torch.models import fit as F
-    from gaussian_processes_tpu_torch.ops import gram_cuda
     from gaussian_processes_tpu_torch.ops.kernels import crop_window_for_theta
     from gaussian_processes_tpu_torch.params import theta_bounds
     from gaussian_processes_tpu_torch.parallel import population as P
@@ -616,9 +824,9 @@ def phase8_population(torch, np, device, smi, totals):
                 (torch.cuda.max_memory_allocated(device) - base) / 2 ** 30)
 
     chunk = P.ladder_items(NT, POP_NTILDE, N_PX * N_PX, device)
-    gram_cuda.reset_counts()
+    reset_counts()
     carry, pop_s, pop_gib = population(r, cfg)
-    counts = gram_cuda.read_counts()
+    counts = read_counts()
     add_counts(totals, counts)
     lm = carry.track.logmarginal.double().cpu().numpy()
     print(f"fit_population (kernel): {pop_s:.3f} s, {pop_s / POP_CELLS:.3f} "
@@ -671,13 +879,13 @@ def phase8_population(torch, np, device, smi, totals):
 
     # sequential, the zoom search
     torch.cuda.synchronize()
-    gram_cuda.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     seq = P.fit_cells_sequential(x, r[:POP_SEQ_CELLS], cfg, xtilde=xtilde,
                                  thetas=POP_THETA, f_params=F_PARAMS0)
     torch.cuda.synchronize()
     seq_s = time.perf_counter() - t0
-    counts = gram_cuda.read_counts()
+    counts = read_counts()
     add_counts(totals, counts)
     seq_final = [float(res.track.logmarginal[-1]) for res in seq]
     print(f"fit_cells_sequential ({POP_SEQ_CELLS} cells, zoom): {seq_s:.3f} "
@@ -694,9 +902,9 @@ def phase8_population(torch, np, device, smi, totals):
 
     # the lab's 41-cell recording in one population
     rec_cfg = dataclasses.replace(cfg, maxiter=POP_RECORDING_ITERS)
-    gram_cuda.reset_counts()
+    reset_counts()
     rec, rec_s, rec_gib = population(r_all, rec_cfg)
-    add_counts(totals, gram_cuda.read_counts())
+    add_counts(totals, read_counts())
     lm_r = rec.track.logmarginal.double().cpu().numpy()
     print(f"fit_population, the {POP_RECORDING_CELLS}-cell recording, "
           f"{POP_RECORDING_ITERS} EM iterations: {rec_s:.3f} s, "
@@ -812,10 +1020,10 @@ def phase9_large(torch, np, device, smi, totals):
     torch.cuda.reset_peak_memory_stats(device)
     # cold: the first run also pays the 10 GB allocation and the solver's
     # set-up
-    gram_cuda.reset_counts()
+    reset_counts()
     K, gram_s = timed(lambda: L.large_gram(theta, xt, LARGE_PX,
                                            nb=LARGE_NB), diag_sample)
-    counts = gram_cuda.read_counts()
+    counts = read_counts()
     print(f"large_gram n={n} ({LARGE_PX}x{LARGE_PX} px, k {k}), row "
           f"blocks of {LARGE_NB}, cold: {gram_s:.3f} s, "
           f"{counts['gram']} Gram launches  [{smi}]")
@@ -848,10 +1056,10 @@ def phase9_large(torch, np, device, smi, totals):
     print(f"peak device memory of the Gram and the Cholesky: {peak:.2f} GiB")
     # warm: the same work through the benchmark module, its launches counted
     torch.cuda.synchronize()
-    gram_cuda.reset_counts()
+    reset_counts()
     large_rec, _ = large_ntilde.run(device=device)
     torch.cuda.synchronize()
-    counts = gram_cuda.read_counts()
+    counts = read_counts()
     add_counts(totals, counts)
     print(json.dumps(large_rec))
     detail = large_rec["detail"] or {}
@@ -868,13 +1076,13 @@ def phase9_large(torch, np, device, smi, totals):
     xstar = torch.as_tensor(np.random.default_rng(2).standard_normal(
         (8, k)).astype(np.float32), device=device)
     torch.cuda.synchronize()
-    gram_cuda.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     mu, alpha = L.large_posterior_mean(theta, xt, y, xstar, LARGE_PX,
                                        noise_var=LARGE_JITTER)
     torch.cuda.synchronize()
     post_s = time.perf_counter() - t0
-    counts = gram_cuda.read_counts()
+    counts = read_counts()
     add_counts(totals, counts)
     # (K + I) alpha - y and ||K + I||_F, by row blocks, in float64
     a64, y64 = alpha.double(), y.double()
@@ -951,13 +1159,13 @@ def phase10_entry_points(torch, np, device, smi, totals, x, r, xtilde, Xt,
         counts of that run alone (added to ``totals``); the operands of
         each new Gram shape it launches go to ``seen``."""
         torch.cuda.synchronize()
-        gram_cuda.reset_counts()
+        reset_counts()
         t0 = time.perf_counter()
         with operands_by_shape(gram_cuda, seen, path):
             out = fn()
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        counts = gram_cuda.read_counts()
+        counts = read_counts()
         add_counts(totals, counts)
         return out, sec, counts
 
@@ -1236,13 +1444,13 @@ def phase11_linesearches(torch, np, device, smi, totals, x, r, xtilde, cfg,
                               else None) as ev, first_batched_operands(
                 gram_cuda, ladder_ops if arm == "a" else []):
             torch.cuda.synchronize()
-            gram_cuda.reset_counts()
+            reset_counts()
             t0 = time.perf_counter()
             res = fit(x, r, c, xtilde=xtilde, theta=THETA0,
                       f_params=F_PARAMS0)
             torch.cuda.synchronize()
             sec = time.perf_counter() - t0
-        counts = gram_cuda.read_counts()
+        counts = read_counts()
         add_counts(totals, counts)
         loss = res.track.logmarginal.double().cpu().numpy()
         print(f"({arm}) {what}: {sec:.3f} s; objective evaluations {ev}; "
@@ -1371,7 +1579,7 @@ def phase12_warm_solvers(torch, np, device, smi, totals, x, r, xtilde,
         to ``totals``) and the solvers' host decisions; the first operands
         of each 2-D Gram shape go to ``seen``."""
         torch.cuda.synchronize()
-        gram_cuda.reset_counts()
+        reset_counts()
         decisions.clear()
         t0 = time.perf_counter()
         with collect_spans() as spans, operands_by_shape(
@@ -1380,7 +1588,7 @@ def phase12_warm_solvers(torch, np, device, smi, totals, x, r, xtilde,
                       f_params=F_PARAMS0, profile=True, backend=backend)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        counts = gram_cuda.read_counts()
+        counts = read_counts()
         add_counts(totals, counts)
         return res, sec, spans, counts, dict(decisions)
 
@@ -1576,10 +1784,11 @@ def phase13_mesh(torch, np, device, smi, totals, x, r, xtilde, cfg, res,
 
     import torch.distributed as dist
 
+    from gaussian_processes_tpu_torch.benchmarks.fparam_route import (
+        plain_fparam_route)
     from gaussian_processes_tpu_torch.config import FitConfig
     from gaussian_processes_tpu_torch.entry import dryrun_multichip
     from gaussian_processes_tpu_torch.models import fit as F
-    from gaussian_processes_tpu_torch.ops import gram_cuda
     from gaussian_processes_tpu_torch.ops.kernels import gram_matrices
     from gaussian_processes_tpu_torch.parallel import collectives as C
     from gaussian_processes_tpu_torch.parallel import (
@@ -1610,11 +1819,11 @@ def phase13_mesh(torch, np, device, smi, totals, x, r, xtilde, cfg, res,
         # (b) sharded_gram at bench.py's shape on the full grid
         theta = {k: torch.tensor(v, dtype=x.dtype, device=device)
                  for k, v in THETA0.items()}
-        gram_cuda.reset_counts()
+        reset_counts()
         with torch.no_grad():
             grams = sharded_gram(THETA0, x, xtilde, N_PX, mesh)
             sync()
-            counts = gram_cuda.read_counts()
+            counts = read_counts()
             add_counts(totals, counts)
             plain = gram_matrices(theta, x, xtilde, N_PX, shared=False,
                                   backend="torch")
@@ -1630,10 +1839,15 @@ def phase13_mesh(torch, np, device, smi, totals, x, r, xtilde, cfg, res,
             counts["gram"] > 0)
         del grams, plain
 
-        # (c) phase 4's fit with its rows over the mesh's "data" axis
+        # (c) phase 4's fit with its rows over the mesh's "data" axis,
+        # beside phase 4's fit on the mesh's own f-param route: the
+        # host-driven search (item 28)
+        with plain_fparam_route():
+            res_h = F.fit(x, r, cfg, xtilde=xtilde, theta=THETA0,
+                          f_params=F_PARAMS0)
         C.calls.clear()
         sync()
-        gram_cuda.reset_counts()
+        reset_counts()
         t0 = time.perf_counter()
         with collect_spans() as spans, collectives_by_iteration(
                 F, C) as per_iteration:
@@ -1641,14 +1855,25 @@ def phase13_mesh(torch, np, device, smi, totals, x, r, xtilde, cfg, res,
                           f_params=F_PARAMS0, profile=True, mesh=mesh)
         sync()
         mesh_s = time.perf_counter() - t0
-        counts = gram_cuda.read_counts()
+        counts = read_counts()
         add_counts(totals, counts)
-        loss = res.track.logmarginal.double().cpu().numpy()
+        # the control: phase 4's fit in float64 on the plain routes, against
+        # which phase 4's float32 kernel fit shows its own rounding
+        res_64 = F.fit(x.double(), r.double(), cfg, xtilde=xtilde.double(),
+                       theta=THETA0, f_params=F_PARAMS0, backend="torch")
+        loss = res_h.track.logmarginal.double().cpu().numpy()
+        loss_4 = res.track.logmarginal.double().cpu().numpy()
         loss_m = res_m.track.logmarginal.double().cpu().numpy()
+        loss_64 = res_64.track.logmarginal.double().cpu().numpy()
         err = float(np.max(np.abs(loss_m - loss) / np.abs(loss)))
+        err_4 = float(np.max(np.abs(loss_m - loss_4) / np.abs(loss_4)))
+        err_64 = float(np.max(np.abs(loss_4 - loss_64) / np.abs(loss_64)))
         print(f"(c) fit(mesh=) at phase 4's shape: {mesh_s:.3f} s (phase 4: "
               f"{fit_s:.3f} s); log-marginal {loss_m.tolist()}, max rel "
-              f"{err:.3e} from phase 4's; collectives "
+              f"{err:.3e} from phase 4's fit on the host-driven f-param "
+              f"search, {err_4:.3e} from phase 4's (its kernel; bound "
+              f"{MESH_KERNEL_RTOL:.0e}); phase 4's from its float64 plain "
+              f"twin {loss_64.tolist()}: {err_64:.3e}; collectives "
               f"{dict(C.calls)}, per EM iteration {per_iteration}; Gram "
               f"launches {counts['gram']}  [{smi}]")
         print(f"  fit spans (host s): {span_line(spans)}")
@@ -1685,8 +1910,12 @@ def phase13_mesh(torch, np, device, smi, totals, x, r, xtilde, cfg, res,
               f"plain {eval_ms['plain']}, through the collectives "
               f"{eval_ms['rows']}; one world-1 all-reduce {ar_us:.1f} us of "
               f"host  [{smi}]")
-        checks["(c) fit(mesh=) within 1e-5 of phase 4's at every "
-               "iteration"] = len(loss_m) == len(loss) and err <= 1e-5
+        checks["(c) fit(mesh=) within 1e-5 of phase 4's on the host-driven "
+               "f-param search at every iteration"] = (
+            len(loss_m) == len(loss) and err <= 1e-5)
+        checks[f"(c) fit(mesh=) within {MESH_KERNEL_RTOL:.0e} of phase 4's "
+               f"fit (the f-param kernel) at every iteration"] = (
+            len(loss_m) == len(loss_4) and err_4 <= MESH_KERNEL_RTOL)
         checks["(c) fit(mesh=) not failed"] = not res_m.failed
         checks["(c) the Gram kernel ran"] = counts["gram"] > 0
 
@@ -1700,12 +1929,12 @@ def phase13_mesh(torch, np, device, smi, totals, x, r, xtilde, cfg, res,
                          **dict(POP_STEPS, maxiter=3))
         kw = dict(xtilde=xtp, thetas=POP_THETA, f_params=F_PARAMS0)
         sync()
-        gram_cuda.reset_counts()
+        reset_counts()
         t0 = time.perf_counter()
         carry_m, _ = fit_population(xp, rp, pcfg, mesh=mesh, **kw)
         sync()
         pop_s = time.perf_counter() - t0
-        counts = gram_cuda.read_counts()
+        counts = read_counts()
         add_counts(totals, counts)
         t0 = time.perf_counter()
         carry_n, _ = fit_population(xp, rp, pcfg, **kw)
@@ -1840,7 +2069,7 @@ def phase14_unfitted(torch, np, device, smi, totals, x, r, xtilde, cfg, res):
     lower, upper = theta_bounds()
     crop = crop_window_for_theta(th64, N_PX, cfg.alpha_threshold,
                                  cfg.crop_margin, cfg.crop_bucket)
-    gram_cuda.reset_counts()
+    reset_counts()
 
     def autograd_grad(dtype, backend):
         xs, xts, rs = x.to(dtype), xtilde.to(dtype), r.to(dtype)
@@ -1867,7 +2096,7 @@ def phase14_unfitted(torch, np, device, smi, totals, x, r, xtilde, cfg, res):
     runs["(iii) float32, kernel"] = autograd_grad(torch.float32, None)
     torch.cuda.synchronize()
     auto_s = time.perf_counter() - t0
-    counts = gram_cuda.read_counts()
+    counts = read_counts()
     kernel_launches = gram_cuda.launches - launched
     add_counts(totals, counts)
     print(f"(a) M-step gradient at THETA0 ({int(keep.sum())} of {NTILDE} "
@@ -2036,7 +2265,7 @@ def drive_modules(torch, device, smi, totals, check_kernel, checked, plan,
     for name, module, kw in plan:
         seen, batched = {}, []
         torch.cuda.synchronize()
-        gram_cuda.reset_counts()
+        reset_counts()
         t = time.perf_counter()
         with operands_by_shape(gram_cuda, seen, name), \
                 first_batched_operands(gram_cuda, batched):
@@ -2044,7 +2273,7 @@ def drive_modules(torch, device, smi, totals, check_kernel, checked, plan,
         torch.cuda.synchronize()
         seconds[name] = time.perf_counter() - t
         del values
-        counts = gram_cuda.read_counts()
+        counts = read_counts()
         add_counts(totals, counts)
         records[name] = rec
         print(json.dumps(rec))
@@ -2187,7 +2416,7 @@ def main():
         active_loop, active_loop_pipelined)
     from gaussian_processes_tpu_torch.models.fit import fit
     from gaussian_processes_tpu_torch.models.inference import evaluate
-    from gaussian_processes_tpu_torch.ops import gram_cuda
+    from gaussian_processes_tpu_torch.ops import fparam_search, gram_cuda
     from gaussian_processes_tpu_torch.ops.kernels import (
         crop_window_for_theta, crop_window_from_scalars, gram_matrices,
         gram_matrices_windowed)
@@ -2208,12 +2437,21 @@ def main():
     print(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
           f" (CUDA {torch.version.cuda})")
     use_full_fp32()
-    lib = gram_cuda.load_library()
-    print(f"kernel build: {gram_cuda.build_seconds:.2f} s; Gram block "
-          f"dynamic shared memory {lib.acos_gram_smem_bytes()} B")
-    for line in gram_cuda.build_log.splitlines():
-        if any(key in line for key in PTXAS_KEYS):
-            print("  ptxas:", line.strip())
+    # one nvcc for each source, started together
+    with ThreadPoolExecutor(2) as pool:
+        lib, fp_lib = pool.map(lambda m: m.load_library(),
+                               (gram_cuda, fparam_search))
+    print(f"kernel build: acos_gram.cu {gram_cuda.build_seconds:.2f} s, "
+          f"fparam_lbfgs.cu {fparam_search.build_seconds:.2f} s (in "
+          f"parallel); Gram block dynamic shared memory "
+          f"{lib.acos_gram_smem_bytes()} B; f-param search block "
+          f"{fparam_search.THREADS} threads, dynamic shared memory at nt "
+          f"{NT} {fp_lib.fparam_lbfgs_smem_bytes(NT, 0, 4)} B (float32), "
+          f"{fp_lib.fparam_lbfgs_smem_bytes(NT, 0, 8)} B (float64)")
+    for mod in (gram_cuda, fparam_search):
+        for line in mod.build_log.splitlines():
+            if any(key in line for key in PTXAS_KEYS):
+                print("  ptxas:", line.strip())
 
     X, R = bench.make_data()
     Xt, Rt = bench.make_test_data()
@@ -2373,16 +2611,18 @@ def main():
     cfg = FitConfig(ntilde=NTILDE, maxiter=3, n_estep=10, n_mstep=10,
                     n_fparamstep=10, n_px_side=N_PX, track_variational=False)
     totals = {}
+    fp_main = []
     torch.cuda.synchronize()
-    gram_cuda.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     with objective_counts() as evals_full, \
-            collect_spans() as spans_full:
+            collect_spans() as spans_full, fparam_operands(fp_main):
         res = fit(x, r, cfg, xtilde=xtilde, theta=THETA0, f_params=F_PARAMS0,
                   profile=True)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches_fit = gram_cuda.launches
+    fparam_launches_fit = fparam_search.launches
     _, rates, r2, sigma_r2 = evaluate(
         res, torch.as_tensor(Xt, device=device),
         torch.as_tensor(Rt, device=device), nbootstrap=200)
@@ -2390,7 +2630,7 @@ def main():
     torch.cuda.synchronize()
     launches_main = gram_cuda.launches
     split_launches_main = gram_cuda.split_launches
-    add_counts(totals, gram_cuda.read_counts())
+    add_counts(totals, read_counts())
 
     loss = res.track.logmarginal.double().cpu().numpy()
     print(f"fit init {res.timing['init']:.3f} s; per-iteration s "
@@ -2404,7 +2644,8 @@ def main():
           f"{bool(torch.all(torch.isfinite(rates)))}, shape "
           f"{tuple(rates.shape)}")
     print(f"acos_gram launches: fit {launches_fit}, fit + evaluate "
-          f"{launches_main}; split-pass launches {split_launches_main}")
+          f"{launches_main}; split-pass launches {split_launches_main}; "
+          f"fparam_lbfgs launches {fparam_launches_fit} (one a search)")
 
     # the same fit through the plain Gram, on the card
     res_plain = fit(x, r, cfg, xtilde=xtilde, theta=THETA0,
@@ -2422,6 +2663,8 @@ def main():
         "r2 finite": math.isfinite(r2) and math.isfinite(sigma_r2),
         "kernel launched on the main path": launches_main > 0,
         "split pass launched on the main path": split_launches_main > 0,
+        "f-param search kernel launched once a search":
+            fparam_launches_fit == len(fp_main) > 0,
         "log-marginal within 1e-3 of the plain-Gram fit":
             len(loss) == len(loss_plain) and plain_err <= REFERENCE_RTOL,
     }
@@ -2468,16 +2711,18 @@ def main():
         "d": (active_loop, "random", {}),
     }
     out, launches_loop, split_launches_loop = {}, {}, {}
+    fp_loop = []
     for arm, (loop, select, extra) in arms.items():
         torch.cuda.synchronize()
-        gram_cuda.reset_counts()
+        reset_counts()
         t0 = time.perf_counter()
-        o = loop(x, r, select=select, **loop_kw, **extra)
+        with fparam_operands(fp_loop if arm == "a" else []):
+            o = loop(x, r, select=select, **loop_kw, **extra)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches_loop[arm] = gram_cuda.launches
         split_launches_loop[arm] = gram_cuda.split_launches
-        add_counts(totals, gram_cuda.read_counts())
+        add_counts(totals, read_counts())
         out[arm] = o
         print(f"loop ({arm}) {loop.__name__}, {select}: {wall:.3f} s, "
               f"{wall / (N_ADD + 1):.3f} s per round over {N_ADD + 1} refits"
@@ -2487,7 +2732,8 @@ def main():
               f"{float(o.final_fit.track.logmarginal[-1]):.4f}, logA "
               f"{float(o.final_fit.f_params['logA']):.4f}; acos_gram "
               f"launches {launches_loop[arm]}, split-pass launches "
-              f"{split_launches_loop[arm]}")
+              f"{split_launches_loop[arm]}, fparam_lbfgs launches "
+              f"{fparam_search.launches}")
         picks = o.selected_idx
         checks = {
             f"{N_ADD} distinct picks": (len(picks) == N_ADD
@@ -2495,6 +2741,7 @@ def main():
             "no pick in the start set": not set(picks) & set(start.tolist()),
             "final fit not failed": not o.final_fit.failed,
             "kernel launched": launches_loop[arm] > 0,
+            "f-param search kernel launched": fparam_search.launches > 0,
         }
         if select == "utility":
             checks["utilities finite"] = bool(np.all(np.isfinite(
@@ -2570,6 +2817,15 @@ def main():
         raise RuntimeError("the scorer through the kernel disagrees with the "
                            "scorer through the plain Gram")
 
+    # ---- 6b. the f-param search kernel against its plain version ---------
+    stamp("6b")
+    fp_found = []
+    for name, ops in (("phase 4 first E-step", fp_main[0]),
+                      ("phase 4 last E-step", fp_main[-1]),
+                      ("loop (a) first refit", fp_loop[0])):
+        check_fparam(torch, smi, name, ops, fp_found)
+    del fp_main, fp_loop
+
     # ---- 7-8. the batched kernel and the population ----------------------
     stamp("7-8")
     batched = phase8_population(torch, np, device, smi, totals)
@@ -2614,11 +2870,13 @@ def main():
     shapes = totals.pop("shapes", {})
     print(f"launches over the main paths (phases 4, 6, 8, 9, 10, 11, 12, "
           f"13, 14, 15, 16, 17): {totals}")
+    print("f-param search kernel against its plain version (phase 6b): "
+          + json.dumps(fp_found))
     print("Gram launches on the main paths by (batch, m, n, k): "
           + ", ".join(f"{shape}: {c}" for shape, c in sorted(
               shapes.items(), key=lambda kv: -kv[1])))
     for key, what in (("gram", "2-D Gram"), ("batched", "batched Gram"),
-                      ("split", "split pass")):
+                      ("split", "split pass"), ("fparam", "f-param search")):
         if totals.get(key, 0) <= 0:
             raise RuntimeError(f"the {what} kernel was not launched on the "
                                f"main paths")
@@ -2628,6 +2886,10 @@ def main():
     replaces = "gaussian_processes_tpu/ops/gram_pallas.py:80"
     gram_ms, gram_by = gram_bound(1, NT, NTILDE, 6400)
     sp_ms, sp_by = split_bound(NT, 6400)
+    # the main path's search: phase 4's last E-step, float32, 15 trials
+    fp_main_case = next(c for c in fp_found if c["name"] == "phase 4 last "
+                        "E-step" and c["dtype"] == "float32"
+                        and c["trials"] == 15)
     print(json.dumps({"kernels": [{
         "name": "acos_gram",
         "route": "cuda",
@@ -2666,6 +2928,19 @@ def main():
         "bound_ms": sp_ms,
         "bound_by": sp_by,
         "library_ms": None,
+    }, {
+        "name": "fparam_lbfgs",
+        "route": "cuda",
+        "source": "gaussian_processes_tpu_torch/csrc/fparam_lbfgs.cu",
+        "replaces": "gaussian_processes_tpu/models/fit.py:331",
+        "launches": totals["fparam"],
+        "max_abs_err": max(c["dlogA"] for c in fp_found),
+        "ms": fp_main_case["ms"],
+        "plain_ms": fp_main_case["plain_ms"],
+        "bound_ms": fp_main_case["bound_ms"],
+        "bound_by": fp_main_case["bound_by"],
+        "library_ms": None,
+        "us_per_evaluation": fp_main_case["us_per_eval"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,10 +36,10 @@ Prints exactly one JSON line (``metric``, ``value``, ``unit``,
 ``vs_baseline``, ``phase``, ``quality``, ``note`` when a gate fails) with
 the timed runs' min, max and seconds, the warm-up's seconds, the card's
 name and power limit (``device``), which Gram ran (``kernel``), and the
-first timed run's Gram launches by shape, inner-objective evaluations,
-loss and kept rank per iteration and ``fit.*`` spans (``profile``), and
-the gates' Gram launches.  Exits 0 when both gates pass, 1 when one
-fails.  ``GPTPU_BENCH_BUDGET`` (default 1500 s) bounds the run: past it
+first timed run's Gram launches by shape and f-param search launches,
+inner-objective evaluations, loss and kept rank per iteration and
+``fit.*`` spans (``profile``), and the gates' launches.  Exits 0 when
+both gates pass, 1 when one fails.  ``GPTPU_BENCH_BUDGET`` (default 1500 s) bounds the run: past it
 the record holds what was measured so far and the process exits 3.
 ``GPTPU_BENCH_MEASURE_GOLDEN=1`` runs the ungated configuration and
 reports its final loss as ``golden_remeasured`` instead of gating against
@@ -92,7 +92,8 @@ from .ops import gram_cuda
 from .ops.kernels import (crop_window_from_scalars, gram_matrices,
                           gram_matrices_windowed)
 from .params import default_f_params, generate_theta, get_sta
-from .utils.tracing import collect_spans, objective_counts
+from .utils.tracing import (collect_spans, objective_counts, read_launch_counts,
+                            reset_launch_counts)
 
 BASELINE_SECONDS = 85.2
 
@@ -450,12 +451,12 @@ def run_bench(nt: int = NT, n_px: int = N_PX, ntilde: int = NTILDE,
     results = []
     for i in range(repeats):
         if i == 0:
-            gram_cuda.reset_counts()
+            reset_launch_counts()
             with objective_counts() as evals, collect_spans() as spans:
                 t0 = time.perf_counter()
                 res = run()
                 elapsed = time.perf_counter() - t0
-            launches = gram_cuda.read_counts()
+            launches = read_launch_counts()
             by_shape = _counts_by_shape(launches)
             if device.type == "cuda" and launches["gram"] == 0:
                 raise RuntimeError("the timed fit launched the Gram kernel "
@@ -503,7 +504,7 @@ def run_bench(nt: int = NT, n_px: int = N_PX, ntilde: int = NTILDE,
                  easy_loss_budget=GOLDEN["easy_loss_budget"],
                  easy_gate_ok=ok_easy)
     progress.phase = "gates"
-    gram_cuda.reset_counts()
+    reset_launch_counts()
     # the easy held-out r^2 (information: it saturates near 1 by design)
     try:
         r2, sigma = _r2(res, x_test, r_test, perms)
@@ -543,7 +544,7 @@ def run_bench(nt: int = NT, n_px: int = N_PX, ntilde: int = NTILDE,
             progress.set(q, hard_gate_error=str(e)[:200])
             ok_hard = False
         progress.set(q, hard_gate_ok=bool(ok_hard))
-    gate_launches = gram_cuda.read_counts()
+    gate_launches = read_launch_counts()
     gate_launches["shapes"] = _counts_by_shape(gate_launches)
     progress.set(progress.top["profile"], gate_launches=gate_launches)
 

@@ -51,7 +51,7 @@ import torch
 from .. import bench
 from ..config import FitConfig, resolve_device
 from ..models.active import active_loop
-from ..ops import gram_cuda
+from ..ops import fparam_search, gram_cuda
 from . import common
 
 STEPS = dict(maxiter=10, n_estep=5, n_mstep=5, n_fparamstep=5)
@@ -117,7 +117,8 @@ def run(seeds=None, n_start=None, n_add=None, hard_kwargs=None, emit=None,
         else n_start
     n_add = int(env.get("GPTPU_AB_NADD", "150")) if n_add is None else n_add
     if device.type == "cuda":
-        gram_cuda.load_library()         # the build stays off the clock
+        gram_cuda.load_library()         # the builds stay off the clock
+        fparam_search.load_library()
 
     curves = {"active": [], "random": []}
     records, values, ok = [], {}, True

@@ -49,7 +49,7 @@ import torch
 from .. import bench
 from ..config import resolve_device
 from ..models.fit import fit
-from ..ops import gram_cuda
+from ..ops import fparam_search, gram_cuda
 from . import common
 
 # bench_bad_init.py:43-51: the planted RF's centre, and the wrong start
@@ -102,7 +102,8 @@ def run(maxiter=None, nt: int = bench.NT, n_px: int = bench.N_PX,
     cfg = bench.make_config(maxiter, ntilde, n_px, **steps)
     f_params = common.tensors(bench.F_PARAMS0, dtype, device)
     if device.type == "cuda":
-        gram_cuda.load_library()         # the build stays off the clock
+        gram_cuda.load_library()         # the builds stay off the clock
+        fparam_search.load_library()
 
     def arm(theta, c):
         return _timed(x, r, c, xtilde, common.tensors(theta, dtype, device),

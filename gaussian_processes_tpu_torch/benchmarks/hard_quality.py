@@ -50,7 +50,7 @@ from ..config import resolve_device
 from ..data import synthetic_retina_hard
 from ..models.fit import fit
 from ..models.inference import explained_variance
-from ..ops import gram_cuda
+from ..ops import fparam_search, gram_cuda
 from . import common
 
 # benchmarks/bench_hard_quality.py:40-70 without static_schedule
@@ -130,7 +130,8 @@ def run(names=None, seed=None, maxiter=None, warm=None, oracle=None,
 
     base = bench.make_config(maxiter, ntilde, n_px, **steps)
     if device.type == "cuda":
-        gram_cuda.load_library()         # the build stays off the clock
+        gram_cuda.load_library()         # the builds stay off the clock
+        fparam_search.load_library()
     records, values = [], {}
     for name in names:
         cfg = dataclasses.replace(base, **LADDER[name])

@@ -41,6 +41,9 @@ iteration; the values agree wherever both budgets cover the kept rank.
 
 Every Gram goes through ``ops/kernels._gram_core``: on CUDA tensors through
 the fused kernel (``ops/gram_cuda``), forward and hand-written backward.
+The single-cell fit's zoom f-param search (no mesh) goes through
+``ops/fparam_search``: on CUDA tensors one kernel launch a search, which
+keeps the whole L-BFGS on the card as JAX's compiled E-step does.
 
 The inner L-BFGS runs (``_minimize``, by ``cfg.linesearch``) take one of
 five line searches.  The speculative and Armijo searches evaluate their
@@ -86,6 +89,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from ..config import FitConfig, use_full_fp32
+from ..ops.fparam_search import fparam_search
 from ..ops.kernels import (crop_images, crop_window_from_scalars,
                            gram_matrices, gram_matrices_precropped,
                            gram_matrices_projected, gram_matrices_windowed,
@@ -388,7 +392,7 @@ def _fparam_objective(logA, r, lambda_m, lambda_var, wt=None, rows=None):
 
 def _estep_block(r, kern: KernelState, m_b, V_b, f_params, lambda_m,
                  lambda_var, cfg: FitConfig, wt=None, lanes: bool = False,
-                 rows=None):
+                 rows=None, backend: Optional[str] = None):
     """n_estep Newton updates on (m_b, V_b), each followed by an L-BFGS
     update of logA with closed-form lambda0 (reference:
     utils.py:1859-1943).  Under ``cfg.estep_solver == "schulz"`` every
@@ -399,8 +403,17 @@ def _estep_block(r, kern: KernelState, m_b, V_b, f_params, lambda_m,
     trials against (1, nt) moments in one call.  ``lanes``: every argument
     carries a leading cell axis and the f-param L-BFGS is batched over
     cells (its trial axis against (L, 1, nt) moments); the gate is then
-    refused (``fit_population`` zeroes it)."""
+    refused (``fit_population`` zeroes it).
+
+    The single-cell zoom searches ("zoom", "zoom_carry": both run the
+    f-param search without a carried memory) without a mesh go through
+    ``ops/fparam_search.fparam_search``, which on the card is one kernel
+    launch a search (``backend``: "torch" keeps the host-driven search);
+    the cell-batched Armijo search, the mesh's rows and the speculative
+    and backtracking searches run on the host."""
     early = cfg.estep_tol > 0.0
+    on_card = (not lanes and rows is None
+               and cfg.linesearch in ("zoom", "zoom_carry"))
     if lanes and early:
         raise ValueError("the cell-batched fit runs without convergence "
                          "gates: estep_tol=0")
@@ -425,15 +438,22 @@ def _estep_block(r, kern: KernelState, m_b, V_b, f_params, lambda_m,
             lambda_m, lambda_var = lambda_moments(kern.a, kern.K_b,
                                                   kern.Kvec, m_b, V_b)
         with trace_annotation("fit.estep.fparams"):
-            logA, _ = _minimize(
-                cfg, partial(_fparam_objective, r=trial_axis(r),
-                             lambda_m=trial_axis(lambda_m),
-                             lambda_var=trial_axis(lambda_var), wt=wt,
-                             rows=rows),
-                f_params["logA"], cfg.n_fparamstep, lanes,
-                ladder=None if lanes else partial(
-                    _fparam_objective, r=r[None], lambda_m=lambda_m[None],
-                    lambda_var=lambda_var[None], wt=wt, rows=rows))
+            if on_card:
+                logA, _ = fparam_search(
+                    f_params["logA"], r, lambda_m, lambda_var, wt,
+                    cfg.n_fparamstep, cfg.max_linesearch_steps,
+                    backend=backend)
+            else:
+                logA, _ = _minimize(
+                    cfg, partial(_fparam_objective, r=trial_axis(r),
+                                 lambda_m=trial_axis(lambda_m),
+                                 lambda_var=trial_axis(lambda_var), wt=wt,
+                                 rows=rows),
+                    f_params["logA"], cfg.n_fparamstep, lanes,
+                    ladder=None if lanes else partial(
+                        _fparam_objective, r=r[None],
+                        lambda_m=lambda_m[None],
+                        lambda_var=lambda_var[None], wt=wt, rows=rows))
         lam0 = lambda0_given_logA(logA, r, lambda_m, lambda_var, weight=wt,
                                   rows=rows)
         f_params = {"logA": logA, "lambda0": lam0}
@@ -689,7 +709,7 @@ def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
         with trace_annotation("fit.estep"):
             m_b, V_b, f_params, lambda_m, lambda_var = _estep_block(
                 r, kern, m_b, V_b, f_params, lambda_m, lambda_var, cfg, wt,
-                rows=rows)
+                rows=rows, backend=backend)
 
     # loss decomposition (utils.py:1953-1991)
     f_mean = mean_f_given_lambda_moments(f_params, lambda_m, lambda_var)

@@ -30,7 +30,7 @@ passes half the gradient where the clip is exactly at a bound, as
 
 The kernels are built at first use with ``nvcc`` into ``build/kernels/`` at
 the repository root, keyed by a hash of the source and flags, and loaded
-with ``ctypes``.  ``launches`` counts launches of the Gram kernel (one per
+with ``ctypes`` (``ops/cuda_build``).  ``launches`` counts launches of the Gram kernel (one per
 ``acos_gram`` call on the card, whatever helper kernels it runs),
 ``batched_launches`` those of them with a batch axis, ``items`` the Grams
 they computed (the batch sizes summed), ``shape_launches`` the launches by
@@ -46,24 +46,16 @@ import collections
 import ctypes
 import dataclasses
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
 from ..config import COSDELTA_JITTER
+from . import cuda_build
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "acos_gram.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+_SRC = "acos_gram.cu"
+NVCC_FLAGS = cuda_build.NVCC_FLAGS
 
 # The kernel's tiling (csrc/acos_gram.cu): one block computes a BM x BN tile
 # of K over a range of k in blocks of BK floats, one block per SM.
@@ -129,47 +121,13 @@ def recorded_operands(build) -> list:
     return calls
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the acos_gram kernel is built "
-                           "with the CUDA toolkit at first use")
-    return found
-
-
 def load_library():
-    """Build (if needed) and load the kernel library; returns the ctypes
-    handle.  The output name carries a hash of the source and flags, so an
-    edited source rebuilds, and the build is written to a temporary name
-    and renamed, so concurrent processes never load a half-written file."""
+    """Build (if needed) and load the kernel library (``ops/cuda_build``);
+    returns the ctypes handle."""
     global _lib, build_seconds, build_log
     if _lib is not None:
         return _lib
-    src = _SRC.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so_path = _BUILD_DIR / f"libacos_gram_{key}.so"
-    t0 = time.perf_counter()
-    if not so_path.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed building {_SRC}:\n{proc.stderr}")
-            build_log = proc.stderr
-            os.replace(tmp, so_path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    lib = ctypes.CDLL(str(so_path))
+    lib, build_seconds, build_log = cuda_build.build(_SRC, NVCC_FLAGS)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.tf32_split_f32.argtypes = [ptr, ptr, i32, i32, i32, ptr]
     lib.tf32_split_f32.restype = i32
@@ -179,7 +137,6 @@ def load_library():
     lib.acos_gram_error_string.restype = ctypes.c_char_p
     lib.acos_gram_smem_bytes.argtypes = []
     lib.acos_gram_smem_bytes.restype = i32
-    build_seconds = time.perf_counter() - t0
     _lib = lib
     return lib
 

@@ -22,6 +22,8 @@ The reference instruments varGP with ``time.time()`` accumulators per phase
 * ``objective_counts``: the evaluations of the fit's two inner objectives
   (the E-step's f-param L-BFGS and the M-step's) and its Newton steps
   while a block runs;
+* ``reset_launch_counts`` / ``read_launch_counts``: every hand-written
+  kernel's launch counts at once;
 * ``decisions``: the host decisions of the warm solvers and the projected
   Gram, counted where the host already reads their guard (no added
   synchronization): ``eigensolver.warm`` / ``.refresh`` / ``.fallback``
@@ -135,6 +137,21 @@ def collect_spans(timer: Optional[PhaseTimer] = None):
         _span_timer.reset(token)
 
 
+def reset_launch_counts() -> None:
+    """Set every kernel's launch counts to 0: the Gram's
+    (``ops/gram_cuda``) and the f-param search's (``ops/fparam_search``)."""
+    from ..ops import fparam_search, gram_cuda
+    gram_cuda.reset_counts()
+    fparam_search.reset_counts()
+
+
+def read_launch_counts() -> dict:
+    """``gram_cuda.read_counts()`` with the f-param search kernel's
+    launches under "fparam"."""
+    from ..ops import fparam_search, gram_cuda
+    return dict(gram_cuda.read_counts(), fparam=fparam_search.launches)
+
+
 @contextlib.contextmanager
 def objective_counts(ladders: Optional[list] = None):
     """Evaluations of the fit's two inner objectives (the E-step's f-param
@@ -143,8 +160,12 @@ def objective_counts(ladders: Optional[list] = None):
     counted apart, with the trials they held ("*_ladder", "*_items"), and
     so are the E-step's Newton steps.  Each M-step ladder's trial thetas
     go to the list ``ladders`` when one is given.  The counters wrap the
-    functions in ``models/fit`` for the block's duration."""
+    functions in ``models/fit`` for the block's duration.  The f-param
+    searches that ran as kernels on the card (``ops/fparam_search``) count
+    their evaluations on the device: those are read once, at the block's
+    exit, and added to "fparam"."""
     from ..models import fit as fit_module
+    from ..ops import fparam_search
 
     counts = {"fparam": 0, "mstep": 0, "fparam_ladder": 0, "fparam_items": 0,
               "mstep_ladder": 0, "mstep_items": 0, "newton": 0}
@@ -177,11 +198,13 @@ def objective_counts(ladders: Optional[list] = None):
 
     for name, fn in zip(names, (fparam, mstep, mstep_ladder, newton)):
         setattr(fit_module, name, fn)
+    on_card = fparam_search.evaluation_counters()
     try:
         yield counts
     finally:
         for name, fn in real.items():
             setattr(fit_module, name, fn)
+        counts["fparam"] += fparam_search.evaluations_since(on_card)
 
 
 @dataclasses.dataclass

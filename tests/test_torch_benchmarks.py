@@ -39,8 +39,8 @@ from gaussian_processes_tpu.parallel import population as jpop
 from gaussian_processes_tpu_torch import bench as tb
 from gaussian_processes_tpu_torch.benchmarks import (
     ab_active_vs_random_hard, acquisition, active_pipelined, active_refit,
-    bad_init, common, hard_quality, large_ntilde, parity_production,
-    population)
+    bad_init, common, fparam_route, hard_quality, large_ntilde,
+    parity_production, population)
 
 torch.set_num_threads(1)
 
@@ -48,7 +48,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 12
 MODULES = (acquisition, active_refit, large_ntilde, active_pipelined,
            population, parity_production, hard_quality, bad_init,
-           ab_active_vs_random_hard)
+           ab_active_vs_random_hard, fparam_route)
 SMALL = dict(maxiter=3, n_estep=3, n_mstep=2, n_fparamstep=3)
 
 
@@ -433,7 +433,9 @@ def test_secondary_list_is_the_jax_benchs():
 def test_secondary_timeouts_scale_as_the_jax_benchs(budget, left,
                                                     monkeypatch):
     """The same deadline and budget give the same timeouts and the same
-    skips on both runners (each child a stand-in that prints JSON)."""
+    skips on both runners (each child a stand-in that prints JSON).  Both
+    runners read the clock for the time left; it is frozen, so that they
+    read the same time."""
     jb = jax_bench()
     seen = {"jax": [], "torch": []}
 
@@ -443,8 +445,11 @@ def test_secondary_timeouts_scale_as_the_jax_benchs(budget, left,
             return subprocess.CompletedProcess(cmd, 0, '{"x": 1}\n', "")
         return run
 
+    now = jb.time.monotonic()
+    monkeypatch.setattr(jb.time, "monotonic", lambda: now)
+    monkeypatch.setattr(tb.time, "monotonic", lambda: now)
     monkeypatch.setattr(jb.subprocess, "run", fake("jax"))
-    deadline = jb.time.monotonic() + left
+    deadline = now + left
     monkeypatch.setitem(jb._state, "secondary", {})
     jb._run_secondary(deadline, budget)
     jax_out = dict(jb._state["secondary"])

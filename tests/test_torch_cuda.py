@@ -609,3 +609,125 @@ def test_masked_inverse_warm_on_card_matches_cpu_float64(dev):
     assert decisions["mstep.schulz"] == 1
     err = (got.double().cpu() - want).abs().max() / want.abs().max()
     assert float(err) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("max_ls", [15, 4])
+@pytest.mark.parametrize("pad", [0, 4])
+def test_fparam_search_kernel_matches_plain(dev, dtype, max_ls, pad):
+    """The f-param search kernel against its plain version (the host-driven
+    zoom L-BFGS through autograd) at nt 3160, 10 steps, one launch.
+    float64: run for k = 1..10 steps, the same number of evaluations and
+    logA within 1e-9 until the plain search sits at its minimum (value
+    within 1e-12 of its last), past which last-ulp differences decide the
+    trials; at 10 steps the best values within 1e-12 and logA within 1e-9.
+    float32 by outcome: the
+    objective at the two results within 1e-5 relative, logA within 1e-4
+    or within the float32 rounding width of the minimum (as chip_smoke.py
+    phase 6b bounds it)."""
+    import math
+
+    import numpy as np
+
+    from gaussian_processes_tpu_torch.ops import fparam_search as fs
+    from gaussian_processes_tpu_torch.utils.tracing import objective_counts
+
+    rng = np.random.default_rng(3)
+    nt = 3160
+    lm = rng.standard_normal(nt)
+    lv = rng.uniform(0.1, 0.5, nt)
+    r = rng.poisson(np.exp(0.4 * lm + 0.08 * lv + 0.2)).astype(float)
+    w = np.ones(nt)
+    w[nt - pad:] = 0.0
+    args = [torch.as_tensor(a, dtype=dtype, device=dev)
+            for a in (r, lm, lv)] + [
+        torch.as_tensor(w, dtype=dtype, device=dev) if pad else None]
+    x0 = torch.tensor(math.log(0.01), dtype=dtype, device=dev)
+
+    def search(k, backend=None):
+        with objective_counts() as ev:
+            x, f = fs.fparam_search(x0, *args, k, max_ls, backend=backend)
+            x, f = float(x), float(f)
+        return x, f, ev["fparam"]
+
+    launches = fs.launches
+    xk, fk, nk = search(10)
+    assert fs.launches == launches + 1
+    xp, fp, npl = search(10, "torch")
+    a64 = [None if a is None else a.double() for a in args]
+
+    def vg(x):
+        v, g = fs.fparam_value_and_grad_torch(
+            torch.tensor(x, dtype=torch.float64, device=dev), *a64)
+        return float(v), float(g)
+
+    assert abs(vg(xk)[0] - vg(xp)[0]) <= (
+        1e-12 if dtype == torch.float64 else 1e-5) * abs(vg(xp)[0])
+    if dtype == torch.float32:
+        curv = (vg(xp + 1e-4)[1] - vg(xp - 1e-4)[1]) / 2e-4
+        width = math.sqrt(2 * 2.0 ** -23 * abs(vg(xp)[0]) / curv)
+        assert abs(xk - xp) <= max(1e-4, width)
+        return
+    assert abs(fk - fp) <= 1e-12 * abs(fp)
+    assert abs(xk - xp) <= 1e-9
+    for k in range(1, 11):
+        xpk, fpk, npk = search(k, "torch")
+        xkk, _, nkk = search(k)
+        if abs(fpk - fp) <= 1e-12 * abs(fp) and (
+                abs(xkk - xpk) > 1e-9 or nkk != npk):
+            break
+        assert abs(xkk - xpk) <= 1e-9 and nkk == npk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", [dict(gtol=1.0), dict(ftol=1e-3),
+                                  dict(ftol_rel=1e-8)],
+                         ids=["gtol", "ftol", "ftol_rel"])
+def test_fparam_search_kernel_gates_match_plain(dev, gate):
+    """The gtol/ftol/ftol_rel gates (0 at the fit's f-param site) stop the
+    kernel's search where they stop the plain search: float64, nt 3160, 20
+    steps, the same evaluations, logA within 1e-9 and the best values
+    within 1e-12; each gate stops it well before the ungated 20 steps
+    (which take 227 evaluations on the CPU)."""
+    import math
+
+    import numpy as np
+
+    from gaussian_processes_tpu_torch.ops import fparam_search as fs
+    from gaussian_processes_tpu_torch.utils.tracing import objective_counts
+
+    rng = np.random.default_rng(3)
+    nt = 3160
+    lm = rng.standard_normal(nt)
+    lv = rng.uniform(0.1, 0.5, nt)
+    r = rng.poisson(np.exp(0.4 * lm + 0.08 * lv + 0.2)).astype(float)
+    args = [torch.as_tensor(a, dtype=torch.float64, device=dev)
+            for a in (r, lm, lv)] + [None]
+    x0 = torch.tensor(math.log(0.01), dtype=torch.float64, device=dev)
+
+    def search(backend=None, **kw):
+        with objective_counts() as ev:
+            x, f = fs.fparam_search(x0, *args, 20, 15, backend=backend, **kw)
+            x, f = float(x), float(f)
+        return x, f, ev["fparam"]
+
+    xk, fk, nk = search(**gate)
+    xp, fp, npl = search("torch", **gate)
+    _, _, n_all = search("torch")
+    assert nk == npl < n_all // 4
+    assert abs(xk - xp) <= 1e-9
+    assert abs(fk - fp) <= 1e-12 * abs(fp)
+
+
+@pytest.mark.cuda
+def test_fparam_search_raises_instead_of_falling_back(dev):
+    from gaussian_processes_tpu_torch.ops import fparam_search as fs
+
+    r = torch.ones(8, device=dev)
+    x0 = torch.tensor(-1.0, device=dev)
+    with pytest.raises(TypeError):
+        fs.fparam_search(x0.half(), r.half(), r.half(), r.half(), None, 3,
+                         4)
+    with pytest.raises(ValueError):
+        fs.fparam_search(x0, r, r[:4], r, None, 3, 4)

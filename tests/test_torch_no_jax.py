@@ -31,6 +31,7 @@ def test_every_module_is_listed():
     names = _modules()
     for expected in ("config", "params", "data", "convert", "ops.kernels",
                      "ops.gram_cuda", "ops.stabilize", "ops.lambertw",
+                     "ops.fparam_search", "ops.cuda_build",
                      "ops.analytic_grads",
                      "models.moments", "models.estep", "models.fit",
                      "models.inference", "models.acquisition",
@@ -49,7 +50,8 @@ def test_every_module_is_listed():
                      "benchmarks.population",
                      "benchmarks.parity_production",
                      "benchmarks.hard_quality", "benchmarks.bad_init",
-                     "benchmarks.ab_active_vs_random_hard"):
+                     "benchmarks.ab_active_vs_random_hard",
+                     "benchmarks.fparam_route"):
         assert f"gaussian_processes_tpu_torch.{expected}" in names
 
 

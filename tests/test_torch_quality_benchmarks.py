@@ -33,7 +33,7 @@ from gaussian_processes_tpu.models.inference import (
     evaluate as j_evaluate, explained_variance as j_explained_variance)
 from gaussian_processes_tpu_torch import bench as tb
 from gaussian_processes_tpu_torch.benchmarks import (
-    ab_active_vs_random_hard as ab, bad_init, hard_quality)
+    ab_active_vs_random_hard as ab, bad_init, fparam_route, hard_quality)
 from gaussian_processes_tpu_torch.models import active as tact
 from gaussian_processes_tpu_torch.models.inference import (
     explained_variance, predict)
@@ -195,6 +195,44 @@ def test_ladder_reads_its_env_when_run(monkeypatch):
         assert ("oracle_r2" in record) is bool(int(oracle))
     with pytest.raises(ValueError, match="unknown rungs"):
         hard_quality.run(names=("exact", "nope"), device="cpu")
+
+
+def test_fparam_route_arms_are_the_gate_rung_on_each_route(ladder,
+                                                           monkeypatch):
+    """benchmarks/fparam_route: each arm is the hard gate's rung ("exact_dyn",
+    the "exact" configuration) as hard_quality runs it, the plain arm with
+    every f-param search asked for backend="torch" and the kernel arm with
+    none; on the CPU both are the plain route, so both arms equal the
+    ladder's "exact" rung bit for bit."""
+    from gaussian_processes_tpu_torch.models import fit as fit_module
+
+    backends = []
+    real = fit_module.fparam_search
+
+    def recording(*args, **kwargs):
+        backends.append(kwargs.get("backend"))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(fit_module, "fparam_search", recording)
+    record, values = fparam_route.run(
+        seeds=(0,), maxiter=3, ntilde=48, xtilde_idx=jax_idx(120, 48),
+        hard_kwargs=HARD, device="cpu", dtype=torch.float64, **STEPS)
+    assert fit_module.fparam_search is recording
+    n = len(backends) // 2
+    assert n > 0 and backends == [None] * n + ["torch"] * n
+    exact = next(rec for rec in ladder[0]["ladder"] if rec["name"] == "exact")
+    assert [(rec["seed"], rec["route"]) for rec in record["fits"]] == [
+        (0, "kernel"), (0, "plain")]
+    for rec in record["fits"]:
+        assert rec["r2"] == exact["r2"]
+        assert rec["final_loss"] == exact["final_loss"]
+        assert rec["fparam_evaluations"] > 0 and not rec["failed"]
+    assert record["dr2"] == {"0": 0.0} and record["dloss"] == {"0": 0.0}
+    assert record["ok"] and record["rung"] == "exact_dyn"
+    assert record["dtype"] == "float64"
+    np.testing.assert_array_equal(values[0, "kernel"]["loss"],
+                                  values[0, "plain"]["loss"])
+    json.loads(json.dumps(record), parse_constant=pytest.fail)
 
 
 # ---- bad init ---------------------------------------------------------------
