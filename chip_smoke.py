@@ -8,7 +8,8 @@ Phases (none catches its own failure; any failure exits non-zero):
    (nvidia-smi), builds the hand-written kernels
    (gaussian_processes_tpu_torch/csrc/acos_gram.cu and fparam_lbfgs.cu,
    one nvcc each, started together) from the checkout and prints ptxas's
-   register, spill and shared-memory lines for each.
+   register, spill and shared-memory lines for each; fails when the
+   f-param kernel spills or keeps a stack frame.
 2. Kernels: at the main path's operands -- K_tilde 2100 x 2100 and
    K 3160 x 2100 at contraction 6400 (the 80 x 80 crop window) and 11664
    (the full 108 x 108 grid), and the prediction's K* 30 x 2100 at 11664 --
@@ -54,7 +55,12 @@ Phases (none catches its own failure; any failure exits non-zero):
    first search (the 254-row buffer with 4 weight-0 rows), each in
    float64 and float32 at 15 and 4 line-search trials, with the bounds
    stated beside FPARAM_TRIALS; CUDA-event medians per search and per
-   evaluation of the kernel, the plain route's per search, and the bound.
+   evaluation of the kernel, the plain route's per search, the kernel's
+   device time a search with searches back to back, and the bound.
+   The same at nt 32 on the card tests' seeded moments (one row a lane:
+   the fixed cost of an evaluation's reductions and state machine).  Then
+   the f-param device time inside phase 4's fit: every search it handed
+   the kernel, replayed back to back between two CUDA events.
 
 7. The batched kernel at the population's shapes: one chunk of (cell,
    line-search trial) items of the M-step's ladder (as many as
@@ -211,6 +217,9 @@ Phases (none catches its own failure; any failure exits non-zero):
    launches are added to the kernel table's.  Then the kernel against its
    plain version (as in phase 2) at every 2-D shape the bench launched
    and no earlier phase held (the crop windows its fits move through).
+   Then the f-param device time of the timed fit: its 290 searches,
+   recorded from one more, untimed fit of the same data and
+   configuration, replayed as in phase 6b.
 16. The JAX bench's five secondaries and its parity script, through the
    port's ``gaussian_processes_tpu_torch/benchmarks/`` modules, in process,
    each ``run()`` at its script's full shape and defaults but three depths:
@@ -254,6 +263,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -449,18 +459,18 @@ def fparam_bound(nt, weighted, itemsize, evals):
 @contextlib.contextmanager
 def fparam_operands(store):
     """Keeps in ``store`` a copy of the (logA0, r, lambda_m, lambda_var,
-    wt, num_steps) of every search that the fit hands ``fparam_search``
-    while the block runs."""
+    wt, num_steps, max_linesearch_steps) of every search that the fit
+    hands ``fparam_search`` while the block runs."""
     from gaussian_processes_tpu_torch.models import fit as fit_module
     real = fit_module.fparam_search
 
-    def record(logA0, r, lambda_m, lambda_var, wt, num_steps, *args,
-               **kwargs):
+    def record(logA0, r, lambda_m, lambda_var, wt, num_steps, max_ls,
+               *args, **kwargs):
         store.append([None if t is None else t.detach().clone()
                       for t in (logA0, r, lambda_m, lambda_var, wt)]
-                     + [num_steps])
-        return real(logA0, r, lambda_m, lambda_var, wt, num_steps, *args,
-                    **kwargs)
+                     + [num_steps, max_ls])
+        return real(logA0, r, lambda_m, lambda_var, wt, num_steps, max_ls,
+                    *args, **kwargs)
 
     fit_module.fparam_search = record
     try:
@@ -473,12 +483,14 @@ def check_fparam(torch, smi, name, ops, found):
     """The f-param search kernel against its plain version (the host-driven
     zoom L-BFGS through autograd) on one search's operands, in float64 and
     float32 at each of FPARAM_TRIALS, with the bounds stated beside those
-    constants; CUDA-event medians per search and per evaluation of both.
+    constants; CUDA-event medians per search and per evaluation of the
+    kernel launched alone and of the plain route, and the kernel's device
+    time per search with searches back to back (``chained_ms``).
     Appends one dict a case to ``found``; raises past a bound."""
     from gaussian_processes_tpu_torch.ops import fparam_search as fs
     from gaussian_processes_tpu_torch.utils.tracing import objective_counts
 
-    logA0, r, lm, lv, wt, steps = ops
+    logA0, r, lm, lv, wt, steps = ops[:6]
     nt = r.shape[0]
     pad = 0 if wt is None else int((wt <= 0).sum())
 
@@ -493,12 +505,13 @@ def check_fparam(torch, smi, name, ops, found):
     def flat_width(x, args, rel):
         """How far logA may move from x (a minimum) before the objective
         rises by ``rel`` of its value: sqrt(2 rel |f| / f''), f'' by a
-        central difference of the closed-form derivative."""
+        central difference of the closed-form derivative; 0 where f'' is
+        not positive (x is no minimum: FPARAM_F32_ATOL alone bounds it)."""
         h = 1e-4
         f = objective64(x, args)[0]
         curv = (objective64(x + h, args)[1] - objective64(x - h, args)[1]) / (
             2 * h)
-        return math.sqrt(2 * rel * abs(f) / curv) if curv > 0 else math.inf
+        return math.sqrt(2 * rel * abs(f) / curv) if curv > 0 else 0.0
 
     for dtype in (torch.float64, torch.float32):
         args = [None if t is None else t.to(dtype) for t in (r, lm, lv, wt)]
@@ -524,8 +537,12 @@ def check_fparam(torch, smi, name, ops, found):
                     if off and abs(fpk - fp) <= FPARAM_CONVERGED * abs(fp):
                         break
                     path.append((k, abs(xkk - xpk), nkk, npk))
+            # one search launched alone (the host's launch in it), and the
+            # device's time a search back to back
             ms = cuda_ms(torch, lambda: fs.fparam_search(x0, *args, steps,
                                                          max_ls))
+            device_ms = chained_ms(torch, lambda: fs.fparam_search(
+                x0, *args, steps, max_ls))
             plain_ms = cuda_ms(torch, lambda: fs.fparam_search(
                 x0, *args, steps, max_ls, backend="torch"), reps=3, warmup=1)
             bound_ms, bound_by = fparam_bound(nt, wt is not None,
@@ -545,7 +562,9 @@ def check_fparam(torch, smi, name, ops, found):
                   f"{x_tol:.3e}), "
                   f"objective at the two results rel {dv:.3e}; kernel "
                   f"{ms:.4f} ms a search ({ms / max(nk, 1) * 1e3:.2f} us an "
-                  f"evaluation), plain {plain_ms:.2f} ms a search, bound "
+                  f"evaluation; back to back {device_ms:.4f} ms, "
+                  f"{device_ms / max(nk, 1) * 1e3:.2f} us), plain "
+                  f"{plain_ms:.2f} ms a search, bound "
                   f"{bound_ms:.4f} ms ({bound_by})  [{smi}]")
             if path:
                 print("  on the plain search's path (steps, |dlogA|, kernel "
@@ -555,6 +574,8 @@ def check_fparam(torch, smi, name, ops, found):
             found.append(dict(name=name, dtype=tag, nt=nt, pad=pad,
                               trials=max_ls, dlogA=dx, dvalue=dv, ms=ms,
                               us_per_eval=ms / max(nk, 1) * 1e3,
+                              device_ms=device_ms,
+                              device_us_per_eval=device_ms / max(nk, 1) * 1e3,
                               plain_ms=plain_ms, bound_ms=bound_ms,
                               bound_by=bound_by, evals=nk, plain_evals=npl))
             if dtype == torch.float64:
@@ -571,6 +592,89 @@ def check_fparam(torch, smi, name, ops, found):
                     f"version ({name}, {tag}, {max_ls} trials): |dlogA| "
                     f"{dx:.3e}, objective rel {dv:.3e}, steps off the "
                     f"plain path {bad}")
+
+
+def chained_ms(torch, fn, reps=20, rounds=5):
+    """Device milliseconds a call: ``reps`` calls back to back between two
+    CUDA events, after one untimed call that keeps the card busy while the
+    host enqueues the rest (the median of ``rounds``)."""
+    per = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        fn()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        per.append(start.elapsed_time(end) / reps)
+    per.sort()
+    return per[len(per) // 2]
+
+
+def seeded_fparam_operands(torch, device, nt, num_steps):
+    """(logA0, r, lambda_m, lambda_var, None, num_steps) of the card tests'
+    seeded moments (tests/test_torch_cuda.py's ``fparam_moments``:
+    numpy's default_rng(3)) at ``nt`` rows, float32, from log(0.01): at nt
+    32, one row a lane of the kernel's first warp, which prices the
+    reductions and the state machine of an evaluation."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    lm = rng.standard_normal(nt)
+    lv = rng.uniform(0.1, 0.5, nt)
+    r = rng.poisson(np.exp(0.4 * lm + 0.08 * lv + 0.2)).astype(float)
+    return [torch.tensor(math.log(0.01), device=device)] + [
+        torch.as_tensor(a, dtype=torch.float32, device=device)
+        for a in (r, lm, lv)] + [None, num_steps]
+
+
+def fparam_fit_ms(torch, smi, name, searches):
+    """The f-param device time of a fit: every search that
+    ``fparam_operands`` kept, replayed back to back on the fit's operands
+    between two CUDA events, after one untimed search (the median of three
+    passes; these launches are not the main path's)."""
+    from gaussian_processes_tpu_torch.ops import fparam_search as fs
+
+    totals = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        fs.fparam_search(*searches[0])
+        start.record()
+        for ops in searches:
+            fs.fparam_search(*ops)
+        end.record()
+        torch.cuda.synchronize()
+        totals.append(start.elapsed_time(end))
+    totals.sort()
+    ms = totals[1]
+    print(f"fparam_lbfgs inside {name}: {len(searches)} searches, "
+          f"{ms:.3f} ms of device time  [{smi}]")
+    return dict(searches=len(searches), ms=ms)
+
+
+def bench_fit_searches(torch, device, **shape):
+    """The operands of every search that the bench's timed fit hands the
+    f-param kernel, from one more, untimed fit of ``run_bench``'s data,
+    inducing rows and configuration (``shape`` overrides them as it does
+    ``run_bench``'s); the fit repeats itself bit for bit."""
+    from gaussian_processes_tpu_torch import bench
+    kw = {k: shape.get(k, getattr(bench, k.upper())) for k in (
+        "nt", "n_px", "ntilde", "maxiter", "n_estep", "n_mstep",
+        "n_fparamstep")}
+    idx, _ = bench.load_draws()
+    X, R = bench.make_data(0, kw["nt"], kw["n_px"])
+    x = torch.as_tensor(X, dtype=torch.float32, device=device)
+    r = torch.as_tensor(R, dtype=torch.float32, device=device)
+    cfg = bench.make_config(kw["maxiter"], kw["ntilde"], kw["n_px"],
+                            kw["n_estep"], kw["n_mstep"], kw["n_fparamstep"])
+    store = []
+    with fparam_operands(store):
+        bench.fit(x, r, cfg, xtilde=x[torch.as_tensor(
+            idx[:kw["ntilde"]], device=device)], theta=bench.THETA0,
+            f_params=bench.F_PARAMS0)
+    return store
 
 
 def span_line(timer):
@@ -2240,6 +2344,10 @@ def phase15_bench(torch, np, device, smi, totals, check_kernel, checked,
                 and torch.equal(ops[2], ops[3]) else "K")
         check_kernel(f"{kind} (bench)", ops)
     seen.clear()
+    # the timed fit's searches, from an untimed fit of the same
+    searches = bench_fit_searches(torch, device, **shape)
+    fit_ms = fparam_fit_ms(torch, smi, "the bench fit", searches)
+    del searches
     print(f"phase 15: {time.perf_counter() - t0:.1f} s")
     for what, passed in checks.items():
         if not passed:
@@ -2247,6 +2355,7 @@ def phase15_bench(torch, np, device, smi, totals, check_kernel, checked,
                                f"({rec.get('note')})")
     if not ok:
         raise RuntimeError(f"phase 15: {rec.get('note')}")
+    return fit_ms
 
 
 def drive_modules(torch, device, smi, totals, check_kernel, checked, plan,
@@ -2445,13 +2554,21 @@ def main():
           f"fparam_lbfgs.cu {fparam_search.build_seconds:.2f} s (in "
           f"parallel); Gram block dynamic shared memory "
           f"{lib.acos_gram_smem_bytes()} B; f-param search block "
-          f"{fparam_search.THREADS} threads, dynamic shared memory at nt "
+          f"{fparam_search.THREADS} threads (carrying a reduction tree of "
+          f"1024), dynamic shared memory at nt "
           f"{NT} {fp_lib.fparam_lbfgs_smem_bytes(NT, 0, 4)} B (float32), "
           f"{fp_lib.fparam_lbfgs_smem_bytes(NT, 0, 8)} B (float64)")
     for mod in (gram_cuda, fparam_search):
         for line in mod.build_log.splitlines():
             if any(key in line for key in PTXAS_KEYS):
                 print("  ptxas:", line.strip())
+    # the f-param kernel keeps its state in registers: no stack, no spill
+    frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                        r"stores, (\d+) bytes spill loads",
+                        fparam_search.build_log)
+    if any(int(n) for frame in frames for n in frame):
+        raise RuntimeError(f"fparam_lbfgs.cu spills or keeps a stack frame: "
+                           f"{frames}")
 
     X, R = bench.make_data()
     Xt, Rt = bench.make_test_data()
@@ -2822,8 +2939,12 @@ def main():
     fp_found = []
     for name, ops in (("phase 4 first E-step", fp_main[0]),
                       ("phase 4 last E-step", fp_main[-1]),
-                      ("loop (a) first refit", fp_loop[0])):
+                      ("loop (a) first refit", fp_loop[0]),
+                      ("seeded nt 32", seeded_fparam_operands(
+                          torch, device, 32, fp_main[-1][5]))):
         check_fparam(torch, smi, name, ops, fp_found)
+    fp_fit_ms = {"phase 4": fparam_fit_ms(torch, smi, "phase 4's fit",
+                                          fp_main)}
     del fp_main, fp_loop
 
     # ---- 7-8. the batched kernel and the population ----------------------
@@ -2857,7 +2978,8 @@ def main():
     phase14_unfitted(torch, np, device, smi, totals, x, r, xtilde, cfg, res)
     # ---- 15. the port's bench at full depth, and its gates ---------------
     stamp("15")
-    phase15_bench(torch, np, device, smi, totals, check_kernel, checked)
+    fp_fit_ms["phase 15"] = phase15_bench(torch, np, device, smi, totals,
+                                          check_kernel, checked)
     # ---- 16. the bench's secondaries and the parity script ---------------
     stamp("16")
     phase16_benchmarks(torch, np, device, smi, totals, check_kernel, checked,
@@ -2941,6 +3063,8 @@ def main():
         "bound_by": fp_main_case["bound_by"],
         "library_ms": None,
         "us_per_evaluation": fp_main_case["us_per_eval"],
+        "device_ms": fp_main_case["device_ms"],
+        "fit_device_ms": fp_fit_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

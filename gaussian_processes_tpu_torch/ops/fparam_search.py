@@ -41,8 +41,9 @@ from . import cuda_build
 
 _SRC = "fparam_lbfgs.cu"
 NVCC_FLAGS = cuda_build.NVCC_FLAGS + ("-fmad=false",)
-# the kernel's block and its L-BFGS memory (csrc/fparam_lbfgs.cu)
-THREADS = 1024
+# the kernel's block (which carries the 1024 threads of its reduction tree)
+# and its L-BFGS memory (csrc/fparam_lbfgs.cu)
+THREADS = 256
 MEMORY_SIZE = 15
 
 # Launches of the kernel since import (or since the caller reset them).

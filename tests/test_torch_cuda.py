@@ -731,3 +731,135 @@ def test_fparam_search_raises_instead_of_falling_back(dev):
                          4)
     with pytest.raises(ValueError):
         fs.fparam_search(x0, r, r[:4], r, None, 3, 4)
+
+
+def fparam_moments(nt, pad, dtype, dev):
+    """(r, lambda_m, lambda_var, w) on ``dev``: the seeded moments of
+    test_fparam_search_kernel_matches_plain at ``nt`` rows, the last
+    ``pad`` of them weight 0 (w None without any)."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    lm = rng.standard_normal(nt)
+    lv = rng.uniform(0.1, 0.5, nt)
+    r = rng.poisson(np.exp(0.4 * lm + 0.08 * lv + 0.2)).astype(float)
+    w = np.ones(nt)
+    w[nt - pad:] = 0.0
+    return [torch.as_tensor(a, dtype=dtype, device=dev)
+            for a in (r, lm, lv)] + [
+        torch.as_tensor(w, dtype=dtype, device=dev) if pad else None]
+
+
+# (logA, value) as float.hex and evaluations of the block-of-1024 kernel
+# (csrc/fparam_lbfgs.cu at commit f0bea62) on the seeded operands of
+# test_fparam_search_kernel_matches_plain, 10 steps from log(0.01), on an
+# NVIDIA H100 80GB HBM3 at 700 W.
+FPARAM_BLOCK1024_BITS = {
+    (torch.float32, 15, 0): ("-0x1.36a91a0000000p+0", "0x1.566a080000000p+11",
+                             105),
+    (torch.float32, 15, 4): ("-0x1.3612ae0000000p+0", "0x1.55d1b60000000p+11",
+                             64),
+    (torch.float32, 4, 0): ("-0x1.c203900000000p+0", "0x1.5bd4240000000p+11",
+                            41),
+    (torch.float32, 4, 4): ("-0x1.c020900000000p+0", "0x1.5b2d340000000p+11",
+                            41),
+    (torch.float64, 15, 0): ("-0x1.36a918e9787d6p+0", "0x1.566a086030ac2p+11",
+                             63),
+    (torch.float64, 15, 4): ("-0x1.3612af3c93384p+0", "0x1.55d1b6851fef2p+11",
+                             77),
+    (torch.float64, 4, 0): ("-0x1.c20386ed7eea8p+0", "0x1.5bd4203ddb856p+11",
+                            41),
+    (torch.float64, 4, 4): ("-0x1.c020901c591d6p+0", "0x1.5b2d2f0739848p+11",
+                            41),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("max_ls", [15, 4])
+@pytest.mark.parametrize("pad", [0, 4])
+def test_fparam_search_kernel_keeps_the_block1024_bits(dev, dtype, max_ls,
+                                                      pad):
+    """The kernel, whose block of 256 threads carries the reduction tree of
+    its first version's block of 1024 threads (source commit f0bea62),
+    returns exactly that version's logA, value and evaluation count, as
+    recorded on an NVIDIA H100 80GB HBM3 (700 W), on the seeded operands of
+    test_fparam_search_kernel_matches_plain: nt 3160, 0 or 4 weight-0 rows,
+    15 or 4 trials, float32 and float64."""
+    import math
+
+    from gaussian_processes_tpu_torch.ops import fparam_search as fs
+    from gaussian_processes_tpu_torch.utils.tracing import objective_counts
+
+    args = fparam_moments(3160, pad, dtype, dev)
+    x0 = torch.tensor(math.log(0.01), dtype=dtype, device=dev)
+    with objective_counts() as ev:
+        x, f = fs.fparam_search(x0, *args, 10, max_ls)
+        x, f = float(x), float(f)
+    assert (x.hex(), f.hex(), ev["fparam"]) == FPARAM_BLOCK1024_BITS[
+        (dtype, max_ls, pad)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("weighted,pad", [(False, 0), (True, 0), (True, 4)],
+                         ids=["unweighted", "weighted", "weighted-pad4"])
+def test_fparam_search_kernel_rows_in_global_memory(dev, dtype, weighted,
+                                                    pad):
+    """Past the shared memory the kernel reads its rows from global memory
+    (the last block of 1024 rows part full: 300 rows).  At the first nt
+    that does so, for the rows with and without a weight: against the
+    plain route at 10 steps and 15 trials, with the bounds of
+    test_fparam_search_kernel_matches_plain at 10 steps; and with a weight
+    (1, or 0 on the last ``pad`` rows), bit for bit the search without one
+    on the rows of weight 1, which still sit in shared memory (a weight of
+    1 changes no product, and rows of weight 0 add nothing)."""
+    import math
+
+    from gaussian_processes_tpu_torch.ops import fparam_search as fs
+    from gaussian_processes_tpu_torch.utils.tracing import objective_counts
+
+    lib = fs.load_library()
+    size = torch.empty((), dtype=dtype).element_size()
+    blocks = 1
+    while lib.fparam_lbfgs_smem_bytes(blocks * 1024, int(weighted), size):
+        blocks += 1
+    nt = (blocks - 1) * 1024 + 300
+    assert lib.fparam_lbfgs_smem_bytes(nt, int(weighted), size) == 0
+    assert lib.fparam_lbfgs_smem_bytes(nt - 300, int(weighted), size) > 0
+    r, lm, lv, _ = fparam_moments(nt, 0, dtype, dev)
+    wt = None
+    if weighted:
+        wt = torch.ones(nt, dtype=dtype, device=dev)
+        wt[nt - pad:] = 0.0
+    x0 = torch.tensor(math.log(0.01), dtype=dtype, device=dev)
+
+    def search(args, backend=None):
+        with objective_counts() as ev:
+            x, f = fs.fparam_search(x0, *args, 10, 15, backend=backend)
+            x, f = float(x), float(f)
+        return x, f, ev["fparam"]
+
+    xk, fk, nk = search((r, lm, lv, wt))
+    xp, fp, _ = search((r, lm, lv, wt), "torch")
+    a64 = [None if a is None else a.double() for a in (r, lm, lv, wt)]
+
+    def vg(x):
+        v, g = fs.fparam_value_and_grad_torch(
+            torch.tensor(x, dtype=torch.float64, device=dev), *a64)
+        return float(v), float(g)
+
+    assert math.isfinite(fk) and nk > 0
+    assert abs(vg(xk)[0] - vg(xp)[0]) <= (
+        1e-12 if dtype == torch.float64 else 1e-5) * abs(vg(xp)[0])
+    if dtype == torch.float32:
+        curv = (vg(xp + 1e-4)[1] - vg(xp - 1e-4)[1]) / 2e-4
+        width = math.sqrt(2 * 2.0 ** -23 * abs(vg(xp)[0]) / curv)
+        assert abs(xk - xp) <= max(1e-4, width)
+    else:
+        assert abs(fk - fp) <= 1e-12 * abs(fp)
+        assert abs(xk - xp) <= 1e-9
+    if weighted:
+        n = nt - pad
+        assert lib.fparam_lbfgs_smem_bytes(n, 0, size) > 0
+        assert (xk, fk, nk) == search((r[:n], lm[:n], lv[:n], None))

@@ -17,6 +17,10 @@ point is not compared (weighted case: 65 for JAX, 79 for the port).
 ``fparam_search`` under the zoom searches, and never loads the kernel's
 library.  (d) ``utils.tracing.objective_counts`` counts the plain route's
 evaluations, and adds what the kernel's device counters gained.
+(e) The kernel's reduction tree, emulated in numpy: a block of 32, 128 or
+256 threads, each carrying 1024 / THREADS virtual threads, reduces the max,
+a sum and three sums bit for bit as the block of 1024 threads did, in
+float32 and float64, at nt 1 to 3161, with and without weight-0 rows.
 """
 
 import numpy as np
@@ -218,3 +222,123 @@ def test_objective_counts_adds_the_device_counters(monkeypatch):
         counters[dev_a] += 7
         counters[dev_b] = torch.tensor(5, dtype=torch.int64)
     assert counts["fparam"] == 12
+
+
+# ---------------------------------------------------------------------------
+# The kernel's reduction tree (csrc/fparam_lbfgs.cu), emulated in numpy
+# ---------------------------------------------------------------------------
+
+LANES = np.arange(32)
+
+
+def _combine(a, b, is_max):
+    """One node of the tree: a + b, or the NaN-propagating max (a > b ? a :
+    b, NaN when either is NaN), in the operands' type."""
+    if not is_max:
+        return a + b
+    out = np.where(a > b, a, b)
+    return np.where(np.isnan(a) | np.isnan(b), np.nan, out).astype(a.dtype)
+
+
+def _virtual_partials(vals, keep, is_max):
+    """(1024, N): virtual thread v's own reduction of its rows v, v + 1024,
+    ... that count, in that order (init 0, or -inf for the max)."""
+    acc = np.full((1024, vals.shape[1]), -np.inf if is_max else 0,
+                  vals.dtype)
+    for base in range(0, len(vals), 1024):
+        chunk, k = vals[base:base + 1024], keep[base:base + 1024, None]
+        n = len(chunk)
+        acc[:n] = np.where(k, _combine(acc[:n], chunk, is_max), acc[:n])
+    return acc
+
+
+def _butterfly(x, is_max, offsets=(16, 8, 4, 2, 1)):
+    """The xor butterfly over the lane axis (-2): every lane adds its
+    partner's value to its own."""
+    for off in offsets:
+        x = _combine(x, x[..., LANES ^ off, :], is_max)
+    return x
+
+
+def _reduce_1024(vals, keep, is_max):
+    """The 1024-thread block's reduction (the kernel's first version,
+    commit f0bea62): 32 warps of 32 threads, each warp's
+    butterfly, lane 0's partials, warp 0's butterfly, lane 0's result."""
+    acc = _virtual_partials(vals, keep, is_max).reshape(32, 32, -1)
+    return _butterfly(_butterfly(acc, is_max)[:, 0], is_max)[0]
+
+
+def _reduce_layout(vals, keep, is_max, threads):
+    """The kernel's block_reduce at THREADS = ``threads``: thread w * 32 + L
+    holds virtual threads w * 32 + L + threads k; the butterfly's levels at
+    offsets 16, 8, ... halve the accumulators a lane holds (lower lane's
+    value first), the rest is the butterfly, which leaves virtual warp w +
+    warps k on lanes k * warps.. of warp w; the levels of warp 0's pass
+    that pair virtual warps of one warp (offsets 16 down to warps) run in
+    the warp on lane 0, the last ones over the warps' partials."""
+    vpt, warps = 1024 // threads, threads // 32
+    acc = _virtual_partials(vals, keep, is_max)
+    v = acc.reshape(vpt, warps, 32, -1).transpose(1, 2, 0, 3)
+    levels = vpt.bit_length() - 1
+    for s in range(levels):
+        off, half = 16 >> s, vpt >> (s + 1)
+        upper = ((LANES & off) != 0)[None, :, None, None]
+        lo, hi = v[:, :, :half], v[:, :, half:2 * half]
+        o = np.where(upper, lo, hi)[:, LANES ^ off]
+        v = np.where(upper, _combine(o, hi, is_max),
+                     _combine(lo, o, is_max))
+    v = _butterfly(v[:, :, 0], is_max,
+                   [16 >> s for s in range(levels, 5)])
+    v = _butterfly(v, is_max, [off for off in (16, 8, 4, 2, 1)
+                               if off >= warps])
+    t = v[:, 0]
+    off = warps // 2
+    while off:
+        t = _combine(t[:off], t[off:2 * off], is_max)
+        off //= 2
+    return t[0]
+
+
+def _tree_inputs(nt, weighted, dtype, seed=7):
+    """Rows of mixed sign spread over six decades (so that the order of a
+    float sum shows in its bits), and which of them count."""
+    rng = np.random.default_rng(seed)
+    vals = (rng.standard_normal((nt, 3))
+            * 10.0 ** rng.uniform(-3, 3, (nt, 3))).astype(dtype)
+    keep = np.ones(nt, bool)
+    if weighted:
+        keep[rng.random(nt) < 0.1] = False
+        keep[-4:] = False
+    return vals, keep
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("nt", [1, 31, 254, 3160, 3161])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("threads", [32, 128, 256])
+def test_reduction_layout_keeps_the_1024_thread_trees_bits(
+        threads, dtype, nt, weighted):
+    """The kernel's block of THREADS threads reduces in the order of the
+    block of 1024 threads: the max of one value, the sum of one and the sums of
+    three, bit for bit (the bits of the results as integers)."""
+    vals, keep = _tree_inputs(nt, weighted, dtype)
+    for is_max, cols in ((True, [0]), (False, [1]), (False, [0, 1, 2])):
+        v = np.ascontiguousarray(vals[:, cols])
+        want = _reduce_1024(v, keep, is_max)
+        got = _reduce_layout(v, keep, is_max, threads)
+        assert got.dtype == want.dtype == dtype
+        assert np.array_equal(got.view(f"u{got.itemsize}"),
+                              want.view(f"u{want.itemsize}")), (is_max, cols)
+
+
+def test_reduction_inputs_tell_sum_orders_apart():
+    """The rows above do tell orders apart: in float32 the tree's sum is not
+    the sequential one's, nor the tree's of the rows reversed."""
+    vals, keep = _tree_inputs(3160, False, np.float32)
+    v = np.ascontiguousarray(vals[:, [1]])
+    tree = _reduce_1024(v, keep, False)[0]
+    seq = np.float32(0)
+    for x in v[:, 0]:
+        seq = np.float32(seq + x)
+    assert tree != seq
+    assert tree != _reduce_1024(v[::-1].copy(), keep, False)[0]
