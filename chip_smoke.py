@@ -19,8 +19,20 @@ Phases (none catches its own failure; any failure exits non-zero):
    K_tilde's diagonal alone (c -> 1, where the tensor cores' accumulation
    is most at risk), the split pass bit for bit against its plain version,
    with the planner's decomposition and median CUDA-event times of each;
-   and the theta-gradient through the kernel-forward autograd Function
-   against the plain autograd composite at a small shape.
+   the theta-gradient through the kernel-forward autograd Function (the
+   backward kernels) against the plain autograd composite at a small
+   shape.  Then the Gram's backward kernels at the M-step's operands
+   (K_tilde 2100 x 2100 and K 3160 x 2100 at contraction 6400 and 9216,
+   the 80- and 96-px crop windows): K bit for bit with and without the
+   forward's q12 output; on a seeded g and the forward's q12, every output
+   of the kernel backward (du1, ds2, dq11, dq22, dsigma0) within 1e-5 of
+   the plain backward's largest magnitude (``gram_backward_torch``: the
+   plain epilogue and two FP32 matmuls on the same g and q12), two runs
+   bit for bit, the
+   epilogue's dq12 against the plain one, the transposing split bit for
+   bit on s2, u1 and dq12, each product against the FP32 matmul on the
+   kernel's dq12; median CUDA-event ms of each kernel, its plain version
+   and (products) the FP32 ``torch.matmul``, beside each bound.
 3. Reference: a small fit through the kernel (float32, on the card) against
    the same fit on the CPU in float64 through the plain path.
 4. Main path: the single-cell EM fit at bench.py's data and shape (nt 3160
@@ -28,9 +40,11 @@ Phases (none catches its own failure; any failure exits non-zero):
    10 f-param steps), then the r^2 evaluation on 30 test images x 30
    repeats with 200 bootstrap draws.  Kernel launch counts are reset just
    before and read just after; the f-param search kernel launches once a
-   search.  Then the same fit through the plain Gram and the plain
-   f-param search (backend="torch") on the card: the kernel fit's
-   log-marginal must stay within 1e-3 relative of it at every iteration.
+   search; the Gram's backward kernels launched, and the plain backward
+   called on CUDA tensors 0 times.  Then the same fit through the plain
+   Gram and the plain f-param search (backend="torch") on the card: the
+   kernel fit's log-marginal must stay within 1e-3 relative of it at every
+   iteration.
 5. Kernel at the active loop's shapes: the operands the loop hands the
    kernel at its 254-point capacity buffer (the first 250 pool images and 4
    padded zero rows) -- the refit's K_tilde 254 x 254 at contraction 6400,
@@ -70,7 +84,11 @@ Phases (none catches its own failure; any failure exits non-zero):
    version (max relative error <= 1e-5, the same on every item's K_tilde
    diagonal) and each item against the 2-D kernel call on its operands;
    ``out=`` writes a row block and nothing around it.  Plan, CUDA-event
-   medians of kernel, plain and the cuBLAS product alone.
+   medians of kernel, plain and the cuBLAS product alone.  The backward
+   kernels on both batched Grams, as phase 2 holds them; and the device
+   memory a (cell, trial) item of the M-step's gradient call and of its
+   value call takes at this shape, against the shares ``ladder_items``
+   and ``GRAD_CHUNK_DIVISOR`` give them.
 8. Population at full width: benchmarks/bench_population.py's data and
    shape (nt 3160 images of 108 x 108 px, 16 cells with receptive fields
    of sigma 0.1 at centres uniform in +-0.3, ntilde 512 drawn by a numpy
@@ -219,7 +237,14 @@ Phases (none catches its own failure; any failure exits non-zero):
    and no earlier phase held (the crop windows its fits move through).
    Then the f-param device time of the timed fit: its 290 searches,
    recorded from one more, untimed fit of the same data and
-   configuration, replayed as in phase 6b.
+   configuration, replayed as in phase 6b.  The timed fit must have
+   launched the Gram's backward kernels and called the plain backward on
+   CUDA tensors 0 times.  And one M-step evaluation (value and gradient,
+   as the optimizer takes them) at the untimed fit's first M-step state:
+   its host ms, then under torch.profiler its device time by kernel name,
+   split into the Gram forward, the Gram backward and the rest; the same
+   evaluation with the plain backward (``gram_backward_torch`` at a q12
+   recomputed by an FP32 matmul) beside it.
 16. The JAX bench's five secondaries and its parity script, through the
    port's ``gaussian_processes_tpu_torch/benchmarks/`` modules, in process,
    each ``run()`` at its script's full shape and defaults but three depths:
@@ -253,10 +278,19 @@ Phases (none catches its own failure; any failure exits non-zero):
    1e-5, an A/B arm's picks repeat or fall in the start set, an r^2 is not
    finite, or the one-seed summary's SEM is not null.
 
+From phase 4 to the end the Gram's backward is watched: the first forward
+operands it is handed at each (batch, m, n, k) that phases 2 and 7 do not
+hold are copied to the host, and after phase 17 the backward kernels are
+held at each such shape as phase 2 holds them (3 timed repeats): the
+active loop's buffers, the crop windows the bench's fits move through, the
+batched population's chunks, the products whose contraction splits.
+
 The last two lines of standard output are one JSON object with the kernel
-table (acos_gram, acos_gram_batched, tf32_split, fparam_lbfgs; launches
-over the main paths, the f-param search's times from phase 6b at phase
-4's last search in float32) and one with the device.
+table (acos_gram, acos_gram_batched, tf32_split, fparam_lbfgs,
+acos_gram_bwd, tf32_split_t, nt_product; launches over the main paths,
+the f-param search's times from phase 6b at phase 4's last search in
+float32, the backward kernels' from phase 2 at K 3160 x 2100, k 6400)
+and one with the device.
 """
 
 import contextlib
@@ -286,6 +320,11 @@ CAPACITY = N_START + N_ADD
 SCORER_RTOL = 1e-4     # pool utilities, kernel vs plain Gram, of max|u|
 TIE_RTOL = 1e-5        # two picks whose utilities agree this well tie
 GRAD_RTOL = 1e-3       # float32 gradients, two summation orders
+# the backward kernels against the plain backward on the same g and q12,
+# of the plain value's largest magnitude: the products sum up to 11664
+# float32 terms in other orders, in 3xTF32
+BWD_RTOL = 1e-5
+MSTEP_SPLIT_EVALS = 5  # M-step evaluations profiled in phase 15
 REFERENCE_RTOL = 1e-3  # float32 fit on the card vs float64 fit on the CPU
 # the last tracked iteration rebuilt by state_at_iteration against predict:
 # the rebuild takes k_tilde_b_diag as the Rayleigh quotients diag(B^T K B),
@@ -439,6 +478,283 @@ def split_bound(rows, k):
     """The split pass: read a (rows, k) float32 operand once, write its two
     planes once (bytes-bound: one subtraction and one rounding a float)."""
     return 4 * rows * k * 3 / HBM_BYTES * 1e3, "bytes"
+
+
+def product_bound(batch, m, n, k):
+    """The product kernel, out (m, n) = A B^T over k per item: its three
+    TF32 products (2 m n k FLOPs each) at the dense TF32 peak, or reading
+    A and B once and writing out once at the HBM rate, the larger."""
+    ops_ms = 3 * 2 * batch * m * n * k / TF32_FLOPS * 1e3
+    bytes_ms = 4 * batch * (m * k + n * k + m * n) / HBM_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                             "bytes")
+
+
+def bwd_bound(batch, m, n):
+    """The backward epilogue: read g, q12 (m, n), q11, q22 and sigma0 once,
+    write dq12, dq11, dq22 and dsigma0 once (float32; bytes-bound: about
+    40 operations an element against 12 bytes)."""
+    return 4 * batch * (3 * m * n + 2 * (m + n) + 2) / HBM_BYTES * 1e3, "bytes"
+
+
+# the (batch or None, m, n, k) at which check_backward has held the
+# backward kernels
+BWD_CHECKED = set()
+
+
+def backward_key(u1, s2):
+    """A Gram's (batch or None for a 2-D Gram, m, n, k)."""
+    return (u1.shape[0] if u1.dim() == 3 else None, u1.shape[-2],
+            s2.shape[-2], u1.shape[-1])
+
+
+@contextlib.contextmanager
+def backward_operands(gram_cuda, seen, where):
+    """Keeps in ``seen[backward_key] = (phase, operands)`` a host copy of
+    the forward operands (u1, s2, q11, q22, sigma0) of the first Gram
+    whose backward runs at each shape that no ``check_backward`` has held,
+    while the block runs; ``where["phase"]`` names the phase."""
+    real = gram_cuda.gram_backward
+
+    def record(g, u1, s2, q11, q22, sigma0, *rest, **kwargs):
+        key = backward_key(u1, s2)
+        if key not in seen and key not in BWD_CHECKED:
+            seen[key] = (where["phase"], [t.detach().cpu() for t in
+                                          (u1, s2, q11, q22, sigma0)])
+        return real(g, u1, s2, q11, q22, sigma0, *rest, **kwargs)
+
+    gram_cuda.gram_backward = record
+    try:
+        yield seen
+    finally:
+        gram_cuda.gram_backward = real
+
+
+def check_backward(torch, smi, name, ops, reps=20):
+    """The Gram's backward kernels against their plain versions on one
+    Gram's operands, 2-D or batched (see the module docstring, phase 2),
+    on a seeded g (symmetric for K_tilde, as the M-step hands it) and the
+    forward's own q12.  Returns {kernel: (max_abs, ms, plain_ms, lib_ms,
+    bound_ms, bound_by, shape)} for acos_gram_bwd, tf32_split_t (U1^T, the
+    largest) and nt_product (dU1 = dq12 S2)."""
+    from gaussian_processes_tpu_torch.ops import gram_cuda as G
+
+    u1, s2, q11, q22, s0 = ops
+    BWD_CHECKED.add(backward_key(u1, s2))
+    B = u1.shape[0] if u1.dim() == 3 else 1
+    m, k = u1.shape[-2:]
+    n = s2.shape[-2]
+    lib = G.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def b3(t):
+        return t.contiguous().reshape(B, *t.shape[-2:])
+
+    def rel(a, b):
+        diff = float((a - b).abs().max())
+        return diff, diff / max(float(b.abs().max()), 1e-30)
+
+    def worst(pairs):
+        errs_ = [rel(a, b) for a, b in pairs]
+        return max(e[0] for e in errs_), max(e[1] for e in errs_)
+
+    with torch.no_grad():
+        K0 = G._forward(*ops)
+        K, q12 = G._forward(*ops, keep_q12=True)
+        same_K = torch.equal(K0, K)
+        del K0
+        gen = torch.Generator(device=u1.device).manual_seed(m * n + k)
+        g = torch.randn(K.shape, generator=gen, device=u1.device)
+        if name.startswith("K_tilde"):
+            g = 0.5 * (g + g.mT)
+        got = G.gram_backward(g, u1, s2, q11, q22, s0, q12)
+        again = G.gram_backward(g, u1, s2, q11, q22, s0, q12)
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        want = G.gram_backward_torch(g, u1, s2, q11, q22, s0, q12)
+        errs = {what: rel(a, b) for what, a, b in zip(
+            ("du1", "ds2", "dq11", "dq22", "dsigma0"), got, want)}
+        del got, want
+        dq12p, dq11p, dq22p, dsp = G.acos_gram_bwd_torch(g, q12, q11, q22, s0)
+        # each kernel alone, on what the backward hands it
+        args = (b3(g), b3(q12), q11.contiguous().reshape(B, m),
+                q22.contiguous().reshape(B, n), s0.reshape(B).contiguous())
+        dq12k, planes, dq11k, dq22k, dsk = G._bwd_launch(lib, *args, stream)
+        epi = worst(zip(
+            (dq12k, dq11k, dq22k, dsk),
+            (b3(dq12p), dq11p.reshape(B, m), dq22p.reshape(B, n),
+             dsp.reshape(B))))
+        del dq12p
+        split_eq = all(torch.equal(G._split_t_into(lib, t, stream),
+                                   G.tf32_split_t_torch(t))
+                       for t in (b3(s2), b3(u1), dq12k))
+        s2t = G._split_t_into(lib, b3(s2), stream)
+        u1t = G._split_t_into(lib, b3(u1), stream)
+        dqt = G._split_t_into(lib, dq12k, stream)
+        du1 = G._product(lib, planes, s2t, m, k, n, stream)
+        ds2 = G._product(lib, dqt, u1t, n, k, m, stream)
+        prod = worst([(du1, dq12k @ b3(s2)), (ds2, dq12k.mT @ b3(u1))])
+        del du1, ds2
+        t = dict(
+            bwd=cuda_ms(torch, lambda: G._bwd_launch(lib, *args, stream),
+                        reps),
+            bwd_plain=cuda_ms(torch, lambda: G.acos_gram_bwd_torch(
+                g, q12, q11, q22, s0), reps),
+            split_t=cuda_ms(torch, lambda: G._split_t_into(lib, b3(u1),
+                                                           stream), reps),
+            split_t_plain=cuda_ms(torch, lambda: G.tf32_split_t_torch(
+                b3(u1)), reps),
+            du1=cuda_ms(torch, lambda: G._product(lib, planes, s2t, m, k, n,
+                                                  stream), reps),
+            du1_plain=cuda_ms(torch, lambda: G.nt_product_torch(
+                dq12k, b3(s2).mT), reps),
+            du1_matmul=cuda_ms(torch, lambda: torch.matmul(dq12k, b3(s2)),
+                               reps),
+            ds2=cuda_ms(torch, lambda: G._product(lib, dqt, u1t, n, k, m,
+                                                  stream), reps),
+            ds2_matmul=cuda_ms(torch, lambda: torch.matmul(dq12k.mT, b3(u1)),
+                               reps),
+            backward=cuda_ms(torch, lambda: G.gram_backward(
+                g, u1, s2, q11, q22, s0, q12), reps),
+            backward_plain=cuda_ms(torch, lambda: G.gram_backward_torch(
+                g, u1, s2, q11, q22, s0, u1 @ s2.mT), reps))
+        del planes, s2t, u1t, dqt
+    each = f"{B} x " if u1.dim() == 3 else ""
+    print(f"backward {name} {each}{m}x{n} k={k}: max|d|/max|plain| "
+          + ", ".join(f"{w} {e[1]:.3e}" for w, e in errs.items())
+          + f"; epilogue {epi[1]:.3e}, products on its dq12 {prod[1]:.3e}; "
+          f"K bit for bit with/without q12 {same_K}; two runs bit for bit "
+          f"{repeat}; transposing split bit for bit {split_eq}  [{smi}]")
+    print("  ms: " + ", ".join(f"{key} {v:.3f}" for key, v in t.items())
+          + f"; bounds: epilogue {bwd_bound(B, m, n)[0]:.3f}"
+          f" (bytes), split_t U1^T {split_bound(B * m, k)[0]:.3f} (bytes), "
+          f"dU1 {product_bound(B, m, k, n)[0]:.3f}, dS2 "
+          f"{product_bound(B, n, k, m)[0]:.3f}  [{smi}]")
+    most = max(max(e[1] for e in errs.values()), epi[1], prod[1])
+    if not (same_K and repeat and split_eq and most <= BWD_RTOL):
+        raise RuntimeError(f"the backward kernels disagree at {name} "
+                           f"{each}{m}x{n} k={k}: worst {most:.3e}, K "
+                           f"{same_K}, repeat {repeat}, split {split_eq}")
+    shape = f"{each}{m}x{n} k {k}"
+    return {
+        "acos_gram_bwd": (epi[0], t["bwd"], t["bwd_plain"], None,
+                          *bwd_bound(B, m, n), shape),
+        "tf32_split_t": (0.0, t["split_t"], t["split_t_plain"], None,
+                         *split_bound(B * m, k), f"U1^T of {shape}"),
+        "nt_product": (prod[0], t["du1"], t["du1_plain"], t["du1_matmul"],
+                       *product_bound(B, m, k, n), f"dU1 of {shape}")}
+
+
+@contextlib.contextmanager
+def first_mstep_call(store):
+    """Keeps in ``store`` the theta (detached) and the other arguments of
+    the first M-step objective call while the block runs."""
+    from gaussian_processes_tpu_torch.models import fit as F
+    real = F._mstep_objective
+
+    def record(theta, *args, **kwargs):
+        if not store:
+            store.append(({k: v.detach().clone() for k, v in theta.items()},
+                          args, kwargs))
+        return real(theta, *args, **kwargs)
+
+    F._mstep_objective = record
+    try:
+        yield store
+    finally:
+        F._mstep_objective = real
+
+
+FWD_KERNELS = ("acos_gram_tf32x3_kernel", "acos_gram_reduce_kernel",
+               "tf32_split_kernel", "tf32_split_vec_kernel")
+BWD_KERNELS = ("acos_gram_bwd_kernel", "acos_gram_bwd_sums_kernel",
+               "acos_gram_bwd_sigma_kernel",
+               "tf32_split_t_kernel", "nt_product_tf32x3_kernel",
+               "nt_product_reduce_kernel")
+
+
+def kernel_name(name):
+    """A profiler event's kernel name without namespace, template and
+    arguments ("(anonymous namespace)::nt_product_tf32x3_kernel(...)")."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].split("::")[-1].strip()
+
+
+def mstep_split(torch, smi, call):
+    """One M-step evaluation at a recorded ``first_mstep_call``: value and
+    gradient as the optimizer takes them (theta as one leaf, the gradient
+    and value read back to the host).  Host ms of an evaluation
+    (unprofiled, the median of 10), then the device time of
+    MSTEP_SPLIT_EVALS evaluations under torch.profiler by kernel name,
+    split into the Gram forward, the Gram backward and the rest; then the
+    same with the plain backward in place of the kernels.  Returns the
+    split (ms an evaluation)."""
+    from torch.profiler import ProfilerActivity, profile
+    from gaussian_processes_tpu_torch.benchmarks.fparam_route import (
+        plain_gram_backward)
+    from gaussian_processes_tpu_torch.models import fit as F
+
+    theta0, args, kwargs = call
+    keys = sorted(theta0)
+
+    def evaluation():
+        flat = torch.stack([theta0[k] for k in keys]).requires_grad_(True)
+        with torch.enable_grad():
+            v = F._mstep_objective({k: flat[i] for i, k in enumerate(keys)},
+                                   *args, **kwargs)
+            (gr,) = torch.autograd.grad(v, flat)
+        return torch.cat([v.detach().reshape(1), gr]).cpu()
+
+    out = {}
+    for route in ("kernel", "plain"):
+        with (plain_gram_backward() if route == "plain"
+              else contextlib.nullcontext()):
+            first = evaluation()
+            host = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                evaluation()
+                host.append((time.perf_counter() - t0) * 1e3)
+            host.sort()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(MSTEP_SPLIT_EVALS):
+                    evaluation()
+        parts = {"forward": 0.0, "backward": 0.0, "rest": 0.0}
+        by_kernel, launches = {}, {}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            name = kernel_name(e.name)
+            ms = e.time_range.elapsed_us() / 1e3 / MSTEP_SPLIT_EVALS
+            part = ("forward" if name in FWD_KERNELS else "backward"
+                    if name in BWD_KERNELS else "rest")
+            parts[part] += ms
+            by_kernel[name] = by_kernel.get(name, 0.0) + ms
+            launches[part] = launches.get(part, 0) + 1
+        device = sum(parts.values())
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+        per = {k: v // MSTEP_SPLIT_EVALS for k, v in launches.items()}
+        print(f"M-step evaluation at the bench fit's first M-step state, "
+              f"{route} backward: host {host[5]:.3f} ms an evaluation "
+              f"(value {float(first[0]):.6f}); device {device:.3f} ms: Gram "
+              f"forward {parts['forward']:.3f}, Gram backward "
+              f"{parts['backward']:.3f}, rest {parts['rest']:.3f} (device "
+              f"events an evaluation {per}); top kernels ms " + "; ".join(
+                  f"{n[:48]} {v:.3f}" for n, v in top) + f"  [{smi}]")
+        out[route] = dict(host_ms=host[5], device_ms=device, **parts,
+                          value=float(first[0]),
+                          grad=first[1:].tolist())
+    diff = max(abs(a - b) for a, b in zip(out["kernel"]["grad"],
+                                          out["plain"]["grad"]))
+    scale = max(abs(b) for b in out["plain"]["grad"])
+    print(f"  its gradient, kernel vs plain backward: max|d|/max|plain| "
+          f"{diff / scale:.3e}")
+    if not diff <= GRAD_RTOL * scale:
+        raise RuntimeError("the M-step gradient through the backward "
+                           "kernels disagrees with the plain backward's")
+    return out
 
 
 def fparam_bound(nt, weighted, itemsize, evals):
@@ -698,7 +1014,7 @@ def read_counts():
 
 def add_counts(total, counts):
     for key, v in counts.items():
-        if key == "shapes":
+        if isinstance(v, dict):         # launches by shape
             shapes = total.setdefault(key, {})
             for shape, c in v.items():
                 shapes[shape] = shapes.get(shape, 0) + c
@@ -865,6 +1181,9 @@ def phase7_batched(torch, np, device, smi, x, xtilde):
           f"(ladder_items on this card)")
     out = {name: check_batched(torch, gram_cuda, sms, smi, name, ops)
            for name, ops in zip(("K_tilde", "K"), calls)}
+    bwd = {name: check_backward(torch, smi, name, ops, reps=10)
+           for name, ops in zip(("K_tilde", "K"), calls)}
+    grad_call_memory(torch, device, smi, x, xtilde, theta, batch, k)
     # out=: item 0's K written as rows 128..128+m of a larger buffer
     ops = [t[0] for t in calls[1]]
     m, n = ops[0].shape[0], ops[1].shape[0]
@@ -883,7 +1202,53 @@ def phase7_batched(torch, np, device, smi, x, xtilde):
     if not (untouched and same):
         raise RuntimeError("acos_gram(out=) wrote outside its rows or "
                            "differs from the 2-D call")
-    return out
+    return out, bwd
+
+
+def grad_call_memory(torch, device, smi, x, xtilde, theta, batch, k):
+    """Device bytes a (cell, trial) item of the M-step's Grams takes: the
+    value call on ``batch`` items (no gradient) against
+    LADDER_BYTES_PER_ELEMENT, and the gradient call on
+    ``batch // GRAD_CHUNK_DIVISOR`` items (the Grams with autograd, a
+    weighted sum of both, its theta-gradient through the backward kernels)
+    against GRAD_CHUNK_DIVISOR x LADDER_BYTES_PER_ELEMENT, each per
+    element of (nt + ntilde) k."""
+    from gaussian_processes_tpu_torch.models.fit import GRAD_CHUNK_DIVISOR
+    from gaussian_processes_tpu_torch.ops.kernels import gram_matrices
+    from gaussian_processes_tpu_torch.parallel import population as P
+
+    elems = (x.shape[0] + xtilde.shape[0]) * k
+
+    def peak(items, grad):
+        th = {key: v[:items].detach().clone().requires_grad_(grad)
+              for key, v in theta.items()}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        with torch.set_grad_enabled(grad):
+            Kt, K, _ = gram_matrices(th, x, xtilde, N_PX, shared=False)
+            if grad:
+                loss = (Kt * Kt.detach()).sum() + (K * K.detach()).sum()
+                torch.autograd.grad(loss, list(th.values()))
+        del Kt, K
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated(device) - base) / items
+
+    items_g = max(1, batch // GRAD_CHUNK_DIVISOR)
+    value, gradient = peak(batch, False), peak(items_g, True)
+    print(f"device memory a (cell, trial) item takes, bytes per element of "
+          f"(nt + ntilde) k: value call ({batch} items) "
+          f"{value / elems:.2f} against LADDER_BYTES_PER_ELEMENT "
+          f"{P.LADDER_BYTES_PER_ELEMENT}; gradient call ({items_g} items) "
+          f"{gradient / elems:.2f} against GRAD_CHUNK_DIVISOR x "
+          f"LADDER_BYTES_PER_ELEMENT "
+          f"{GRAD_CHUNK_DIVISOR * P.LADDER_BYTES_PER_ELEMENT}  [{smi}]")
+    if not (value <= P.LADDER_BYTES_PER_ELEMENT * elems
+            and gradient <= GRAD_CHUNK_DIVISOR * P.LADDER_BYTES_PER_ELEMENT
+            * elems):
+        raise RuntimeError("an item of the M-step's Grams takes more device "
+                           "memory than ladder_items gives it")
 
 
 def phase8_population(torch, np, device, smi, totals):
@@ -912,7 +1277,7 @@ def phase8_population(torch, np, device, smi, totals):
     if win[2] < N_PX:
         raise RuntimeError("the population window is not the full frame: "
                            "the single-cell comparison below assumes it")
-    out = phase7_batched(torch, np, device, smi, x, xtilde)
+    out, bwd = phase7_batched(torch, np, device, smi, x, xtilde)
 
     def population(rs, pcfg, **kw):
         """fit_population's carry, seconds and peak device memory above
@@ -1087,7 +1452,7 @@ def phase8_population(torch, np, device, smi, totals):
     for what, ok in checks.items():
         if not ok:
             raise RuntimeError(f"population check failed: {what}")
-    return out
+    return out, bwd
 
 
 def phase9_large(torch, np, device, smi, totals):
@@ -2319,6 +2684,12 @@ def phase15_bench(torch, np, device, smi, totals, check_kernel, checked,
     print(f"  Gram launches, the 30-iteration fit: {prof['launches']}; by "
           f"shape {prof['launches_by_shape']}; the gates' (both r2 "
           f"evaluations and the hard fit): {prof['gate_launches']}")
+    fit_counts = prof["launches"]
+    print(f"  the timed fit's backward launches: acos_gram_bwd "
+          f"{fit_counts['bwd']}, tf32_split_t {fit_counts['split_t']}, "
+          f"nt_product {fit_counts['product']}; plain backward calls on "
+          f"CUDA tensors {fit_counts['plain_bwd_cuda']} (the gates': "
+          f"{prof['gate_launches']['plain_bwd_cuda']})")
     for counts in (dict(prof["launches"], shapes=prof["launches_by_shape"]),
                    prof["gate_launches"]):
         add_counts(totals, dict(counts, shapes={
@@ -2330,6 +2701,11 @@ def phase15_bench(torch, np, device, smi, totals, check_kernel, checked,
         "the fit launched the kernel": prof["launches"]["gram"] > 0,
         "the hard fit launched the kernel":
             prof["gate_launches"]["gram"] > 0,
+        "the fit launched the backward kernels": min(
+            fit_counts[key] for key in ("bwd", "split_t", "product")) > 0,
+        "the plain backward called on CUDA tensors 0 times":
+            fit_counts["plain_bwd_cuda"] == 0
+            and prof["gate_launches"]["plain_bwd_cuda"] == 0,
         "the fit neither failed nor went non-finite":
             math.isfinite(rec["value"]),
         "the easy gate passed": q["easy_gate_ok"],
@@ -2344,10 +2720,15 @@ def phase15_bench(torch, np, device, smi, totals, check_kernel, checked,
                 and torch.equal(ops[2], ops[3]) else "K")
         check_kernel(f"{kind} (bench)", ops)
     seen.clear()
-    # the timed fit's searches, from an untimed fit of the same
-    searches = bench_fit_searches(torch, device, **shape)
+    # the timed fit's searches and its first M-step state, from an untimed
+    # fit of the same
+    first = []
+    with first_mstep_call(first):
+        searches = bench_fit_searches(torch, device, **shape)
     fit_ms = fparam_fit_ms(torch, smi, "the bench fit", searches)
     del searches
+    split = mstep_split(torch, smi, first[0])
+    del first
     print(f"phase 15: {time.perf_counter() - t0:.1f} s")
     for what, passed in checks.items():
         if not passed:
@@ -2355,7 +2736,7 @@ def phase15_bench(torch, np, device, smi, totals, check_kernel, checked,
                                f"({rec.get('note')})")
     if not ok:
         raise RuntimeError(f"phase 15: {rec.get('note')}")
-    return fit_ms
+    return fit_ms, split
 
 
 def drive_modules(torch, device, smi, totals, check_kernel, checked, plan,
@@ -2535,7 +2916,10 @@ def main():
     # ---- 1. set-up -------------------------------------------------------
     t_start = time.perf_counter()
 
+    current = {"phase": "1"}
+
     def stamp(phase):
+        current["phase"] = phase
         print(f"-- phase {phase} at {time.perf_counter() - t_start:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2694,6 +3078,20 @@ def main():
     if not grad_err <= GRAD_RTOL:
         raise RuntimeError(f"kernel gradient disagrees: {grad_err:.3e}")
 
+    # the backward kernels at the M-step's operands: the start theta's
+    # 80-px crop window (k 6400) and a 96-px one about it (k 9216)
+    w96 = 96
+    crop96 = tuple(min(max(c - (w96 - crop[2]) // 2, 0), N_PX - w96)
+                   for c in crop[:2]) + (w96,)
+    bwd = {}
+    for win_ in (crop, crop96):
+        calls = gram_cuda.recorded_operands(lambda: gram_matrices_windowed(
+            theta, x, xtilde, N_PX, False, *win_))
+        for name, ops in zip(("K_tilde", "K"), calls):
+            bwd[(name, ops[0].shape[1])] = check_backward(torch, smi, name,
+                                                          ops)
+        del calls
+
     # ---- 3. small fit through the kernel vs float64 on the CPU -----------
     stamp("3")
     srng = np.random.default_rng(3)
@@ -2725,6 +3123,10 @@ def main():
 
     # ---- 4. the main path ------------------------------------------------
     stamp("4")
+    # from here on, the backward's operands at shapes no check has held
+    bwd_seen = {}
+    watch = contextlib.ExitStack()
+    watch.enter_context(backward_operands(gram_cuda, bwd_seen, current))
     cfg = FitConfig(ntilde=NTILDE, maxiter=3, n_estep=10, n_mstep=10,
                     n_fparamstep=10, n_px_side=N_PX, track_variational=False)
     totals = {}
@@ -2747,7 +3149,8 @@ def main():
     torch.cuda.synchronize()
     launches_main = gram_cuda.launches
     split_launches_main = gram_cuda.split_launches
-    add_counts(totals, read_counts())
+    counts_main = read_counts()
+    add_counts(totals, counts_main)
 
     loss = res.track.logmarginal.double().cpu().numpy()
     print(f"fit init {res.timing['init']:.3f} s; per-iteration s "
@@ -2762,7 +3165,11 @@ def main():
           f"{tuple(rates.shape)}")
     print(f"acos_gram launches: fit {launches_fit}, fit + evaluate "
           f"{launches_main}; split-pass launches {split_launches_main}; "
-          f"fparam_lbfgs launches {fparam_launches_fit} (one a search)")
+          f"fparam_lbfgs launches {fparam_launches_fit} (one a search); "
+          f"the backward's: acos_gram_bwd {counts_main['bwd']}, "
+          f"tf32_split_t {counts_main['split_t']}, nt_product "
+          f"{counts_main['product']}; plain backward on the card "
+          f"{counts_main['plain_bwd_cuda']}")
 
     # the same fit through the plain Gram, on the card
     res_plain = fit(x, r, cfg, xtilde=xtilde, theta=THETA0,
@@ -2782,6 +3189,10 @@ def main():
         "split pass launched on the main path": split_launches_main > 0,
         "f-param search kernel launched once a search":
             fparam_launches_fit == len(fp_main) > 0,
+        "the Gram's backward kernels launched on the main path": min(
+            counts_main[key] for key in ("bwd", "split_t", "product")) > 0,
+        "the plain backward called on CUDA tensors 0 times":
+            counts_main["plain_bwd_cuda"] == 0,
         "log-marginal within 1e-3 of the plain-Gram fit":
             len(loss) == len(loss_plain) and plain_err <= REFERENCE_RTOL,
     }
@@ -2949,7 +3360,7 @@ def main():
 
     # ---- 7-8. the batched kernel and the population ----------------------
     stamp("7-8")
-    batched = phase8_population(torch, np, device, smi, totals)
+    batched, bwd_batched = phase8_population(torch, np, device, smi, totals)
     # ---- 9. the large-ntilde path ------------------------------------------
     stamp("9")
     block_ops, large_rec = phase9_large(torch, np, device, smi, totals)
@@ -2978,8 +3389,8 @@ def main():
     phase14_unfitted(torch, np, device, smi, totals, x, r, xtilde, cfg, res)
     # ---- 15. the port's bench at full depth, and its gates ---------------
     stamp("15")
-    fp_fit_ms["phase 15"] = phase15_bench(torch, np, device, smi, totals,
-                                          check_kernel, checked)
+    fp_fit_ms["phase 15"], mstep = phase15_bench(torch, np, device, smi,
+                                                 totals, check_kernel, checked)
     # ---- 16. the bench's secondaries and the parity script ---------------
     stamp("16")
     phase16_benchmarks(torch, np, device, smi, totals, check_kernel, checked,
@@ -2987,6 +3398,19 @@ def main():
     # ---- 17. the quality benchmarks: gate ladder, bad init, A/B ---------
     stamp("17")
     phase17_quality(torch, np, device, smi, totals, check_kernel, checked)
+
+    # ---- the backward kernels at the shapes the main paths handed them ---
+    stamp("backward shapes")
+    watch.close()
+    bwd_more = {}
+    for key, (phase, ops) in sorted(bwd_seen.items(), key=str):
+        name = "K_tilde" if key[1] == key[2] else "K"
+        bwd_more[key] = check_backward(
+            torch, smi, f"{name} (phase {phase})",
+            [t.to(device) for t in ops], reps=3)
+    del bwd_seen
+    print(f"backward kernels held at {len(bwd_more)} more (batch, m, n, k) "
+          f"that the main paths launched: {sorted(bwd_more, key=str)}")
 
     stamp("end")
     shapes = totals.pop("shapes", {})
@@ -2998,10 +3422,20 @@ def main():
           + ", ".join(f"{shape}: {c}" for shape, c in sorted(
               shapes.items(), key=lambda kv: -kv[1])))
     for key, what in (("gram", "2-D Gram"), ("batched", "batched Gram"),
-                      ("split", "split pass"), ("fparam", "f-param search")):
+                      ("split", "split pass"), ("fparam", "f-param search"),
+                      ("bwd", "backward epilogue"),
+                      ("split_t", "transposing split"),
+                      ("product", "product")):
         if totals.get(key, 0) <= 0:
             raise RuntimeError(f"the {what} kernel was not launched on the "
                                f"main paths")
+    if totals.get("plain_bwd_cuda", 0) != 0:
+        raise RuntimeError("the plain backward ran on CUDA tensors on the "
+                           "main paths")
+    for key in ("bwd_shapes", "split_t_shapes", "product_shapes"):
+        print(f"{key} on the main paths: " + ", ".join(
+            f"{shape}: {c}" for shape, c in sorted(
+                totals.pop(key, {}).items(), key=lambda kv: -kv[1])[:12]))
     max_abs, ms, plain_ms = results[("K", 6400)]
     _, b_ms, b_plain_ms, _, b_bound, b_by, _ = batched["K"]
     source = "gaussian_processes_tpu_torch/csrc/acos_gram.cu"
@@ -3012,6 +3446,9 @@ def main():
     fp_main_case = next(c for c in fp_found if c["name"] == "phase 4 last "
                         "E-step" and c["dtype"] == "float32"
                         and c["trials"] == 15)
+    print(f"M-step evaluation split (phase 15, ms an evaluation): "
+          + json.dumps({route: {k: v for k, v in d.items() if k != "grad"}
+                        for route, d in mstep.items()}))
     print(json.dumps({"kernels": [{
         "name": "acos_gram",
         "route": "cuda",
@@ -3065,7 +3502,24 @@ def main():
         "us_per_evaluation": fp_main_case["us_per_eval"],
         "device_ms": fp_main_case["device_ms"],
         "fit_device_ms": fp_fit_ms,
-    }]}))
+    }] + [{
+        "name": kname,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": totals[key],
+        "max_abs_err": max(r[kname][0] for r in list(bwd.values())
+                           + list(bwd_batched.values())
+                           + list(bwd_more.values())),
+        "ms": bwd[("K", 6400)][kname][1],
+        "plain_ms": bwd[("K", 6400)][kname][2],
+        "bound_ms": bwd[("K", 6400)][kname][4],
+        "bound_by": bwd[("K", 6400)][kname][5],
+        "library_ms": bwd[("K", 6400)][kname][3],
+        "at": bwd[("K", 6400)][kname][6],
+    } for kname, key in (("acos_gram_bwd", "bwd"),
+                         ("tf32_split_t", "split_t"),
+                         ("nt_product", "product"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

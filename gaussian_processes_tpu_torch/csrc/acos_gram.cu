@@ -11,8 +11,11 @@
 //   X1 = sqrt(q11 + s0^2), X2 = sqrt(q22 + s0^2), s0 = *sigma0
 //   c  = clip((q12 + s0^2) / (X1 X2 + 1e-7), -1, 1)
 //   K  = X1 X2 * (sqrt(1 - c^2) + (pi - acos c) c) / pi
+// and the gradient of K with respect to u1, s2, q11, q22 and sigma0 (the
+// TPU kernel had none: JAX differentiates its XLA path).
 //
-// Three kernels, launched in order by tf32_split_f32 and acos_gram_f32:
+// The forward: three kernels, launched in order by tf32_split_f32 and
+// acos_gram_f32:
 //
 // 1. tf32_split_kernel (tf32_split_vec_kernel where k is a multiple of 4),
 //    once per operand, over all items' rows at once: big = cvt.rna.tf32(a) and
@@ -34,6 +37,27 @@
 //    to a workspace (batch, splits, m, n).
 // 3. acos_gram_reduce_kernel (split k only): sums the partials in split
 //    order and applies the same epilogue.
+// Where a gradient is wanted, the epilogue (or the reduce kernel) also
+// writes the raw q12 it used, so that the backward differentiates at the
+// forward's own q12; K's arithmetic does not change.
+//
+// The backward, launched by acos_gram_bwd_f32, tf32_split_t_f32 and
+// nt_product_f32 (ops/gram_cuda.py runs them in that order):
+// 4. acos_gram_bwd_kernel, then acos_gram_bwd_sums_kernel and
+//    acos_gram_bwd_sigma_kernel: dq12 = dL/dq12
+//    elementwise from g = dL/dK and the saved q12 (written with its TF32
+//    planes), and dL/dq11, dL/dq22, dL/dsigma0 by per-tile partial sums
+//    added in a fixed order (see "The Gram's backward epilogue" below).
+// 5. tf32_split_t_kernel: the split pass for an operand whose contraction
+//    axis is its rows (S2^T, U1^T, dq12^T): TF32 wgmma takes only operands
+//    that are K-major in shared memory, so the transpose happens here,
+//    through a shared-memory tile, and not in the main loop.
+// 6. nt_product_tf32x3_kernel (+ nt_product_reduce_kernel with split k):
+//    the same main loop with no epilogue, for dU1 = dq12 S2 (m, k) and
+//    dS2 = dq12^T U1 (n, k).  Both cost what the forward's product costs
+//    (2 m n k flops in 3xTF32 each), so the backward is about twice the
+//    forward; its elementwise pass and the transposing splits are bound by
+//    bytes.
 //
 // Accumulation interval: the tensor cores' float32 accumulation does not
 // round like fmaf, and at K_tilde's diagonal (c -> 1) every term has the
@@ -283,34 +307,22 @@ __global__ void tf32_split_vec_kernel(const float4* __restrict__ a,
   }
 }
 
-// Grid (tiles of n, tiles of m, batch x splits).  With one split, out is K
-// (batch, m, n); with several, out is the workspace (batch, splits, m, n) of
-// raw partial q12.  q11 is (batch, m), q22 (batch, n), sigma0 (batch,).
-__global__ void __launch_bounds__(THREADS, 1)
-    acos_gram_tf32x3_kernel(const __grid_constant__ CUtensorMap a_big,
-                            const __grid_constant__ CUtensorMap a_small,
-                            const __grid_constant__ CUtensorMap b_big,
-                            const __grid_constant__ CUtensorMap b_small,
-                            const float* __restrict__ q11,
-                            const float* __restrict__ q22,
-                            const float* __restrict__ sigma0,
-                            float* __restrict__ out, int m, int n,
-                            int kblocks, int splits) {
+// The 3xTF32 main loop of one block over k-blocks [kb0, kb1) of one item:
+// the producer warpgroup's one thread keeps the ring full, the two consumer
+// warpgroups run the wgmmas (see the top of the file).  Returns false in the
+// producer warpgroup, which has nothing left to do; in a consumer thread
+// `sum` then holds its part of the block's 128 x 128 tile of A B^T, in the
+// accumulator layout of m64nNk8 (see store_tile).
+__device__ __forceinline__ bool tf32x3_mainloop(
+    const CUtensorMap* a_big, const CUtensorMap* a_small,
+    const CUtensorMap* b_big, const CUtensorMap* b_small, int item, int m0,
+    int n0, int kb0, int kb1, float (&sum)[64]) {
   extern __shared__ uint8_t smem_raw[];
   // 128-byte-swizzled tiles want a 1024-B aligned base
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bars = base + STAGES * STAGE_BYTES;
   auto full = [&](int s) { return bars + 8u * s; };
   auto empty = [&](int s) { return bars + 8u * (STAGES + s); };
-
-  const int item = blockIdx.z / splits;
-  const int split = blockIdx.z - item * splits;
-  const int kb0 = static_cast<int>(static_cast<long long>(split) * kblocks /
-                                   splits);
-  const int kb1 = static_cast<int>(static_cast<long long>(split + 1) *
-                                   kblocks / splits);
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -331,10 +343,10 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_wait(empty(stage), phase ^ 1u);
         const uint32_t s = base + stage * STAGE_BYTES;
         mbar_expect_tx(full(stage), STAGE_BYTES);
-        tma_load(s, &a_big, full(stage), kb * BK, m0, item);
-        tma_load(s + TILE_BYTES, &a_small, full(stage), kb * BK, m0, item);
-        tma_load(s + 2 * TILE_BYTES, &b_big, full(stage), kb * BK, n0, item);
-        tma_load(s + 3 * TILE_BYTES, &b_small, full(stage), kb * BK, n0,
+        tma_load(s, a_big, full(stage), kb * BK, m0, item);
+        tma_load(s + TILE_BYTES, a_small, full(stage), kb * BK, m0, item);
+        tma_load(s + 2 * TILE_BYTES, b_big, full(stage), kb * BK, n0, item);
+        tma_load(s + 3 * TILE_BYTES, b_small, full(stage), kb * BK, n0,
                  item);
         if (++stage == STAGES) {
           stage = 0;
@@ -342,11 +354,11 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
       }
     }
-    return;
+    return false;
   }
 
   // ---- consumers: 64 rows x 128 columns each ----
-  float acc[64], sum[64];
+  float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
     acc[i] = 0.f;
@@ -387,30 +399,78 @@ __global__ void __launch_bounds__(THREADS, 1)
       phase ^= 1u;
     }
   }
+  return true;
+}
 
-  // Accumulator layout of m64nNk8: register 4 j + 2 i + c of thread t holds
-  // row 16 warp + t/4 % 8 + 8 i, column 8 j + 2 (t % 4) + c.
+// Accumulator layout of m64nNk8: register 4 j + 2 i + c of thread t holds
+// row 16 warp + t/4 % 8 + 8 i, column 8 j + 2 (t % 4) + c.  The first row
+// and column a consumer thread holds in the block at (m0, n0):
+__device__ __forceinline__ int tile_row0(int m0) {
   const int t = threadIdx.x % 128;
-  const int row0 = m0 + wg * 64 + (t / 32) * 16 + (t % 32) / 4;
-  const int col0 = n0 + 2 * (t % 4);
+  return m0 + (threadIdx.x / 128) * 64 + (t / 32) * 16 + (t % 32) / 4;
+}
+__device__ __forceinline__ int tile_col0(int n0) {
+  return n0 + 2 * (threadIdx.x % 4);
+}
+
+// Writes a consumer thread's part of a tile into the row-major (m, n)
+// matrix dst, masked to (m, n).
+__device__ __forceinline__ void store_tile(const float (&sum)[64], float* dst,
+                                           int m, int n, int row0, int col0) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + 8 * i;
+    if (r >= m) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = col0 + 8 * j + c;
+        if (col < n) dst[static_cast<size_t>(r) * n + col] =
+            sum[4 * j + 2 * i + c];
+      }
+  }
+}
+
+// The block's range of k-blocks: split `split` of `splits`.
+__device__ __forceinline__ int split_lo(int split, int kblocks, int splits) {
+  return static_cast<int>(static_cast<long long>(split) * kblocks / splits);
+}
+
+// Grid (tiles of n, tiles of m, batch x splits).  With one split, out is K
+// (batch, m, n), and q12 (batch, m, n) the raw cross form where it is not
+// null; with several, out is the workspace (batch, splits, m, n) of raw
+// partial q12 (q12 then comes from the reduce kernel).  q11 is (batch, m),
+// q22 (batch, n), sigma0 (batch,).
+__global__ void __launch_bounds__(THREADS, 1)
+    acos_gram_tf32x3_kernel(const __grid_constant__ CUtensorMap a_big,
+                            const __grid_constant__ CUtensorMap a_small,
+                            const __grid_constant__ CUtensorMap b_big,
+                            const __grid_constant__ CUtensorMap b_small,
+                            const float* __restrict__ q11,
+                            const float* __restrict__ q22,
+                            const float* __restrict__ sigma0,
+                            float* __restrict__ out, float* __restrict__ q12,
+                            int m, int n, int kblocks, int splits) {
+  const int item = blockIdx.z / splits;
+  const int split = blockIdx.z - item * splits;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  float sum[64];
+  if (!tf32x3_mainloop(&a_big, &a_small, &b_big, &b_small, item, m0, n0,
+                       split_lo(split, kblocks, splits),
+                       split_lo(split + 1, kblocks, splits), sum))
+    return;
+
+  const int row0 = tile_row0(m0);
+  const int col0 = tile_col0(n0);
   const size_t mn = static_cast<size_t>(m) * n;
   if (splits > 1) {
-    float* part = out + (static_cast<size_t>(item) * splits + split) * mn;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = row0 + 8 * i;
-      if (r >= m) continue;
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int col = col0 + 8 * j + c;
-          if (col < n) part[static_cast<size_t>(r) * n + col] =
-              sum[4 * j + 2 * i + c];
-        }
-    }
+    store_tile(sum, out + (static_cast<size_t>(item) * splits + split) * mn,
+               m, n, row0, col0);
     return;
   }
+  if (q12 != nullptr) store_tile(sum, q12 + item * mn, m, n, row0, col0);
   q11 += static_cast<size_t>(item) * m;
   q22 += static_cast<size_t>(item) * n;
   out += item * mn;
@@ -440,13 +500,14 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // K[b, i, j] from the partial sums ws[b, 0..splits)[i, j], added in split
-// order.
+// order (and that sum into q12 where it is not null).
 __global__ void acos_gram_reduce_kernel(const float* __restrict__ ws,
                                         int splits,
                                         const float* __restrict__ q11,
                                         const float* __restrict__ q22,
                                         const float* __restrict__ sigma0,
-                                        float* __restrict__ out, int m,
+                                        float* __restrict__ out,
+                                        float* __restrict__ q12, int m,
                                         int n, int batch) {
   const size_t mn = static_cast<size_t>(m) * n;
   const size_t total = mn * batch;
@@ -458,6 +519,7 @@ __global__ void acos_gram_reduce_kernel(const float* __restrict__ ws,
     const float* part = ws + b * splits * mn + e;
     float q = part[0];
     for (int s = 1; s < splits; ++s) q += part[s * mn];
+    if (q12 != nullptr) q12[i] = q;
     const size_t r = e / n;
     const size_t c = e - r * n;
     const float s0 = sigma0[b];
@@ -465,6 +527,282 @@ __global__ void acos_gram_reduce_kernel(const float* __restrict__ ws,
     out[i] = acos_entry(q, sqrtf(q11[b * m + r] + s02),
                         sqrtf(q22[b * n + c] + s02), s02);
   }
+}
+
+// The same main loop with no epilogue: out (batch, m, n) = A B^T per item,
+// or, with several splits, the workspace (batch, splits, m, n) of partial
+// sums that nt_product_reduce_kernel adds in split order.
+__global__ void __launch_bounds__(THREADS, 1)
+    nt_product_tf32x3_kernel(const __grid_constant__ CUtensorMap a_big,
+                             const __grid_constant__ CUtensorMap a_small,
+                             const __grid_constant__ CUtensorMap b_big,
+                             const __grid_constant__ CUtensorMap b_small,
+                             float* __restrict__ out, int m, int n,
+                             int kblocks, int splits) {
+  const int item = blockIdx.z / splits;
+  const int split = blockIdx.z - item * splits;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  float sum[64];
+  if (!tf32x3_mainloop(&a_big, &a_small, &b_big, &b_small, item, m0, n0,
+                       split_lo(split, kblocks, splits),
+                       split_lo(split + 1, kblocks, splits), sum))
+    return;
+  const size_t mn = static_cast<size_t>(m) * n;
+  store_tile(sum, out + (static_cast<size_t>(item) * splits + split) * mn, m,
+             n, tile_row0(m0), tile_col0(n0));
+}
+
+__global__ void nt_product_reduce_kernel(const float* __restrict__ ws,
+                                         int splits, float* __restrict__ out,
+                                         size_t mn, int batch) {
+  const size_t total = mn * batch;
+  const size_t step = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < total; i += step) {
+    const size_t b = i / mn;
+    const float* part = ws + b * splits * mn + (i - b * mn);
+    float q = part[0];
+    for (int s = 1; s < splits; ++s) q += part[s * mn];
+    out[i] = q;
+  }
+}
+
+// a (batch, rows, cols) -> big, small (batch, cols, rowsp), transposed:
+// big[b, c, r] = tf32(a[b, r, c]) and small = a - big, zero in rows
+// [rows, rowsp).  A 32 x 32 tile goes through shared memory (one padded
+// column against bank conflicts), so both the reads along c and the
+// writes along r are coalesced.  Block (32, 8), grid (row tiles of rowsp,
+// column tiles, batch).
+__global__ void tf32_split_t_kernel(const float* __restrict__ a,
+                                    float* __restrict__ big,
+                                    float* __restrict__ small, int rows,
+                                    int cols, int rowsp) {
+  __shared__ float tile[32][33];
+  const int r0 = blockIdx.x * 32;
+  const int c0 = blockIdx.y * 32;
+  const size_t b = blockIdx.z;
+  const float* ab = a + b * rows * cols;
+  for (int j = threadIdx.y; j < 32; j += 8) {
+    const int r = r0 + j;
+    const int c = c0 + threadIdx.x;
+    tile[j][threadIdx.x] =
+        r < rows && c < cols ? ab[static_cast<size_t>(r) * cols + c] : 0.f;
+  }
+  __syncthreads();
+  const size_t plane = b * cols * rowsp;
+  for (int j = threadIdx.y; j < 32; j += 8) {
+    const int c = c0 + j;
+    const int r = r0 + threadIdx.x;
+    if (c < cols && r < rowsp) {
+      const float v = tile[threadIdx.x][j];
+      const float hi = tf32_rna(v);
+      const size_t o = plane + static_cast<size_t>(c) * rowsp + r;
+      big[o] = hi;
+      small[o] = v - hi;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The Gram's backward epilogue
+// ---------------------------------------------------------------------------
+//
+// From g = dL/dK and the forward's own q12, per element (the formulas of the
+// plain backward, gram_cuda.acos_gram_bwd_torch, rounded as it rounds them:
+// the products, sums and quotients that decide the clip are written with
+// the _rn intrinsics so that the compiler contracts none of them):
+//   X1 X2 = P, den = P + 1e-7, ratio = (q12 + s0^2) / den, c = clip(ratio)
+//   dclip = 1 inside, 1/2 exactly on a bound, 0 beyond (NaN: 0, and the
+//   NaN of c passes on through the product)
+//   g_ratio = g P (pi - acos c) / pi dclip,  dq12 = g_ratio / den
+//   g_P = g J(c) - g_ratio ratio / den
+// and the row and column sums dq11[i] = sum_j g_P X2_j / (2 X1_i), dq22[j] =
+// sum_i g_P X1_i / (2 X2_j), dsigma0 = 2 s0 (sum dq11 + sum dq22 + sum
+// dq12).  Every sum runs in a fixed order (per-tile partials, then one
+// thread per entry of dq11 and dq22 adds them in tile order, then one block
+// per item adds those for dsigma0; no floating-point atomics), so two runs
+// give the same bits.  dq12 also goes out as the two TF32 planes of the
+// product dU1 = dq12 S2 (A operand, row stride np), which saves the split
+// pass a read of dq12.
+//
+// What bounds it: bytes (read g and q12, write dq12 and its planes; ~40
+// operations an element against ~20 bytes), so each thread streams its
+// elements once with coalesced loads.
+
+constexpr int BWD_TM = 32;    // rows of a backward tile: 8 warps x 4 rows
+constexpr int BWD_TN = 128;   // columns: 32 lanes x 4
+constexpr int BWD_THREADS = 256;
+
+// Grid (tiles of n, tiles of m, batch).  row_part (batch, tiles_n, m),
+// col_part (batch, tiles_m, n) and num_part (batch, tiles_m x tiles_n)
+// take the tile's sums of g_P X2 along its row, g_P X1 along its column and
+// dq12.
+__global__ void __launch_bounds__(BWD_THREADS)
+    acos_gram_bwd_kernel(const float* __restrict__ g,
+                         const float* __restrict__ q12,
+                         const float* __restrict__ q11,
+                         const float* __restrict__ q22,
+                         const float* __restrict__ sigma0,
+                         float* __restrict__ dq12, float* __restrict__ big,
+                         float* __restrict__ small, int np,
+                         float* __restrict__ row_part,
+                         float* __restrict__ col_part,
+                         float* __restrict__ num_part, int m, int n) {
+  __shared__ float col_sh[BWD_THREADS / 32][BWD_TN];
+  __shared__ float num_sh[BWD_THREADS / 32];
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int r_base = blockIdx.y * BWD_TM + warp * 4;
+  const int c_base = blockIdx.x * BWD_TN + lane;
+  const size_t mn = static_cast<size_t>(m) * n;
+  const float s0 = sigma0[b];
+  const float s02 = __fmul_rn(s0, s0);
+  float x2[4], col_acc[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int c = c_base + 32 * q;
+    x2[q] = c < n ? __fsqrt_rn(__fadd_rn(q22[static_cast<size_t>(b) * n + c],
+                                         s02))
+                  : 0.f;
+    col_acc[q] = 0.f;
+  }
+  float num_acc = 0.f;
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr) {
+    const int r = r_base + rr;
+    if (r >= m) continue;  // the same for the whole warp
+    const float x1 =
+        __fsqrt_rn(__fadd_rn(q11[static_cast<size_t>(b) * m + r], s02));
+    const size_t row = b * mn + static_cast<size_t>(r) * n;
+    const size_t prow = (static_cast<size_t>(b) * m + r) * np;
+    float row_acc = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = c_base + 32 * q;
+      if (c >= n) {
+        if (c < np) big[prow + c] = small[prow + c] = 0.f;
+        continue;
+      }
+      const float gv = g[row + c];
+      const float P = __fmul_rn(x1, x2[q]);
+      const float den = __fadd_rn(P, JITTER);
+      const float ratio = __fdiv_rn(__fadd_rn(q12[row + c], s02), den);
+      const float a = fabsf(ratio);
+      const float dclip = a < 1.f ? 1.f : (a == 1.f ? 0.5f : 0.f);
+      const float cc = ratio < -1.f ? -1.f : (ratio > 1.f ? 1.f : ratio);
+      const float s = __fsqrt_rn(fmaxf(__fsub_rn(1.f, __fmul_rn(cc, cc)),
+                                       0.f));
+      const float pma = __fsub_rn(CUDART_PI_F, acosf(cc));
+      const float J = __fdiv_rn(__fadd_rn(s, __fmul_rn(pma, cc)),
+                                CUDART_PI_F);
+      const float g_ratio = __fmul_rn(
+          __fmul_rn(__fmul_rn(gv, P), __fdiv_rn(pma, CUDART_PI_F)), dclip);
+      const float d = __fdiv_rn(g_ratio, den);
+      const float gP = __fsub_rn(__fmul_rn(gv, J),
+                                 __fdiv_rn(__fmul_rn(g_ratio, ratio), den));
+      dq12[row + c] = d;
+      const float hi = tf32_rna(d);
+      big[prow + c] = hi;
+      small[prow + c] = d - hi;
+      row_acc += gP * x2[q];
+      col_acc[q] += gP * x1;
+      num_acc += d;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2)
+      row_acc += __shfl_xor_sync(0xffffffffu, row_acc, off);
+    if (lane == 0)
+      row_part[(static_cast<size_t>(b) * gridDim.x + blockIdx.x) * m + r] =
+          row_acc;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) col_sh[warp][lane + 32 * q] = col_acc[q];
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2)
+    num_acc += __shfl_xor_sync(0xffffffffu, num_acc, off);
+  if (lane == 0) num_sh[warp] = num_acc;
+  __syncthreads();
+  if (threadIdx.x < BWD_TN) {
+    const int c = blockIdx.x * BWD_TN + threadIdx.x;
+    float acc = col_sh[0][threadIdx.x];
+    for (int w = 1; w < BWD_THREADS / 32; ++w) acc += col_sh[w][threadIdx.x];
+    if (c < n)
+      col_part[(static_cast<size_t>(b) * gridDim.y + blockIdx.y) * n + c] =
+          acc;
+  }
+  if (threadIdx.x == 0) {
+    float acc = num_sh[0];
+    for (int w = 1; w < BWD_THREADS / 32; ++w) acc += num_sh[w];
+    num_part[(static_cast<size_t>(b) * gridDim.y + blockIdx.y) * gridDim.x +
+             blockIdx.x] = acc;
+  }
+}
+
+// Adds a block's 256 values in a fixed tree order; thread 0 gets the sum.
+__device__ float block_sum(float v, float* sh) {
+  const int t = threadIdx.x;
+  sh[t] = v;
+  __syncthreads();
+  for (int half = BWD_THREADS / 2; half > 0; half /= 2) {
+    if (t < half) sh[t] += sh[t + half];
+    __syncthreads();
+  }
+  const float s = sh[0];
+  __syncthreads();
+  return s;
+}
+
+// One thread per entry of dq11 and of dq22: the tiles' partials added in
+// tile order.  Grid (entries of m + n in blocks of 256, batch).
+__global__ void __launch_bounds__(BWD_THREADS)
+    acos_gram_bwd_sums_kernel(const float* __restrict__ row_part,
+                              const float* __restrict__ col_part,
+                              const float* __restrict__ q11,
+                              const float* __restrict__ q22,
+                              const float* __restrict__ sigma0,
+                              float* __restrict__ dq11,
+                              float* __restrict__ dq22, int m, int n,
+                              int tiles_m, int tiles_n) {
+  const size_t b = blockIdx.y;
+  const int e = blockIdx.x * BWD_THREADS + threadIdx.x;
+  if (e >= m + n) return;
+  const float s0 = sigma0[b];
+  const float s02 = __fmul_rn(s0, s0);
+  const bool row = e < m;
+  const int i = row ? e : e - m;
+  const int len = row ? m : n;
+  const int tiles = row ? tiles_n : tiles_m;
+  const float* p = (row ? row_part : col_part) + b * tiles * len + i;
+  float acc = p[0];
+#pragma unroll 8
+  for (int t = 1; t < tiles; ++t) acc += p[static_cast<size_t>(t) * len];
+  const float x = __fsqrt_rn(__fadd_rn((row ? q11 : q22)[b * len + i], s02));
+  (row ? dq11 : dq22)[b * len + i] = __fdiv_rn(acc, __fmul_rn(2.f, x));
+}
+
+// One block per item: dsigma0 = 2 s0 (sum dq11 + sum dq22 + sum dq12),
+// each sum in a fixed order.
+__global__ void __launch_bounds__(BWD_THREADS)
+    acos_gram_bwd_sigma_kernel(const float* __restrict__ dq11,
+                               const float* __restrict__ dq22,
+                               const float* __restrict__ num_part,
+                               const float* __restrict__ sigma0,
+                               float* __restrict__ dsigma0, int m, int n,
+                               int tiles) {
+  __shared__ float sh[BWD_THREADS];
+  const size_t b = blockIdx.x;
+  float sum_a = 0.f, sum_b = 0.f, sum_num = 0.f;
+  for (int i = threadIdx.x; i < m; i += BWD_THREADS) sum_a += dq11[b * m + i];
+  for (int j = threadIdx.x; j < n; j += BWD_THREADS) sum_b += dq22[b * n + j];
+  for (int t = threadIdx.x; t < tiles; t += BWD_THREADS)
+    sum_num += num_part[b * tiles + t];
+  sum_a = block_sum(sum_a, sh);
+  sum_b = block_sum(sum_b, sh);
+  sum_num = block_sum(sum_num, sh);
+  if (threadIdx.x == 0)
+    dsigma0[b] = (sum_a + sum_b + sum_num) * 2.f * sigma0[b];
 }
 
 // ---------------------------------------------------------------------------
@@ -525,6 +863,27 @@ int grid_for(size_t work) {
   return static_cast<int>(blocks < 4096 ? (blocks > 0 ? blocks : 1) : 4096);
 }
 
+// Checks a main-loop plan and encodes the four planes' tensor maps of the
+// split operands a (2, batch, m, kp) and b (2, batch, n, kp); 0 or an
+// error code.
+int encode_operands(const float* a, const float* b, int m, int n, int kp,
+                    int splits, int batch, CUtensorMap (&maps)[4]) {
+  const int kblocks = (kp + BK - 1) / BK;
+  if (splits < 1 || splits > kblocks || batch < 1 ||
+      static_cast<long long>(batch) * splits > 65535)
+    return ERR_PLAN;
+  EncodeTiledFn enc = encoder();
+  if (enc == nullptr) return ERR_NO_ENCODER;
+  const size_t a_plane = static_cast<size_t>(batch) * m * kp;
+  const size_t b_plane = static_cast<size_t>(batch) * n * kp;
+  if (!encode_plane(enc, &maps[0], a, m, kp, batch) ||
+      !encode_plane(enc, &maps[1], a + a_plane, m, kp, batch) ||
+      !encode_plane(enc, &maps[2], b, n, kp, batch) ||
+      !encode_plane(enc, &maps[3], b + b_plane, n, kp, batch))
+    return ERR_TENSOR_MAP;
+  return 0;
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Each function launches on
@@ -550,42 +909,112 @@ extern "C" int tf32_split_f32(const float* a, float* dst, int rows, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
+// a (batch, rows, cols) -> dst (2, batch, cols, rowsp): the big plane of
+// a^T per item, then the small plane, zero in rows [rows, rowsp).
+extern "C" int tf32_split_t_f32(const float* a, float* dst, int batch,
+                                int rows, int cols, int rowsp, void* stream) {
+  if (batch < 1 || batch > 65535 || rows < 1 || cols < 1 || rowsp < rows ||
+      (cols + 31) / 32 > 65535)
+    return ERR_PLAN;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((rowsp + 31) / 32, (cols + 31) / 32, batch);
+  tf32_split_t_kernel<<<grid, dim3(32, 8), 0, st>>>(
+      a, dst, dst + static_cast<size_t>(batch) * cols * rowsp, rows, cols,
+      rowsp);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // K (batch, m, n) from the split operands a (2, batch, m, kp) and b (2,
-// batch, n, kp), with q11 (batch, m), q22 (batch, n) and sigma0 (batch,).
-// With splits > 1, ws holds (batch, splits, m, n) floats; otherwise it is
-// not touched.  out may be any contiguous (batch, m, n) target.
+// batch, n, kp), with q11 (batch, m), q22 (batch, n) and sigma0 (batch,);
+// q12 (batch, m, n) takes the raw cross form where it is not null.  With
+// splits > 1, ws holds (batch, splits, m, n) floats; otherwise it is not
+// touched.  out may be any contiguous (batch, m, n) target.
 extern "C" int acos_gram_f32(const float* a, const float* b, const float* q11,
                              const float* q22, const float* sigma0,
-                             float* out, float* ws, int m, int n, int kp,
-                             int splits, int batch, void* stream) {
+                             float* out, float* q12, float* ws, int m, int n,
+                             int kp, int splits, int batch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int kblocks = (kp + BK - 1) / BK;
-  if (splits < 1 || splits > kblocks || batch < 1 ||
-      static_cast<long long>(batch) * splits > 65535)
-    return ERR_PLAN;
-  EncodeTiledFn enc = encoder();
-  if (enc == nullptr) return ERR_NO_ENCODER;
-  CUtensorMap ab, as, bb, bs;
-  const size_t a_plane = static_cast<size_t>(batch) * m * kp;
-  const size_t b_plane = static_cast<size_t>(batch) * n * kp;
-  if (!encode_plane(enc, &ab, a, m, kp, batch) ||
-      !encode_plane(enc, &as, a + a_plane, m, kp, batch) ||
-      !encode_plane(enc, &bb, b, n, kp, batch) ||
-      !encode_plane(enc, &bs, b + b_plane, n, kp, batch))
-    return ERR_TENSOR_MAP;
+  CUtensorMap maps[4];
+  const int rc = encode_operands(a, b, m, n, kp, splits, batch, maps);
+  if (rc != 0) return rc;
   cudaError_t e = cudaFuncSetAttribute(
       acos_gram_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, batch * splits);
   acos_gram_tf32x3_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
-      ab, as, bb, bs, q11, q22, sigma0, splits > 1 ? ws : out, m, n, kblocks,
-      splits);
+      maps[0], maps[1], maps[2], maps[3], q11, q22, sigma0,
+      splits > 1 ? ws : out, q12, m, n, (kp + BK - 1) / BK, splits);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
   acos_gram_reduce_kernel<<<grid_for(static_cast<size_t>(batch) * m * n), 256,
-                            0, st>>>(ws, splits, q11, q22, sigma0, out, m, n,
-                                     batch);
+                            0, st>>>(ws, splits, q11, q22, sigma0, out, q12, m,
+                                     n, batch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (batch, m, n) = A B^T per item, from the split operands a (2, batch,
+// m, kp) and b (2, batch, n, kp), on the Gram's main loop; ws as in
+// acos_gram_f32.
+extern "C" int nt_product_f32(const float* a, const float* b, float* out,
+                              float* ws, int m, int n, int kp, int splits,
+                              int batch, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  CUtensorMap maps[4];
+  const int rc = encode_operands(a, b, m, n, kp, splits, batch, maps);
+  if (rc != 0) return rc;
+  cudaError_t e = cudaFuncSetAttribute(
+      nt_product_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, batch * splits);
+  nt_product_tf32x3_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
+      maps[0], maps[1], maps[2], maps[3], splits > 1 ? ws : out, m, n,
+      (kp + BK - 1) / BK, splits);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  const size_t mn = static_cast<size_t>(m) * n;
+  nt_product_reduce_kernel<<<grid_for(mn * batch), 256, 0, st>>>(
+      ws, splits, out, mn, batch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward epilogue of a batch of Grams: from g and q12 (batch, m, n),
+// q11 (batch, m), q22 (batch, n) and sigma0 (batch,), dq12 (batch, m, n),
+// its TF32 planes planes (2, batch, m, np) (np >= n, zero in the columns
+// past n), dq11 (batch, m), dq22 (batch, n) and dsigma0 (batch,).  part
+// holds batch x (tiles_n m + tiles_m n + tiles_m tiles_n) floats, tiles of
+// 32 rows by 128 columns.
+extern "C" int acos_gram_bwd_f32(const float* g, const float* q12,
+                                 const float* q11, const float* q22,
+                                 const float* sigma0, float* dq12,
+                                 float* planes, int np, float* part,
+                                 float* dq11, float* dq22, float* dsigma0,
+                                 int m, int n, int batch, void* stream) {
+  const int tiles_m = (m + BWD_TM - 1) / BWD_TM;
+  const int tiles_n = (n + BWD_TN - 1) / BWD_TN;
+  if (batch < 1 || batch > 65535 || tiles_m > 65535 || np < n)
+    return ERR_PLAN;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* row_part = part;
+  float* col_part = row_part + static_cast<size_t>(batch) * tiles_n * m;
+  float* num_part = col_part + static_cast<size_t>(batch) * tiles_m * n;
+  const dim3 grid(tiles_n, tiles_m, batch);
+  acos_gram_bwd_kernel<<<grid, BWD_THREADS, 0, st>>>(
+      g, q12, q11, q22, sigma0, dq12, planes,
+      planes + static_cast<size_t>(batch) * m * np, np, row_part, col_part,
+      num_part, m, n);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  acos_gram_bwd_sums_kernel<<<dim3((m + n + BWD_THREADS - 1) / BWD_THREADS,
+                                   batch),
+                              BWD_THREADS, 0, st>>>(
+      row_part, col_part, q11, q22, sigma0, dq11, dq22, m, n, tiles_m,
+      tiles_n);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  acos_gram_bwd_sigma_kernel<<<batch, BWD_THREADS, 0, st>>>(
+      dq11, dq22, num_part, sigma0, dsigma0, m, n, tiles_m * tiles_n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -599,8 +1028,8 @@ extern "C" const char* acos_gram_error_string(int code) {
     case ERR_TENSOR_MAP:
       return "cuTensorMapEncodeTiled refused an operand's tensor map";
     case ERR_PLAN:
-      return "splits outside [1, number of 32-float blocks of k], or batch "
-             "x splits above 65535";
+      return "sizes outside the launch's limits (splits outside [1, number "
+             "of 32-float blocks of k], or a grid dimension above 65535)";
     default:
       return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

@@ -22,11 +22,21 @@ small*big on the tensor cores (3xTF32), over the split of k that
 is no fallback from one to the other: a CUDA tensor the kernel cannot take
 raises.
 
-The gradient is ``AcosGram.backward``: plain PyTorch on either device.  It
-recomputes ``q12 = u1 @ s2.T``, forms dK/dc with the analytic
-dJ/dc = (pi - acos c) / pi (autodiff of J gives inf - inf at |c| = 1), and
-passes half the gradient where the clip is exactly at a bound, as
-``jnp.clip`` and ``torch.maximum`` do.
+The gradient is ``AcosGram.backward``, taken at the forward's own q12: when
+an input requires a gradient the forward keeps the q12 it computed (the
+kernel writes it beside K) and saves it.  The backward forms dq12 = dL/dq12
+with the analytic dJ/dc = (pi - acos c) / pi (autodiff of J gives inf - inf
+at |c| = 1), passing half the gradient where the clip is exactly at a
+bound, as ``jnp.clip`` and ``torch.maximum`` do, and the row and column
+sums that give dL/dq11, dL/dq22 and dL/dsigma0; then dU1 = dq12 S2 and
+dS2 = dq12^T U1.  On CUDA tensors these are hand-written kernels in the
+same source (``acos_gram_bwd``: the elementwise pass and the sums, in a
+fixed order; ``tf32_split_t``: the split pass of an operand whose
+contraction runs along its rows, transposed; ``nt_product``: the Gram's
+3xTF32 main loop with no epilogue), and a CUDA tensor they cannot take
+raises; on CPU tensors the plain version ``gram_backward_torch`` runs (the
+plain epilogue ``acos_gram_bwd_torch``, then ``dq12 @ s2`` and
+``dq12.mT @ u1``).
 
 The kernels are built at first use with ``nvcc`` into ``build/kernels/`` at
 the repository root, keyed by a hash of the source and flags, and loaded
@@ -35,6 +45,11 @@ with ``ctypes`` (``ops/cuda_build``).  ``launches`` counts launches of the Gram 
 ``batched_launches`` those of them with a batch axis, ``items`` the Grams
 they computed (the batch sizes summed), ``shape_launches`` the launches by
 (batch, m, n, k), and ``split_launches`` launches of the split pass;
+``bwd_launches``, ``split_t_launches`` and ``product_launches`` count the
+backward's kernels (each with its helper kernel), by shape in
+``bwd_shapes`` ("BxMxN"), ``split_t_shapes`` ("BxROWSxCOLS") and
+``product_shapes`` ("BxMxN kK"), and ``plain_bwd_cuda`` the calls of the
+plain backward on CUDA tensors (which no path of the port makes);
 ``reset_counts`` sets them to 0 and ``read_counts`` reads them.
 ``recorded_operands`` keeps the operands of the Grams a block of code hands
 the wrapper, to hold the kernel against its plain version on them.
@@ -78,6 +93,13 @@ batched_launches = 0
 items = 0
 split_launches = 0
 shape_launches = collections.Counter()
+# The backward's kernels: launches and launches by shape, and the plain
+# backward's calls on CUDA tensors.
+bwd_launches = split_t_launches = product_launches = 0
+bwd_shapes = collections.Counter()
+split_t_shapes = collections.Counter()
+product_shapes = collections.Counter()
+plain_bwd_cuda = 0
 # Seconds the last build took (None until this process built or loaded it),
 # and the compiler's register/spill report of that build.
 build_seconds: Optional[float] = None
@@ -88,17 +110,28 @@ _lib = None
 def reset_counts() -> None:
     """Set every launch count to 0."""
     global launches, batched_launches, items, split_launches
+    global bwd_launches, split_t_launches, product_launches, plain_bwd_cuda
     launches = batched_launches = items = split_launches = 0
-    shape_launches.clear()
+    bwd_launches = split_t_launches = product_launches = plain_bwd_cuda = 0
+    for counter in (shape_launches, bwd_shapes, split_t_shapes,
+                    product_shapes):
+        counter.clear()
 
 
 def read_counts() -> dict:
     """Launches of the 2-D Gram, of the batched Gram, the Grams (items) the
     batched launches computed, launches of the split pass, and the Gram's
-    launches by (batch, m, n, k)."""
+    launches by (batch, m, n, k); the backward's kernels' launches
+    ("bwd", "split_t", "product") and the same by shape (keyed by strings),
+    and the plain backward's calls on CUDA tensors."""
     return {"gram": launches - batched_launches,
             "batched": batched_launches, "items": items,
-            "split": split_launches, "shapes": dict(shape_launches)}
+            "split": split_launches, "shapes": dict(shape_launches),
+            "bwd": bwd_launches, "split_t": split_t_launches,
+            "product": product_launches, "plain_bwd_cuda": plain_bwd_cuda,
+            "bwd_shapes": dict(bwd_shapes),
+            "split_t_shapes": dict(split_t_shapes),
+            "product_shapes": dict(product_shapes)}
 
 
 def recorded_operands(build) -> list:
@@ -131,8 +164,15 @@ def load_library():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.tf32_split_f32.argtypes = [ptr, ptr, i32, i32, i32, ptr]
     lib.tf32_split_f32.restype = i32
-    lib.acos_gram_f32.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+    lib.acos_gram_f32.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
     lib.acos_gram_f32.restype = i32
+    lib.tf32_split_t_f32.argtypes = [ptr, ptr] + [i32] * 4 + [ptr]
+    lib.tf32_split_t_f32.restype = i32
+    lib.nt_product_f32.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
+    lib.nt_product_f32.restype = i32
+    lib.acos_gram_bwd_f32.argtypes = ([ptr] * 7 + [i32] + [ptr] * 4
+                                      + [i32] * 3 + [ptr])
+    lib.acos_gram_bwd_f32.restype = i32
     lib.acos_gram_error_string.argtypes = [i32]
     lib.acos_gram_error_string.restype = ctypes.c_char_p
     lib.acos_gram_smem_bytes.argtypes = []
@@ -276,6 +316,73 @@ def tf32_split_torch(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return big, a - big
 
 
+def _pad4(n: int) -> int:
+    """n rounded up to 4 floats: the split planes' row stride (TMA wants
+    16-byte strides)."""
+    return -(-n // 4) * 4
+
+
+def tf32_split_t_torch(a: torch.Tensor) -> torch.Tensor:
+    """The plain version of the transposing split pass: a ((B,) rows, cols)
+    float32 gives one buffer (2, (B,) cols, rowsp) holding the big plane of
+    a^T, then its small plane (``tf32_split_torch`` of a^T), with rowsp =
+    rows rounded up to 4 and zeros in rows [rows, rowsp)."""
+    rows = a.shape[-2]
+    padded = a.new_zeros(a.shape[:-2] + (a.shape[-1], _pad4(rows)))
+    padded[..., :rows] = a.mT
+    return torch.stack(tf32_split_torch(padded))
+
+
+def nt_product_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain version of the product kernel: a @ b^T for a ((B,) m, k)
+    and b ((B,) n, k)."""
+    return a @ b.mT
+
+
+def acos_gram_bwd_torch(g: torch.Tensor, q12: torch.Tensor,
+                        q11: torch.Tensor, q22: torch.Tensor,
+                        sigma0: torch.Tensor):
+    """The plain version of the backward epilogue: from g = dL/dK and the
+    cross form q12 ((B,) m, n) at which K was computed, (dq12, dq11, dq22,
+    dsigma0), the gradients of L with respect to q12, q11 ((B,) m), q22
+    ((B,) n) and sigma0 (its shape).  Counts its calls on CUDA tensors in
+    ``plain_bwd_cuda``."""
+    global plain_bwd_cuda
+    plain_bwd_cuda += g.is_cuda
+    s02 = (sigma0 * sigma0)[..., None]
+    X1 = torch.sqrt(q11 + s02)
+    X2 = torch.sqrt(q22 + s02)
+    P = X1[..., :, None] * X2[..., None, :]
+    num = q12 + s02[..., None]
+    den = P + COSDELTA_JITTER
+    ratio = num / den
+    a = torch.abs(ratio)
+    # d clip / d ratio: 1 inside, 1/2 exactly on a bound, 0 beyond
+    dclip = torch.where(a < 1.0, 1.0, torch.where(a == 1.0, 0.5, 0.0))
+    c = torch.clamp(ratio, -1.0, 1.0)
+    s = torch.sqrt(torch.clamp(1.0 - c * c, min=0.0))
+    pi_minus_acos = math.pi - torch.acos(c)
+    J = (s + pi_minus_acos * c) / math.pi
+    g_ratio = g * P * (pi_minus_acos / math.pi) * dclip
+    g_num = g_ratio / den                        # = dL/dq12
+    g_P = g * J - g_ratio * ratio / den
+    g_a = (g_P * X2[..., None, :]).sum(-1) / (2.0 * X1)    # dL/dq11
+    g_b = (g_P * X1[..., :, None]).sum(-2) / (2.0 * X2)    # dL/dq22
+    g_s02 = g_a.sum(-1) + g_b.sum(-1) + g_num.sum((-2, -1))
+    dsig = (g_s02 * 2.0 * sigma0).reshape(sigma0.shape)
+    return g_num, g_a, g_b, dsig
+
+
+def gram_backward_torch(g, u1, s2, q11, q22, sigma0, q12, need_u1=True,
+                        need_s2=True):
+    """The plain version of ``gram_backward``: (du1, ds2, dq11, dq22,
+    dsigma0) from ``acos_gram_bwd_torch`` at the given q12 and the two
+    products dq12 S2 and dq12^T U1 (du1 / ds2 None where not needed)."""
+    dq12, dq11, dq22, dsig = acos_gram_bwd_torch(g, q12, q11, q22, sigma0)
+    return (dq12 @ s2 if need_u1 else None,
+            dq12.mT @ u1 if need_s2 else None, dq11, dq22, dsig)
+
+
 # ---------------------------------------------------------------------------
 # Launches
 # ---------------------------------------------------------------------------
@@ -350,21 +457,25 @@ def tf32_split(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return buf[0, :, :k], buf[1, :, :k]
 
 
-def _run(out, ws, plan: GramPlan, u1, s2, q11, q22, sigma0) -> torch.Tensor:
+def _run(out, ws, plan: GramPlan, u1, s2, q11, q22, sigma0,
+         q12=None) -> torch.Tensor:
     """Split both operands (all items' rows in one pass each) and launch the
     Gram into ``out`` ((B,) m, n), with ``ws`` (B, plan.splits, m, n) for
-    the partial sums when plan.splits > 1."""
+    the partial sums when plan.splits > 1, and the raw cross form into
+    ``q12`` (out's shape) when it is given."""
     global launches, batched_launches, items
     lib = load_library()
-    kp = -(-plan.k // 4) * 4
+    kp = _pad4(plan.k)
     with torch.cuda.device(u1.device):
         stream = torch.cuda.current_stream(u1.device).cuda_stream
         a = _split_into(lib, u1.reshape(-1, plan.k), kp, stream)
         b = _split_into(lib, s2.reshape(-1, plan.k), kp, stream)
         rc = lib.acos_gram_f32(a.data_ptr(), b.data_ptr(), q11.data_ptr(),
                                q22.data_ptr(), sigma0.data_ptr(),
-                               out.data_ptr(), ws.data_ptr(), plan.m, plan.n,
-                               kp, plan.splits, plan.batch, stream)
+                               out.data_ptr(),
+                               None if q12 is None else q12.data_ptr(),
+                               ws.data_ptr(), plan.m, plan.n, kp,
+                               plan.splits, plan.batch, stream)
     _raise_on(lib, rc, "acos_gram")
     launches += 1
     batched_launches += u1.dim() == 3
@@ -373,7 +484,8 @@ def _run(out, ws, plan: GramPlan, u1, s2, q11, q22, sigma0) -> torch.Tensor:
     return out
 
 
-def _launch(u1, s2, q11, q22, sigma0, out=None) -> torch.Tensor:
+def _launch(u1, s2, q11, q22, sigma0, out=None, keep_q12=False):
+    """K, or (K, q12) with ``keep_q12``, through the kernel."""
     batch, m, n, k = _check(u1, s2, q11, q22, sigma0)
     plan = plan_gram(m, n, k, _sm_count(u1.device), batch)
     shape = tuple(u1.shape[:-2]) + (m, n)
@@ -388,59 +500,169 @@ def _launch(u1, s2, q11, q22, sigma0, out=None) -> torch.Tensor:
         # never the target itself: out may be a view into a larger matrix
         ws = torch.empty((batch, plan.splits, m, n), dtype=torch.float32,
                          device=u1.device)
-    return _run(out, ws, plan, u1, s2, q11, q22, sigma0)
+    if not keep_q12:
+        return _run(out, ws, plan, u1, s2, q11, q22, sigma0)
+    q12 = torch.empty(shape, dtype=torch.float32, device=u1.device)
+    return _run(out, ws, plan, u1, s2, q11, q22, sigma0, q12), q12
+
+
+def _split_t_into(lib, a: torch.Tensor, stream: int) -> torch.Tensor:
+    """Launch the transposing split pass on a contiguous (B, rows, cols):
+    returns (2, B, cols, rowsp), as ``tf32_split_t_torch``."""
+    global split_t_launches
+    batch, rows, cols = a.shape
+    dst = torch.empty((2, batch, cols, _pad4(rows)), dtype=torch.float32,
+                      device=a.device)
+    _raise_on(lib, lib.tf32_split_t_f32(a.data_ptr(), dst.data_ptr(), batch,
+                                        rows, cols, _pad4(rows), stream),
+              "tf32_split_t")
+    split_t_launches += 1
+    split_t_shapes[f"{batch}x{rows}x{cols}"] += 1
+    return dst
+
+
+def _product(lib, a: torch.Tensor, b: torch.Tensor, m: int, n: int, k: int,
+             stream: int) -> torch.Tensor:
+    """Launch the product on the split operands a (2, B, m, kp) and b (2, B,
+    n, kp), kp = k rounded up to 4: returns A B^T (B, m, n), over
+    ``plan_gram``'s split of k."""
+    global product_launches
+    batch = a.shape[1]
+    plan = plan_gram(m, n, k, _sm_count(a.device), batch)
+    out = torch.empty((batch, m, n), dtype=torch.float32, device=a.device)
+    ws = out
+    if plan.splits > 1:
+        ws = torch.empty((batch, plan.splits, m, n), dtype=torch.float32,
+                         device=a.device)
+    _raise_on(lib, lib.nt_product_f32(a.data_ptr(), b.data_ptr(),
+                                      out.data_ptr(), ws.data_ptr(), m, n,
+                                      _pad4(k), plan.splits, batch, stream),
+              "nt_product")
+    product_launches += 1
+    product_shapes[f"{batch}x{m}x{n} k{k}"] += 1
+    return out
+
+
+def _bwd_launch(lib, g, q12, q11, q22, sigma0, stream):
+    """The backward epilogue on (B, m, n) g and q12: (dq12, its TF32 planes
+    (2, B, m, np), dq11, dq22, dsigma0 (B,))."""
+    global bwd_launches
+    batch, m, n = g.shape
+    f32 = dict(dtype=torch.float32, device=g.device)
+    tiles_m, tiles_n = -(-m // 32), -(-n // 128)
+    dq12 = torch.empty((batch, m, n), **f32)
+    planes = torch.empty((2, batch, m, _pad4(n)), **f32)
+    part = torch.empty(batch * (tiles_n * m + tiles_m * n + tiles_m * tiles_n),
+                       **f32)
+    dq11 = torch.empty((batch, m), **f32)
+    dq22 = torch.empty((batch, n), **f32)
+    dsig = torch.empty(batch, **f32)
+    _raise_on(lib, lib.acos_gram_bwd_f32(
+        g.data_ptr(), q12.data_ptr(), q11.data_ptr(), q22.data_ptr(),
+        sigma0.data_ptr(), dq12.data_ptr(), planes.data_ptr(), _pad4(n),
+        part.data_ptr(), dq11.data_ptr(), dq22.data_ptr(), dsig.data_ptr(),
+        m, n, batch, stream), "acos_gram_bwd")
+    bwd_launches += 1
+    bwd_shapes[f"{batch}x{m}x{n}"] += 1
+    return dq12, planes, dq11, dq22, dsig
+
+
+def _check_bwd(g, q12, q11, q22, sigma0, *rest) -> int:
+    """The batch of a backward call the kernels can take (float32 on one
+    CUDA device, g and q12 ((B,) m, n), q11 ((B,) m), q22 ((B,) n), one
+    sigma0 an item, and ``rest``'s tensors on the same terms); raises on
+    anything else."""
+    for t in (g, q12, q11, q22, sigma0, *rest):
+        if t.dtype != torch.float32 or t.device != g.device:
+            raise TypeError(f"the Gram's backward kernels take float32 "
+                            f"tensors on {g.device}, got {t.dtype} on "
+                            f"{t.device}")
+    batch = g.shape[0] if g.dim() == 3 else 1
+    if (g.dim() not in (2, 3) or q12.shape != g.shape
+            or q11.shape != g.shape[:-1] or q22.shape != g.shape[:-2]
+            + g.shape[-1:] or sigma0.numel() != batch):
+        raise ValueError(f"acos_gram backward: g and q12 must be ((B,) m, "
+                         f"n), q11 ((B,) m), q22 ((B,) n), sigma0 one "
+                         f"element per item; got {tuple(g.shape)}, "
+                         f"{tuple(q12.shape)}, {tuple(q11.shape)}, "
+                         f"{tuple(q22.shape)}, {tuple(sigma0.shape)}")
+    return batch
+
+
+def gram_backward(g, u1, s2, q11, q22, sigma0, q12, need_u1=True,
+                  need_s2=True):
+    """The Gram's gradients (du1, ds2, dq11, dq22, dsigma0) from g = dL/dK
+    and the forward's q12, 2-D or batched (du1 / ds2 None where not
+    needed).  On CUDA tensors: the backward epilogue, then du1 = dq12 S2
+    through the product kernel on dq12's planes and the transposing split
+    of s2, and ds2 = dq12^T U1 on the transposing splits of dq12 and u1; a
+    CUDA tensor the kernels cannot take raises.  On CPU tensors the plain
+    versions."""
+    if not g.is_cuda:
+        return gram_backward_torch(g, u1, s2, q11, q22, sigma0, q12, need_u1,
+                                   need_s2)
+    batch = _check_bwd(g, q12, q11, q22, sigma0, u1, s2)
+    m, n = g.shape[-2:]
+    k = u1.shape[-1]
+    if u1.shape != g.shape[:-1] + (k,) or s2.shape != g.shape[:-2] + (n, k):
+        raise ValueError(f"gram_backward: u1 {tuple(u1.shape)} and s2 "
+                         f"{tuple(s2.shape)} do not match g "
+                         f"{tuple(g.shape)}")
+    lib = load_library()
+    items = [t.contiguous().reshape(batch, *t.shape[-2:])
+             for t in (g, q12, u1, s2)]
+    g3, q3, u3, s3 = items
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        dq12, planes, dq11, dq22, dsig = _bwd_launch(
+            lib, g3, q3, q11.contiguous().reshape(batch, m),
+            q22.contiguous().reshape(batch, n),
+            sigma0.reshape(batch).contiguous(), stream)
+        # ds2 first: U1^T's planes (the larger) are freed before du1 (m, k)
+        # is allocated
+        du1 = ds2 = None
+        if need_s2:
+            ds2 = _product(lib, _split_t_into(lib, dq12, stream),
+                           _split_t_into(lib, u3, stream), n, k, m,
+                           stream).reshape(s2.shape)
+        del dq12
+        if need_u1:
+            du1 = _product(lib, planes, _split_t_into(lib, s3, stream), m, k,
+                           n, stream).reshape(u1.shape)
+    return (du1, ds2, dq11.reshape(q11.shape), dq22.reshape(q22.shape),
+            dsig.reshape(sigma0.shape))
 
 
 class AcosGram(torch.autograd.Function):
     """Differentiable fused Gram: kernel forward on CUDA, plain forward on
-    CPU, hand-written plain-PyTorch backward on both."""
+    CPU, each keeping its q12 for the backward (``gram_backward``: the
+    backward kernels on CUDA, the plain versions on CPU)."""
 
     @staticmethod
     def forward(ctx, u1, s2, q11, q22, sigma0):
-        ctx.save_for_backward(u1, s2, q11, q22, sigma0)
-        return _forward(u1, s2, q11, q22, sigma0)
+        K, q12 = _forward(u1, s2, q11, q22, sigma0, keep_q12=True)
+        ctx.save_for_backward(u1, s2, q11, q22, sigma0, q12)
+        return K
 
     @staticmethod
     def backward(ctx, g):
-        u1, s2, q11, q22, sigma0 = ctx.saved_tensors
-        s02 = (sigma0 * sigma0)[..., None]
-        X1 = torch.sqrt(q11 + s02)
-        X2 = torch.sqrt(q22 + s02)
-        P = X1[..., :, None] * X2[..., None, :]
-        num = u1 @ s2.mT + s02[..., None]
-        den = P + COSDELTA_JITTER
-        ratio = num / den
-        a = torch.abs(ratio)
-        # d clip / d ratio: 1 inside, 1/2 exactly on a bound, 0 beyond
-        dclip = torch.where(a < 1.0, 1.0, torch.where(a == 1.0, 0.5, 0.0))
-        c = torch.clamp(ratio, -1.0, 1.0)
-        s = torch.sqrt(torch.clamp(1.0 - c * c, min=0.0))
-        pi_minus_acos = math.pi - torch.acos(c)
-        J = (s + pi_minus_acos * c) / math.pi
-        g_ratio = g * P * (pi_minus_acos / math.pi) * dclip
-        g_num = g_ratio / den                        # = dL/dq12
-        g_P = g * J - g_ratio * ratio / den
-        g_a = (g_P * X2[..., None, :]).sum(-1) / (2.0 * X1)    # dL/dq11
-        g_b = (g_P * X1[..., :, None]).sum(-2) / (2.0 * X2)    # dL/dq22
-        du1 = ds2 = dsig = None
-        if ctx.needs_input_grad[0]:
-            du1 = g_num @ s2
-        if ctx.needs_input_grad[1]:
-            ds2 = g_num.mT @ u1
-        if ctx.needs_input_grad[4]:
-            g_s02 = g_a.sum(-1) + g_b.sum(-1) + g_num.sum((-2, -1))
-            dsig = (g_s02 * 2.0 * sigma0).reshape(sigma0.shape)
-        return du1, ds2, g_a, g_b, dsig
+        u1, s2, q11, q22, sigma0, q12 = ctx.saved_tensors
+        return gram_backward(g, u1, s2, q11, q22, sigma0, q12,
+                             ctx.needs_input_grad[0], ctx.needs_input_grad[1])
 
 
-def _forward(u1, s2, q11, q22, sigma0, out=None):
-    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+def _forward(u1, s2, q11, q22, sigma0, out=None, keep_q12=False):
+    """The kernel on CUDA tensors, the plain version on CPU tensors; K, or
+    (K, q12) with ``keep_q12`` (not with ``out``)."""
     if u1.is_cuda:
         batch = u1.shape[0] if u1.dim() == 3 else 1
         return _launch(u1.contiguous(), s2.contiguous(), q11.contiguous(),
                        q22.contiguous(), sigma0.reshape(batch).contiguous(),
-                       out)
-    K = acos_gram_torch(u1, s2, q11, q22, sigma0)
+                       out, keep_q12)
+    q12 = u1 @ s2.mT
+    K = acos_epilogue_torch(q12, q11, q22, sigma0)
+    if keep_q12:
+        return K, q12
     return K if out is None else out.copy_(K)
 
 
@@ -452,9 +674,12 @@ def acos_gram(u1: torch.Tensor, s2: torch.Tensor, q11: torch.Tensor,
     (B, n) and sigma0 (B,); differentiable in all five.  With ``out`` (a
     contiguous tensor of K's shape, which may be a view into a larger one)
     the result is written there and returned, without a gradient."""
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (u1, s2, q11, q22, sigma0))
     if out is None:
-        return AcosGram.apply(u1, s2, q11, q22, sigma0)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (u1, s2, q11, q22, sigma0)):
+        if grad:
+            return AcosGram.apply(u1, s2, q11, q22, sigma0)
+        return _forward(u1, s2, q11, q22, sigma0)
+    if grad:
         raise ValueError("acos_gram: out= computes no gradient")
     return _forward(u1, s2, q11, q22, sigma0, out)

@@ -863,3 +863,174 @@ def test_fparam_search_kernel_rows_in_global_memory(dev, dtype, weighted,
         n = nt - pad
         assert lib.fparam_lbfgs_smem_bytes(n, 0, size) > 0
         assert (xk, fk, nk) == search((r[:n], lm[:n], lv[:n], None))
+
+
+# ---------------------------------------------------------------------------
+# The Gram's backward kernels (acos_gram_bwd, tf32_split_t, nt_product),
+# through gram_backward and the launchers it calls
+# ---------------------------------------------------------------------------
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _close(got, want, rtol=1e-5):
+    """Each output within rtol of the plain value's largest magnitude."""
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= rtol * max(scale, 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,m,n,k", [(None, 37, 301, 1002), (None, 130, 129, 13),
+                                     (None, 1, 1, 1), (None, 257, 45, 999),
+                                     (3, 37, 301, 1002), (3, 131, 67, 258)])
+def test_backward_kernels_match_plain(dev, B, m, n, k):
+    """m, n and k off multiples of 4 and 32; a batch of 3 with its own
+    sigma0; the forward's q12 against u1 @ s2^T, K the same bits with and
+    without it; every output of the kernel backward within 1e-5 of the
+    plain backward's on the same g and q12, and two runs bit for bit; the
+    first shape's products split k (more than one range)."""
+    ops = (_batched_operands(dev, B, m, n, k, m + n) if B
+           else _operands(dev, m, n, k, m + n))
+    u1, s2, q11, q22, s0 = ops
+    K, q12 = gram_cuda._forward(*ops, keep_q12=True)
+    assert torch.equal(K, gram_cuda._forward(*ops))
+    assert float((q12 - u1 @ s2.mT).abs().max()
+                 / (u1 @ s2.mT).abs().max()) <= 1e-5
+    g = torch.randn(K.shape, generator=torch.Generator().manual_seed(k)).to(dev)
+    counts = gram_cuda.read_counts()
+    got = gram_cuda.gram_backward(g, u1, s2, q11, q22, s0, q12)
+    again = gram_cuda.gram_backward(g, u1, s2, q11, q22, s0, q12)
+    torch.cuda.synchronize()
+    after = gram_cuda.read_counts()
+    assert after["bwd"] == counts["bwd"] + 2
+    assert after["product"] == counts["product"] + 4
+    assert after["split_t"] == counts["split_t"] + 6
+    assert after["plain_bwd_cuda"] == counts["plain_bwd_cuda"]
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    _close(got, gram_cuda.gram_backward_torch(g, u1, s2, q11, q22, s0, q12))
+    if (B, m, n, k) == (None, 37, 301, 1002):
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert gram_cuda.plan_gram(m, k, n, sms).splits > 1
+
+
+# The first 16 hex digits of the sha256 of K's float32 bytes from the Gram
+# kernel as it was before the forward could write q12 (commit 5320bcf), on
+# an NVIDIA H100 80GB HBM3, at each (B, m, n, k) on the seeded operands
+# below (seed m + n + k)
+PARENT_K_SHA = {(None, 37, 301, 1002): "81a097836f405071",
+                (None, 2100, 2100, 6400): "ea7bd910522ddb1e",
+                (None, 3160, 2100, 9216): "1e02a01c483da895",
+                (3, 131, 67, 258): "bad89e62506e40f4"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,m,n,k", sorted(PARENT_K_SHA, key=str))
+def test_forward_keeps_its_bits_with_the_q12_output(dev, B, m, n, k):
+    """K with and without the q12 output has the bits the kernel gave
+    before it could write q12: split k (37x301), one range of k at the
+    M-step's K_tilde and K, and a batch."""
+    import hashlib
+
+    seed = m + n + k
+    ops = (_batched_operands(dev, B, m, n, k, seed) if B
+           else _operands(dev, m, n, k, seed))
+    with torch.no_grad():
+        K = gram_cuda.acos_gram(*ops)
+    K2, _ = gram_cuda._forward(*ops, keep_q12=True)
+    for got in (K, K2):
+        digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+        assert digest[:16] == PARENT_K_SHA[(B, m, n, k)]
+
+
+@pytest.mark.cuda
+def test_backward_epilogue_at_the_clip(dev):
+    """Cosines exactly at +-1 and beyond: the kernel decides the clip from
+    the same rounded ratio as the plain version (1 inside, 1/2 on a bound,
+    0 beyond), so dq12 agrees there too, and NaN stays NaN."""
+    gen = torch.Generator().manual_seed(11)
+    m, n = 45, 70
+    q11 = torch.rand(m, generator=gen) * 3 + 0.5
+    q22 = torch.rand(n, generator=gen) * 3 + 0.5
+    s0 = torch.tensor(0.5)
+    s02 = s0 * s0
+    den = (torch.sqrt(q11 + s02)[:, None] * torch.sqrt(q22 + s02)[None, :]
+           + 1e-7)
+    r = torch.rand(m, n, generator=gen) * 2.6 - 1.3
+    pick = torch.rand(m, n, generator=gen)
+    r = torch.where(pick < 0.15, 1.0, torch.where(pick < 0.3, -1.0, r))
+    q12 = r * den - s02
+    ratio = (q12 + s02) / den
+    assert int((ratio.abs() == 1).sum()) >= 50
+    assert int((ratio.abs() > 1).sum()) >= 50
+    q12[3, 4] = float("nan")
+    g = torch.randn(m, n, generator=gen)
+    args = [t.to(dev) for t in (g, q12, q11, q22, s0)]
+    dq12, _, dq11, dq22, ds0 = gram_cuda._bwd_launch(
+        gram_cuda.load_library(), g.reshape(1, m, n).to(dev),
+        q12.reshape(1, m, n).to(dev), q11.reshape(1, m).to(dev),
+        q22.reshape(1, n).to(dev), s0.reshape(1).to(dev), _stream(dev))
+    got = dq12[0], dq11[0], dq22[0], ds0[0]
+    want = gram_cuda.acos_gram_bwd_torch(*args)
+    assert torch.isnan(got[0][3, 4]) and torch.isnan(want[0][3, 4])
+    assert bool(torch.isnan(got[1][3]) & torch.isnan(got[2][4]))
+    assert bool(torch.isnan(got[3]))
+    mask = torch.ones(m, n, dtype=torch.bool, device=dev)
+    mask[3, 4] = False
+    assert torch.equal(got[0][~mask].isnan(), want[0][~mask].isnan())
+    assert torch.equal(got[0][mask] == 0, want[0][mask] == 0)
+    a, b = got[0][mask], want[0][mask]
+    assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    keep = torch.arange(m, device=dev) != 3
+    a, b = got[1][keep], want[1][keep]
+    assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 13), (37, 256), (3, 130, 1001),
+                                   (1, 1), (2100, 96)])
+def test_transposing_split_matches_plain_bit_for_bit(dev, shape):
+    a = torch.randn(shape, generator=torch.Generator().manual_seed(
+        shape[-1]))
+    a3 = a.reshape(-1, *shape[-2:]).to(dev)
+    got = gram_cuda._split_t_into(gram_cuda.load_library(), a3, _stream(dev))
+    assert torch.equal(got.cpu(), gram_cuda.tf32_split_t_torch(a3.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,m,n,k", [(None, 37, 45, 1002), (None, 300, 700, 64),
+                                     (2, 129, 130, 333)])
+def test_product_kernel_matches_plain(dev, B, m, n, k):
+    """The product on the operands the backward hands it (the transposing
+    split of a^T and b^T): a @ b^T within 1e-5; the first shape splits k."""
+    gen = torch.Generator().manual_seed(m)
+    a = torch.randn((B or 1, m, k), generator=gen).to(dev)
+    b = torch.randn((B or 1, n, k), generator=gen).to(dev)
+    lib = gram_cuda.load_library()
+    got = gram_cuda._product(
+        lib, gram_cuda._split_t_into(lib, a.mT.contiguous(), _stream(dev)),
+        gram_cuda._split_t_into(lib, b.mT.contiguous(), _stream(dev)), m, n,
+        k, _stream(dev))
+    want = gram_cuda.nt_product_torch(a, b)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+    if (B, m, n, k) == (None, 37, 45, 1002):
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert gram_cuda.plan_gram(m, n, k, sms).splits > 1
+
+
+@pytest.mark.cuda
+def test_backward_raises_instead_of_falling_back(dev):
+    u1, s2, q11, q22, s0 = _operands(dev, 8, 4, 32, 3)
+    g = torch.randn(8, 4, device=dev)
+    q12 = u1 @ s2.mT
+    with pytest.raises(TypeError):
+        gram_cuda.gram_backward(g.double(), u1, s2, q11, q22, s0, q12)
+    with pytest.raises(ValueError):
+        gram_cuda.gram_backward(g, u1, s2, q11, q22, s0, q12[:, :3])
+    before = gram_cuda.read_counts()["plain_bwd_cuda"]
+    with pytest.raises(ValueError):
+        gram_cuda.gram_backward(g, u1, s2[:3], q11, q22, s0, q12)
+    assert gram_cuda.read_counts()["plain_bwd_cuda"] == before

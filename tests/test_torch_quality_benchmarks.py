@@ -235,6 +235,35 @@ def test_fparam_route_arms_are_the_gate_rung_on_each_route(ladder,
     json.loads(json.dumps(record), parse_constant=pytest.fail)
 
 
+def test_fparam_route_plain_gram_backward_arm():
+    """benchmarks/fparam_route --gram-backward: inside the plain arm the
+    Gram's backward is the plain one at a q12 recomputed from u1 and s2
+    (the q12 it is handed is not read), outside it the wrapper's own."""
+    from gaussian_processes_tpu_torch.ops import gram_cuda
+
+    rng = np.random.default_rng(9)
+    u1, s2 = (torch.as_tensor(rng.standard_normal(s)) for s in ((6, 11),
+                                                                 (4, 11)))
+    q11, q22 = (u1 * u1).sum(-1) * 1.2, (s2 * s2).sum(-1) * 0.9
+    s0 = torch.tensor(0.6, dtype=torch.float64)
+    g = torch.as_tensor(rng.standard_normal((6, 4)))
+    q12 = u1 @ s2.mT
+    want = gram_cuda.gram_backward_torch(g, u1, s2, q11, q22, s0, q12)
+    real = gram_cuda.gram_backward
+    assert set(fparam_route.PLAIN) == {"fparam", "gram_backward"}
+    with fparam_route.PLAIN["gram_backward"]():
+        assert gram_cuda.gram_backward is not real
+        got = gram_cuda.gram_backward(g, u1, s2, q11, q22, s0, q12 + 1.0)
+        none = gram_cuda.gram_backward(g, u1, s2, q11, q22, s0, q12, False,
+                                       False)
+    assert gram_cuda.gram_backward is real
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert none[0] is None and none[1] is None
+    moved = gram_cuda.gram_backward(g, u1, s2, q11, q22, s0, q12 + 1.0)
+    assert not torch.equal(moved[2], want[2])
+
+
 # ---- bad init ---------------------------------------------------------------
 
 BAD = dict(nt=120, n_px=40, ntilde=48, maxiter=4, **STEPS)
