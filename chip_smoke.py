@@ -29,10 +29,13 @@ Phases (none catches its own failure; any failure exits non-zero):
    the plain backward's largest magnitude (``gram_backward_torch``: the
    plain epilogue and two FP32 matmuls on the same g and q12), two runs
    bit for bit, the
-   epilogue's dq12 against the plain one, the transposing split bit for
-   bit on s2, u1 and dq12, each product against the FP32 matmul on the
-   kernel's dq12; median CUDA-event ms of each kernel, its plain version
-   and (products) the FP32 ``torch.matmul``, beside each bound.
+   epilogue's dq12 (the sum of its two planes) against the plain one, the
+   transposing split bit for bit on s2 and u1 and dq12^T's planes against
+   the split of dq12, each product against the FP32 matmul on the
+   kernel's dq12; median CUDA-event ms of each kernel launched alone, its
+   plain version and (products, dU1 and dS2) the FP32 ``torch.matmul``,
+   beside each bound, and each kernel's device time a call over 5 calls
+   back to back.
 3. Reference: a small fit through the kernel (float32, on the card) against
    the same fit on the CPU in float64 through the plain path.
 4. Main path: the single-cell EM fit at bench.py's data and shape (nt 3160
@@ -289,8 +292,9 @@ The last two lines of standard output are one JSON object with the kernel
 table (acos_gram, acos_gram_batched, tf32_split, fparam_lbfgs,
 acos_gram_bwd, tf32_split_t, nt_product; launches over the main paths,
 the f-param search's times from phase 6b at phase 4's last search in
-float32, the backward kernels' from phase 2 at K 3160 x 2100, k 6400)
-and one with the device.
+float32, the backward kernels' from phase 2 at K 3160 x 2100, k 6400,
+each with its device time a call back to back, the product's dU1 with
+dS2's times, library ms and bound beside it) and one with the device.
 """
 
 import contextlib
@@ -445,8 +449,10 @@ TF32_FLOPS, HBM_BYTES = 495e12, 3.35e12
 FP32_FLOPS, FP64_FLOPS = 67e12, 34e12
 
 
-def cuda_ms(torch, fn, reps=20, warmup=3):
-    """Median milliseconds of fn() by CUDA events."""
+def cuda_ms(torch, fn, reps=20, warmup=3, inner=1):
+    """Median milliseconds of fn() by CUDA events, around one call (which
+    then includes the host's launch where the card waits for it) or
+    ``inner`` calls back to back (the device's time a call)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -455,10 +461,11 @@ def cuda_ms(torch, fn, reps=20, warmup=3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     times.sort()
     return times[len(times) // 2]
 
@@ -491,10 +498,19 @@ def product_bound(batch, m, n, k):
 
 
 def bwd_bound(batch, m, n):
-    """The backward epilogue: read g, q12 (m, n), q11, q22 and sigma0 once,
-    write dq12, dq11, dq22 and dsigma0 once (float32; bytes-bound: about
-    40 operations an element against 12 bytes)."""
+    """The backward epilogue's function: read g, q12 (m, n), q11, q22 and
+    sigma0 once, write dq12, dq11, dq22 and dsigma0 once (float32;
+    bytes-bound: about 40 operations an element against 12 bytes).  The
+    kernel writes dq12 as the four TF32 planes that the products read, 24
+    bytes an element (``bwd_design_ms``), and so saves the products'
+    transposing split of dq12."""
     return 4 * batch * (3 * m * n + 2 * (m + n) + 2) / HBM_BYTES * 1e3, "bytes"
+
+
+def bwd_design_ms(batch, m, n):
+    """The epilogue kernel's own traffic at the memory rate: g and q12 in,
+    the four TF32 planes of dq12 and dq12^T out (24 bytes an element)."""
+    return 4 * batch * (6 * m * n + 2 * (m + n) + 2) / HBM_BYTES * 1e3
 
 
 # the (batch or None, m, n, k) at which check_backward has held the
@@ -535,8 +551,10 @@ def check_backward(torch, smi, name, ops, reps=20):
     Gram's operands, 2-D or batched (see the module docstring, phase 2),
     on a seeded g (symmetric for K_tilde, as the M-step hands it) and the
     forward's own q12.  Returns {kernel: (max_abs, ms, plain_ms, lib_ms,
-    bound_ms, bound_by, shape)} for acos_gram_bwd, tf32_split_t (U1^T, the
-    largest) and nt_product (dU1 = dq12 S2)."""
+    bound_ms, bound_by, shape, extra)} for acos_gram_bwd, tf32_split_t
+    (U1^T, the largest) and nt_product (dU1), ms of one launch; extra holds
+    the device time a call over 5 calls back to back (device_ms) and, for
+    nt_product, dS2's times, library ms and bound."""
     from gaussian_processes_tpu_torch.ops import gram_cuda as G
 
     u1, s2, q11, q22, s0 = ops
@@ -557,6 +575,9 @@ def check_backward(torch, smi, name, ops, reps=20):
     def worst(pairs):
         errs_ = [rel(a, b) for a, b in pairs]
         return max(e[0] for e in errs_), max(e[1] for e in errs_)
+
+    def ms(fn, inner=1):
+        return cuda_ms(torch, fn, reps, inner=inner)
 
     with torch.no_grad():
         K0 = G._forward(*ops)
@@ -580,57 +601,59 @@ def check_backward(torch, smi, name, ops, reps=20):
         # each kernel alone, on what the backward hands it
         args = (b3(g), b3(q12), q11.contiguous().reshape(B, m),
                 q22.contiguous().reshape(B, n), s0.reshape(B).contiguous())
-        dq12k, planes, dq11k, dq22k, dsk = G._bwd_launch(lib, *args, stream)
+        planes, planes_t, dq11k, dq22k, dsk = G._bwd_launch(lib, *args, stream)
+        # dq12 is its two planes' sum, exactly
+        dq12k = planes[0, :, :, :n] + planes[1, :, :, :n]
         epi = worst(zip(
             (dq12k, dq11k, dq22k, dsk),
             (b3(dq12p), dq11p.reshape(B, m), dq22p.reshape(B, n),
              dsp.reshape(B))))
         del dq12p
-        split_eq = all(torch.equal(G._split_t_into(lib, t, stream),
-                                   G.tf32_split_t_torch(t))
-                       for t in (b3(s2), b3(u1), dq12k))
+        split_eq = (all(torch.equal(G._split_t_into(lib, t, stream),
+                                    G.tf32_split_t_torch(t))
+                        for t in (b3(s2), b3(u1)))
+                    and torch.equal(planes_t, G.tf32_split_t_torch(dq12k)))
         s2t = G._split_t_into(lib, b3(s2), stream)
         u1t = G._split_t_into(lib, b3(u1), stream)
-        dqt = G._split_t_into(lib, dq12k, stream)
         du1 = G._product(lib, planes, s2t, m, k, n, stream)
-        ds2 = G._product(lib, dqt, u1t, n, k, m, stream)
+        ds2 = G._product(lib, planes_t, u1t, n, k, m, stream)
         prod = worst([(du1, dq12k @ b3(s2)), (ds2, dq12k.mT @ b3(u1))])
         del du1, ds2
-        t = dict(
-            bwd=cuda_ms(torch, lambda: G._bwd_launch(lib, *args, stream),
-                        reps),
-            bwd_plain=cuda_ms(torch, lambda: G.acos_gram_bwd_torch(
-                g, q12, q11, q22, s0), reps),
-            split_t=cuda_ms(torch, lambda: G._split_t_into(lib, b3(u1),
-                                                           stream), reps),
-            split_t_plain=cuda_ms(torch, lambda: G.tf32_split_t_torch(
-                b3(u1)), reps),
-            du1=cuda_ms(torch, lambda: G._product(lib, planes, s2t, m, k, n,
-                                                  stream), reps),
-            du1_plain=cuda_ms(torch, lambda: G.nt_product_torch(
-                dq12k, b3(s2).mT), reps),
-            du1_matmul=cuda_ms(torch, lambda: torch.matmul(dq12k, b3(s2)),
-                               reps),
-            ds2=cuda_ms(torch, lambda: G._product(lib, dqt, u1t, n, k, m,
-                                                  stream), reps),
-            ds2_matmul=cuda_ms(torch, lambda: torch.matmul(dq12k.mT, b3(u1)),
-                               reps),
-            backward=cuda_ms(torch, lambda: G.gram_backward(
-                g, u1, s2, q11, q22, s0, q12), reps),
-            backward_plain=cuda_ms(torch, lambda: G.gram_backward_torch(
-                g, u1, s2, q11, q22, s0, u1 @ s2.mT), reps))
-        del planes, s2t, u1t, dqt
+        kernels = dict(
+            bwd=lambda: G._bwd_launch(lib, *args, stream),
+            split_t=lambda: G._split_t_into(lib, b3(u1), stream),
+            du1=lambda: G._product(lib, planes, s2t, m, k, n, stream),
+            ds2=lambda: G._product(lib, planes_t, u1t, n, k, m, stream))
+        t = {key: ms(fn) for key, fn in kernels.items()}
+        t.update(
+            bwd_plain=ms(lambda: G.acos_gram_bwd_torch(g, q12, q11, q22,
+                                                       s0)),
+            split_t_plain=ms(lambda: G.tf32_split_t_torch(b3(u1))),
+            du1_plain=ms(lambda: G.nt_product_torch(dq12k, b3(s2).mT)),
+            du1_matmul=ms(lambda: torch.matmul(dq12k, b3(s2))),
+            ds2_matmul=ms(lambda: torch.matmul(dq12k.mT, b3(u1))),
+            backward=ms(lambda: G.gram_backward(g, u1, s2, q11, q22, s0,
+                                                q12)),
+            backward_plain=ms(lambda: G.gram_backward_torch(
+                g, u1, s2, q11, q22, s0, u1 @ s2.mT)))
+        # the device's time a call, 5 calls back to back
+        b2b = {key: ms(fn, 5) for key, fn in kernels.items()}
+        del planes, planes_t, s2t, u1t, dq12k
     each = f"{B} x " if u1.dim() == 3 else ""
     print(f"backward {name} {each}{m}x{n} k={k}: max|d|/max|plain| "
           + ", ".join(f"{w} {e[1]:.3e}" for w, e in errs.items())
           + f"; epilogue {epi[1]:.3e}, products on its dq12 {prod[1]:.3e}; "
           f"K bit for bit with/without q12 {same_K}; two runs bit for bit "
-          f"{repeat}; transposing split bit for bit {split_eq}  [{smi}]")
-    print("  ms: " + ", ".join(f"{key} {v:.3f}" for key, v in t.items())
-          + f"; bounds: epilogue {bwd_bound(B, m, n)[0]:.3f}"
-          f" (bytes), split_t U1^T {split_bound(B * m, k)[0]:.3f} (bytes), "
-          f"dU1 {product_bound(B, m, k, n)[0]:.3f}, dS2 "
-          f"{product_bound(B, n, k, m)[0]:.3f}  [{smi}]")
+          f"{repeat}; transposing split and dq12^T's planes bit for bit "
+          f"{split_eq}  [{smi}]")
+    print("  ms: " + ", ".join(f"{key} {v:.4f}" for key, v in t.items())
+          + "; back to back: " + ", ".join(f"{key} {v:.4f}"
+                                           for key, v in b2b.items())
+          + f"; bounds: epilogue {bwd_bound(B, m, n)[0]:.4f}"
+          f" (bytes; its planes' {bwd_design_ms(B, m, n):.4f}), split_t "
+          f"U1^T {split_bound(B * m, k)[0]:.4f} (bytes), "
+          f"dU1 {product_bound(B, m, k, n)[0]:.4f}, dS2 "
+          f"{product_bound(B, n, k, m)[0]:.4f}  [{smi}]")
     most = max(max(e[1] for e in errs.values()), epi[1], prod[1])
     if not (same_K and repeat and split_eq and most <= BWD_RTOL):
         raise RuntimeError(f"the backward kernels disagree at {name} "
@@ -639,11 +662,17 @@ def check_backward(torch, smi, name, ops, reps=20):
     shape = f"{each}{m}x{n} k {k}"
     return {
         "acos_gram_bwd": (epi[0], t["bwd"], t["bwd_plain"], None,
-                          *bwd_bound(B, m, n), shape),
+                          *bwd_bound(B, m, n), shape,
+                          {"device_ms": b2b["bwd"]}),
         "tf32_split_t": (0.0, t["split_t"], t["split_t_plain"], None,
-                         *split_bound(B * m, k), f"U1^T of {shape}"),
+                         *split_bound(B * m, k), f"U1^T of {shape}",
+                         {"device_ms": b2b["split_t"]}),
         "nt_product": (prod[0], t["du1"], t["du1_plain"], t["du1_matmul"],
-                       *product_bound(B, m, k, n), f"dU1 of {shape}")}
+                       *product_bound(B, m, k, n), f"dU1 of {shape}",
+                       {"device_ms": b2b["du1"], "ds2_ms": t["ds2"],
+                        "ds2_device_ms": b2b["ds2"],
+                        "ds2_library_ms": t["ds2_matmul"],
+                        "ds2_bound_ms": product_bound(B, n, k, m)[0]})}
 
 
 @contextlib.contextmanager
@@ -668,15 +697,13 @@ def first_mstep_call(store):
 
 FWD_KERNELS = ("acos_gram_tf32x3_kernel", "acos_gram_reduce_kernel",
                "tf32_split_kernel", "tf32_split_vec_kernel")
-BWD_KERNELS = ("acos_gram_bwd_kernel", "acos_gram_bwd_sums_kernel",
-               "acos_gram_bwd_sigma_kernel",
-               "tf32_split_t_kernel", "nt_product_tf32x3_kernel",
-               "nt_product_reduce_kernel")
+BWD_KERNELS = ("acos_gram_bwd_kernel", "tf32_split_t_kernel",
+               "nt_product_kernel", "nt_product_reduce_kernel")
 
 
 def kernel_name(name):
     """A profiler event's kernel name without namespace, template and
-    arguments ("(anonymous namespace)::nt_product_tf32x3_kernel(...)")."""
+    arguments ("(anonymous namespace)::nt_product_kernel(...)")."""
     name = name.replace("(anonymous namespace)::", "")
     return name.split("(")[0].split("<")[0].split("::")[-1].strip()
 
@@ -3517,6 +3544,7 @@ def main():
         "bound_by": bwd[("K", 6400)][kname][5],
         "library_ms": bwd[("K", 6400)][kname][3],
         "at": bwd[("K", 6400)][kname][6],
+        **bwd[("K", 6400)][kname][7],
     } for kname, key in (("acos_gram_bwd", "bwd"),
                          ("tf32_split_t", "split_t"),
                          ("nt_product", "product"))]}))

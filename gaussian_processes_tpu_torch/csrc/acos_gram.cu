@@ -43,21 +43,45 @@
 //
 // The backward, launched by acos_gram_bwd_f32, tf32_split_t_f32 and
 // nt_product_f32 (ops/gram_cuda.py runs them in that order):
-// 4. acos_gram_bwd_kernel, then acos_gram_bwd_sums_kernel and
-//    acos_gram_bwd_sigma_kernel: dq12 = dL/dq12
-//    elementwise from g = dL/dK and the saved q12 (written with its TF32
-//    planes), and dL/dq11, dL/dq22, dL/dsigma0 by per-tile partial sums
-//    added in a fixed order (see "The Gram's backward epilogue" below).
+// 4. acos_gram_bwd_kernel, one launch: dq12 = dL/dq12 elementwise from
+//    g = dL/dK and the saved q12, stored only as the TF32 planes of both
+//    products' A operands (dq12, and dq12^T through shared memory), and
+//    dL/dq11, dL/dq22, dL/dsigma0 by per-tile partial sums that the last
+//    tile of each band adds in a fixed order (see "The Gram's backward
+//    epilogue" below).
 // 5. tf32_split_t_kernel: the split pass for an operand whose contraction
-//    axis is its rows (S2^T, U1^T, dq12^T): TF32 wgmma takes only operands
-//    that are K-major in shared memory, so the transpose happens here,
-//    through a shared-memory tile, and not in the main loop.
-// 6. nt_product_tf32x3_kernel (+ nt_product_reduce_kernel with split k):
-//    the same main loop with no epilogue, for dU1 = dq12 S2 (m, k) and
-//    dS2 = dq12^T U1 (n, k).  Both cost what the forward's product costs
-//    (2 m n k flops in 3xTF32 each), so the backward is about twice the
-//    forward; its elementwise pass and the transposing splits are bound by
-//    bytes.
+//    axis is its rows (S2^T, U1^T): TF32 wgmma takes only operands that
+//    are K-major in shared memory, so the transpose happens here, through
+//    a shared-memory tile, and not in the main loop.
+// 6. nt_product_kernel (+ nt_product_reduce_kernel with split k): the
+//    forward's main loop with no epilogue, for dU1 = dq12 S2 (m, k) and
+//    dS2 = dq12^T U1 (n, k), its tiles in groups of 4 tile rows.  Both
+//    cost what the forward's product costs (2 m n k flops in 3xTF32 each),
+//    so the backward is about twice the forward; the epilogue and the
+//    transposing splits are bound by bytes.
+// Every plane of the backward keeps its rows 128 bytes apart (k rounded up
+// to 32 floats, zeros past k: ops/gram_cuda._pitch).
+//
+// What bounds the backward on this card, as measured (H100 80GB HBM3 at
+// 700 W; PERF.md, benchmarks/gram_backward.py): the SMs read L2 at
+// 5.3-6.2 TB/s, and a product's k-block loads 64 KB of planes for 3.15
+// MFLOP (48 FLOP a byte), so at the TF32 peak its tiles would want 10 TB/s:
+// the feed, not the tensor cores, bounds the products.  With rows 8,400
+// bytes apart (contraction 2100, 4-float rows) every 128-byte TMA box row
+// straddled two lines, and the consumers waited on their full barrier 44%
+// of their cycles; 128-byte rows took dU1 of the M-step's K from 1.29 to
+// 0.72 ms with the same bits, and the groups of tile rows, which keep the
+// blocks in flight on a few panels of A and B, the population's batched
+// products from 13.8 / 12.9 to 12.3 / 9.3 ms.  Measured and not kept
+// (PERF.md): clusters of 2 or 4 blocks sharing a tile by TMA multicast
+// (1.9-2.9x slower: each stage waits for both blocks' consumers), a wgmma
+// group kept in flight across k-blocks (ptxas serialises the wgmmas of
+// that loop), persistent blocks (no faster).  The epilogue is bound by
+// bytes: the function reads g and q12 and writes dq12 (12 bytes an
+// element), and this design writes dq12 as the four TF32 planes that the
+// products read (24 bytes), which saves the split pass's 12.  Its loads
+// went out one row of four at a time (1.3 TB/s), so now each thread's 16
+// loads go out first, and its two extra launches are gone.
 //
 // Accumulation interval: the tensor cores' float32 accumulation does not
 // round like fmaf, and at K_tilde's diagonal (c -> 1) every term has the
@@ -69,8 +93,8 @@
 // 1.0e-6, at no time cost that the card could measure (every 16 blocks gave
 // 4.2e-6, every block 7.0e-7; H100 80GB HBM3 at 700 W, PERF.md).
 //
-// What bounds it, and what the design does about it: 3xTF32 makes the
-// contraction three TF32 tensor-core products, 6 m n k flops against the
+// What bounds the forward, and what its design does about it: 3xTF32 makes
+// the contraction three TF32 tensor-core products, 6 m n k flops against the
 // card's 495 TFLOP/s of TF32, so tensor-core issue bounds the fit's shapes:
 // the main kernel ran at 300-350 TF32 TFLOP/s there (61-70% of peak), and
 // the two split passes took 0.11-0.25 ms beside it (H100 80GB HBM3 at
@@ -82,7 +106,10 @@
 // (30 x 2100) only 17 blocks, so the planner in ops/gram_cuda.py
 // (plan_gram) splits k until the launched waves are at least 85% full
 // (2, 2 and 7 splits).  At K* the split pass's bytes (read k (m + n)
-// floats, write twice that) bound it instead: 0.10 of its 0.18 ms.
+// floats, write twice that) bound it instead: 0.10 of its 0.18 ms.  Its
+// k-blocks feed the same 48 FLOP a byte as the products', and at k 11664
+// its rows are 46,656 bytes apart, not a multiple of 128: the products'
+// levers are open to it too (ROADMAP.md).
 //
 // The epilogue runs in registers with a real acosf (the Pallas kernel
 // carried a polynomial only because Mosaic had no acos); the clip is written
@@ -529,28 +556,63 @@ __global__ void acos_gram_reduce_kernel(const float* __restrict__ ws,
   }
 }
 
-// The same main loop with no epilogue: out (batch, m, n) = A B^T per item,
-// or, with several splits, the workspace (batch, splits, m, n) of partial
-// sums that nt_product_reduce_kernel adds in split order.
+// ---------------------------------------------------------------------------
+// The backward's product
+// ---------------------------------------------------------------------------
+
+// A work unit of the product: one tile of one item over one split of k.
+// Units run item by item, split by split; within one, the tiles (tiles_m x
+// tiles_n) go in groups of PRODUCT_GROUP tile rows, column by column inside
+// a group, so that the blocks in flight share a few panels of A and of B.
+constexpr int PRODUCT_GROUP = 4;
+
+struct ProductUnit {
+  int item, split, sm, sn;
+};
+
+__device__ __forceinline__ ProductUnit product_unit(int u, int splits,
+                                                    int tiles_m,
+                                                    int tiles_n) {
+  const int per = tiles_m * tiles_n;
+  const int is = u / per;
+  int t = u - is * per;
+  const int span = PRODUCT_GROUP * tiles_n;
+  const int g = t / span;
+  const int first = g * PRODUCT_GROUP;
+  const int rows = min(PRODUCT_GROUP, tiles_m - first);
+  t -= g * span;
+  ProductUnit w;
+  w.item = is / splits;
+  w.split = is - w.item * splits;
+  w.sm = first + t % rows;
+  w.sn = t / rows;
+  return w;
+}
+
+// out (batch, m, n) = A B^T per item, or with several splits the
+// workspace (batch, splits, m, n) of partial sums that
+// nt_product_reduce_kernel adds in split order: the forward's main loop, so
+// every output element gets the forward's arithmetic, and one block a tile
+// and unit, the 1-D grid walking the units in product_unit's order.
 __global__ void __launch_bounds__(THREADS, 1)
-    nt_product_tf32x3_kernel(const __grid_constant__ CUtensorMap a_big,
-                             const __grid_constant__ CUtensorMap a_small,
-                             const __grid_constant__ CUtensorMap b_big,
-                             const __grid_constant__ CUtensorMap b_small,
-                             float* __restrict__ out, int m, int n,
-                             int kblocks, int splits) {
-  const int item = blockIdx.z / splits;
-  const int split = blockIdx.z - item * splits;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+    nt_product_kernel(const __grid_constant__ CUtensorMap a_big,
+                      const __grid_constant__ CUtensorMap a_small,
+                      const __grid_constant__ CUtensorMap b_big,
+                      const __grid_constant__ CUtensorMap b_small,
+                      float* __restrict__ out, int m, int n, int kblocks,
+                      int splits) {
+  const ProductUnit w = product_unit(blockIdx.x, splits, (m + BM - 1) / BM,
+                                     (n + BN - 1) / BN);
+  const int m0 = w.sm * BM;
+  const int n0 = w.sn * BN;
   float sum[64];
-  if (!tf32x3_mainloop(&a_big, &a_small, &b_big, &b_small, item, m0, n0,
-                       split_lo(split, kblocks, splits),
-                       split_lo(split + 1, kblocks, splits), sum))
+  if (!tf32x3_mainloop(&a_big, &a_small, &b_big, &b_small, w.item, m0, n0,
+                       split_lo(w.split, kblocks, splits),
+                       split_lo(w.split + 1, kblocks, splits), sum))
     return;
   const size_t mn = static_cast<size_t>(m) * n;
-  store_tile(sum, out + (static_cast<size_t>(item) * splits + split) * mn, m,
-             n, tile_row0(m0), tile_col0(n0));
+  store_tile(sum, out + (static_cast<size_t>(w.item) * splits + w.split) * mn,
+             m, n, tile_row0(m0), tile_col0(n0));
 }
 
 __global__ void nt_product_reduce_kernel(const float* __restrict__ ws,
@@ -619,126 +681,30 @@ __global__ void tf32_split_t_kernel(const float* __restrict__ a,
 //   g_P = g J(c) - g_ratio ratio / den
 // and the row and column sums dq11[i] = sum_j g_P X2_j / (2 X1_i), dq22[j] =
 // sum_i g_P X1_i / (2 X2_j), dsigma0 = 2 s0 (sum dq11 + sum dq22 + sum
-// dq12).  Every sum runs in a fixed order (per-tile partials, then one
-// thread per entry of dq11 and dq22 adds them in tile order, then one block
-// per item adds those for dsigma0; no floating-point atomics), so two runs
-// give the same bits.  dq12 also goes out as the two TF32 planes of the
-// product dU1 = dq12 S2 (A operand, row stride np), which saves the split
-// pass a read of dq12.
+// dq12).  Every sum runs in a fixed order: per-tile partials of 32 x 128
+// tiles, then the tiles in order for each entry of dq11 and dq22, then a
+// fixed tree over dq11, dq22 and the tiles' dq12 sums for dsigma0.  No
+// floating-point atomics, so two runs give the same bits.
 //
-// What bounds it: bytes (read g and q12, write dq12 and its planes; ~40
-// operations an element against ~20 bytes), so each thread streams its
-// elements once with coalesced loads.
+// One launch does it all.  dq12 itself is never stored: it goes out as the
+// two TF32 planes (big, small) of both products' A operands, dq12 (m, np)
+// for dU1 = dq12 S2 and, transposed through shared memory, dq12^T (n, mp)
+// for dS2 = dq12^T U1 (big + small is dq12 exactly).  Integer tickets
+// finish the sums inside the launch: the last tile of a row band to finish
+// adds that band's partials into dq11, the last of a column band into
+// dq22, and the last tile of an item computes dsigma0 (the sums' order does
+// not depend on which block is last).  Row tiles run fastest, so the column
+// bands, whose sums are the long ones (m / 32 partials an entry), finish
+// one after another during the sweep instead of all in its last wave.
+//
+// What bounds it: bytes (read g and q12, write four planes: 24 bytes an
+// element against ~40 operations), so each thread streams its elements
+// once with coalesced loads and the transposed planes are written in
+// 128-byte rows.
 
 constexpr int BWD_TM = 32;    // rows of a backward tile: 8 warps x 4 rows
 constexpr int BWD_TN = 128;   // columns: 32 lanes x 4
 constexpr int BWD_THREADS = 256;
-
-// Grid (tiles of n, tiles of m, batch).  row_part (batch, tiles_n, m),
-// col_part (batch, tiles_m, n) and num_part (batch, tiles_m x tiles_n)
-// take the tile's sums of g_P X2 along its row, g_P X1 along its column and
-// dq12.
-__global__ void __launch_bounds__(BWD_THREADS)
-    acos_gram_bwd_kernel(const float* __restrict__ g,
-                         const float* __restrict__ q12,
-                         const float* __restrict__ q11,
-                         const float* __restrict__ q22,
-                         const float* __restrict__ sigma0,
-                         float* __restrict__ dq12, float* __restrict__ big,
-                         float* __restrict__ small, int np,
-                         float* __restrict__ row_part,
-                         float* __restrict__ col_part,
-                         float* __restrict__ num_part, int m, int n) {
-  __shared__ float col_sh[BWD_THREADS / 32][BWD_TN];
-  __shared__ float num_sh[BWD_THREADS / 32];
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r_base = blockIdx.y * BWD_TM + warp * 4;
-  const int c_base = blockIdx.x * BWD_TN + lane;
-  const size_t mn = static_cast<size_t>(m) * n;
-  const float s0 = sigma0[b];
-  const float s02 = __fmul_rn(s0, s0);
-  float x2[4], col_acc[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int c = c_base + 32 * q;
-    x2[q] = c < n ? __fsqrt_rn(__fadd_rn(q22[static_cast<size_t>(b) * n + c],
-                                         s02))
-                  : 0.f;
-    col_acc[q] = 0.f;
-  }
-  float num_acc = 0.f;
-#pragma unroll
-  for (int rr = 0; rr < 4; ++rr) {
-    const int r = r_base + rr;
-    if (r >= m) continue;  // the same for the whole warp
-    const float x1 =
-        __fsqrt_rn(__fadd_rn(q11[static_cast<size_t>(b) * m + r], s02));
-    const size_t row = b * mn + static_cast<size_t>(r) * n;
-    const size_t prow = (static_cast<size_t>(b) * m + r) * np;
-    float row_acc = 0.f;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = c_base + 32 * q;
-      if (c >= n) {
-        if (c < np) big[prow + c] = small[prow + c] = 0.f;
-        continue;
-      }
-      const float gv = g[row + c];
-      const float P = __fmul_rn(x1, x2[q]);
-      const float den = __fadd_rn(P, JITTER);
-      const float ratio = __fdiv_rn(__fadd_rn(q12[row + c], s02), den);
-      const float a = fabsf(ratio);
-      const float dclip = a < 1.f ? 1.f : (a == 1.f ? 0.5f : 0.f);
-      const float cc = ratio < -1.f ? -1.f : (ratio > 1.f ? 1.f : ratio);
-      const float s = __fsqrt_rn(fmaxf(__fsub_rn(1.f, __fmul_rn(cc, cc)),
-                                       0.f));
-      const float pma = __fsub_rn(CUDART_PI_F, acosf(cc));
-      const float J = __fdiv_rn(__fadd_rn(s, __fmul_rn(pma, cc)),
-                                CUDART_PI_F);
-      const float g_ratio = __fmul_rn(
-          __fmul_rn(__fmul_rn(gv, P), __fdiv_rn(pma, CUDART_PI_F)), dclip);
-      const float d = __fdiv_rn(g_ratio, den);
-      const float gP = __fsub_rn(__fmul_rn(gv, J),
-                                 __fdiv_rn(__fmul_rn(g_ratio, ratio), den));
-      dq12[row + c] = d;
-      const float hi = tf32_rna(d);
-      big[prow + c] = hi;
-      small[prow + c] = d - hi;
-      row_acc += gP * x2[q];
-      col_acc[q] += gP * x1;
-      num_acc += d;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2)
-      row_acc += __shfl_xor_sync(0xffffffffu, row_acc, off);
-    if (lane == 0)
-      row_part[(static_cast<size_t>(b) * gridDim.x + blockIdx.x) * m + r] =
-          row_acc;
-  }
-#pragma unroll
-  for (int q = 0; q < 4; ++q) col_sh[warp][lane + 32 * q] = col_acc[q];
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2)
-    num_acc += __shfl_xor_sync(0xffffffffu, num_acc, off);
-  if (lane == 0) num_sh[warp] = num_acc;
-  __syncthreads();
-  if (threadIdx.x < BWD_TN) {
-    const int c = blockIdx.x * BWD_TN + threadIdx.x;
-    float acc = col_sh[0][threadIdx.x];
-    for (int w = 1; w < BWD_THREADS / 32; ++w) acc += col_sh[w][threadIdx.x];
-    if (c < n)
-      col_part[(static_cast<size_t>(b) * gridDim.y + blockIdx.y) * n + c] =
-          acc;
-  }
-  if (threadIdx.x == 0) {
-    float acc = num_sh[0];
-    for (int w = 1; w < BWD_THREADS / 32; ++w) acc += num_sh[w];
-    num_part[(static_cast<size_t>(b) * gridDim.y + blockIdx.y) * gridDim.x +
-             blockIdx.x] = acc;
-  }
-}
 
 // Adds a block's 256 values in a fixed tree order; thread 0 gets the sum.
 __device__ float block_sum(float v, float* sh) {
@@ -754,55 +720,206 @@ __device__ float block_sum(float v, float* sh) {
   return s;
 }
 
-// One thread per entry of dq11 and of dq22: the tiles' partials added in
-// tile order.  Grid (entries of m + n in blocks of 256, batch).
+// Grid (tiles of m, tiles of n, batch).  row_part (batch, tiles_n, m),
+// col_part (batch, tiles_m, n) and num_part (batch, tiles_m x tiles_n) take
+// the tile's sums of g_P X2 along its rows, g_P X1 along its columns and
+// dq12; tickets (batch x (tiles_m + tiles_n + 1) ints, zero at launch)
+// count the finished tiles of each row band, column band and item.
+// big_t / small_t may be null (no dS2 wanted).
 __global__ void __launch_bounds__(BWD_THREADS)
-    acos_gram_bwd_sums_kernel(const float* __restrict__ row_part,
-                              const float* __restrict__ col_part,
-                              const float* __restrict__ q11,
-                              const float* __restrict__ q22,
-                              const float* __restrict__ sigma0,
-                              float* __restrict__ dq11,
-                              float* __restrict__ dq22, int m, int n,
-                              int tiles_m, int tiles_n) {
-  const size_t b = blockIdx.y;
-  const int e = blockIdx.x * BWD_THREADS + threadIdx.x;
-  if (e >= m + n) return;
+    acos_gram_bwd_kernel(const float* __restrict__ g,
+                         const float* __restrict__ q12,
+                         const float* __restrict__ q11,
+                         const float* __restrict__ q22,
+                         const float* __restrict__ sigma0,
+                         float* __restrict__ big, float* __restrict__ small,
+                         int np, float* __restrict__ big_t,
+                         float* __restrict__ small_t, int mp,
+                         float* __restrict__ row_part,
+                         float* __restrict__ col_part,
+                         float* __restrict__ num_part,
+                         int* __restrict__ tickets, float* __restrict__ dq11,
+                         float* __restrict__ dq22,
+                         float* __restrict__ dsigma0, int m, int n) {
+  __shared__ float tile[BWD_TM][BWD_TN + 1];  // dq12, for the transpose
+  __shared__ float col_sh[BWD_THREADS / 32][BWD_TN];
+  __shared__ float num_sh[BWD_THREADS];
+  __shared__ int role, last;
+  const int b = blockIdx.z;
+  const int tm = blockIdx.x, tn = blockIdx.y;
+  const int tiles_m = gridDim.x, tiles_n = gridDim.y;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int r_base = tm * BWD_TM + warp * 4;
+  const int c_base = tn * BWD_TN + lane;
+  const size_t mn = static_cast<size_t>(m) * n;
   const float s0 = sigma0[b];
   const float s02 = __fmul_rn(s0, s0);
-  const bool row = e < m;
-  const int i = row ? e : e - m;
-  const int len = row ? m : n;
-  const int tiles = row ? tiles_n : tiles_m;
-  const float* p = (row ? row_part : col_part) + b * tiles * len + i;
-  float acc = p[0];
-#pragma unroll 8
-  for (int t = 1; t < tiles; ++t) acc += p[static_cast<size_t>(t) * len];
-  const float x = __fsqrt_rn(__fadd_rn((row ? q11 : q22)[b * len + i], s02));
-  (row ? dq11 : dq22)[b * len + i] = __fdiv_rn(acc, __fmul_rn(2.f, x));
-}
+  float x2[4], col_acc[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int c = c_base + 32 * q;
+    x2[q] = c < n ? __fsqrt_rn(__fadd_rn(q22[static_cast<size_t>(b) * n + c],
+                                         s02))
+                  : 0.f;
+    col_acc[q] = 0.f;
+  }
+  // every load of the thread first: 16 elements' g and q12 in flight at
+  // once (loaded one row at a time, the pass ran at 1.3 TB/s)
+  float gl[4][4], ql[4][4], q11l[4];
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr) {
+    const int r = r_base + rr;
+    const size_t row = b * mn + static_cast<size_t>(r) * n;
+    q11l[rr] = r < m ? q11[static_cast<size_t>(b) * m + r] : 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = c_base + 32 * q;
+      const bool in = r < m && c < n;
+      gl[rr][q] = in ? g[row + c] : 0.f;
+      ql[rr][q] = in ? q12[row + c] : 0.f;
+    }
+  }
+  float num_acc = 0.f;
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr) {
+    const int r = r_base + rr;
+    if (r >= m) {  // the same for the whole warp
+#pragma unroll
+      for (int q = 0; q < 4; ++q) tile[warp * 4 + rr][lane + 32 * q] = 0.f;
+      continue;
+    }
+    const float x1 = __fsqrt_rn(__fadd_rn(q11l[rr], s02));
+    const size_t prow = (static_cast<size_t>(b) * m + r) * np;
+    float row_acc = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = c_base + 32 * q;
+      if (c >= n) {
+        if (c < np) big[prow + c] = small[prow + c] = 0.f;
+        tile[warp * 4 + rr][lane + 32 * q] = 0.f;
+        continue;
+      }
+      const float gv = gl[rr][q];
+      const float P = __fmul_rn(x1, x2[q]);
+      const float den = __fadd_rn(P, JITTER);
+      const float ratio = __fdiv_rn(__fadd_rn(ql[rr][q], s02), den);
+      const float a = fabsf(ratio);
+      const float dclip = a < 1.f ? 1.f : (a == 1.f ? 0.5f : 0.f);
+      const float cc = ratio < -1.f ? -1.f : (ratio > 1.f ? 1.f : ratio);
+      const float s = __fsqrt_rn(fmaxf(__fsub_rn(1.f, __fmul_rn(cc, cc)),
+                                       0.f));
+      const float pma = __fsub_rn(CUDART_PI_F, acosf(cc));
+      const float J = __fdiv_rn(__fadd_rn(s, __fmul_rn(pma, cc)),
+                                CUDART_PI_F);
+      const float g_ratio = __fmul_rn(
+          __fmul_rn(__fmul_rn(gv, P), __fdiv_rn(pma, CUDART_PI_F)), dclip);
+      const float d = __fdiv_rn(g_ratio, den);
+      const float gP = __fsub_rn(__fmul_rn(gv, J),
+                                 __fdiv_rn(__fmul_rn(g_ratio, ratio), den));
+      const float hi = tf32_rna(d);
+      big[prow + c] = hi;
+      small[prow + c] = d - hi;
+      tile[warp * 4 + rr][lane + 32 * q] = d;
+      row_acc += gP * x2[q];
+      col_acc[q] += gP * x1;
+      num_acc += d;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2)
+      row_acc += __shfl_xor_sync(0xffffffffu, row_acc, off);
+    if (lane == 0)
+      row_part[(static_cast<size_t>(b) * tiles_n + tn) * m + r] = row_acc;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) col_sh[warp][lane + 32 * q] = col_acc[q];
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2)
+    num_acc += __shfl_xor_sync(0xffffffffu, num_acc, off);
+  if (lane == 0) num_sh[warp] = num_acc;
+  __syncthreads();
+  if (threadIdx.x < BWD_TN) {
+    const int c = tn * BWD_TN + threadIdx.x;
+    float acc = col_sh[0][threadIdx.x];
+    for (int w = 1; w < BWD_THREADS / 32; ++w) acc += col_sh[w][threadIdx.x];
+    if (c < n)
+      col_part[(static_cast<size_t>(b) * tiles_m + tm) * n + c] = acc;
+  }
+  if (threadIdx.x == 0) {
+    float acc = num_sh[0];
+    for (int w = 1; w < BWD_THREADS / 32; ++w) acc += num_sh[w];
+    num_part[(static_cast<size_t>(b) * tiles_m + tm) * tiles_n + tn] = acc;
+  }
+  // dq12^T's planes: column c of the tile is a 128-byte row segment of
+  // dq12^T, rows [m, mp) of it zero
+  if (big_t != nullptr) {
+    const int r = tm * BWD_TM + lane;
+    for (int j = warp; j < BWD_TN; j += BWD_THREADS / 32) {
+      const int c = tn * BWD_TN + j;
+      if (c >= n || r >= mp) continue;
+      const float v = tile[lane][j];
+      const float hi = tf32_rna(v);
+      const size_t o = (static_cast<size_t>(b) * n + c) * mp + r;
+      big_t[o] = hi;
+      small_t[o] = v - hi;
+    }
+  }
 
-// One block per item: dsigma0 = 2 s0 (sum dq11 + sum dq22 + sum dq12),
-// each sum in a fixed order.
-__global__ void __launch_bounds__(BWD_THREADS)
-    acos_gram_bwd_sigma_kernel(const float* __restrict__ dq11,
-                               const float* __restrict__ dq22,
-                               const float* __restrict__ num_part,
-                               const float* __restrict__ sigma0,
-                               float* __restrict__ dsigma0, int m, int n,
-                               int tiles) {
-  __shared__ float sh[BWD_THREADS];
-  const size_t b = blockIdx.x;
-  float sum_a = 0.f, sum_b = 0.f, sum_num = 0.f;
-  for (int i = threadIdx.x; i < m; i += BWD_THREADS) sum_a += dq11[b * m + i];
-  for (int j = threadIdx.x; j < n; j += BWD_THREADS) sum_b += dq22[b * n + j];
-  for (int t = threadIdx.x; t < tiles; t += BWD_THREADS)
-    sum_num += num_part[b * tiles + t];
-  sum_a = block_sum(sum_a, sh);
-  sum_b = block_sum(sum_b, sh);
-  sum_num = block_sum(sum_num, sh);
+  // ---- the sums, by the last tiles to finish --------------------------
+  int* row_ticket = tickets + static_cast<size_t>(b) * tiles_m + tm;
+  int* col_ticket = tickets + static_cast<size_t>(gridDim.z) * tiles_m +
+                    static_cast<size_t>(b) * tiles_n + tn;
+  int* item_ticket = tickets +
+                     static_cast<size_t>(gridDim.z) * (tiles_m + tiles_n) + b;
+  __threadfence();
+  __syncthreads();
   if (threadIdx.x == 0)
-    dsigma0[b] = (sum_a + sum_b + sum_num) * 2.f * sigma0[b];
+    role = (atomicAdd(row_ticket, 1) == tiles_n - 1 ? 1 : 0) |
+           (atomicAdd(col_ticket, 1) == tiles_m - 1 ? 2 : 0);
+  __syncthreads();
+  if (role != 0) {
+    __threadfence();
+    // dq11 over the 32 rows of this band, dq22 over its 128 columns: each
+    // entry the tiles' partials in tile order
+    const bool rows = (role & 1) && threadIdx.x < BWD_TM;
+    const bool cols = (role & 2) && threadIdx.x >= BWD_THREADS - BWD_TN;
+    const int i = rows ? tm * BWD_TM + threadIdx.x
+                       : tn * BWD_TN + threadIdx.x - (BWD_THREADS - BWD_TN);
+    const int len = rows ? m : n;
+    if ((rows || cols) && i < len) {
+      const int tiles = rows ? tiles_n : tiles_m;
+      const float* p = (rows ? row_part : col_part) +
+                       static_cast<size_t>(b) * tiles * len + i;
+      float acc = __ldcg(p);
+#pragma unroll 16
+      for (int t = 1; t < tiles; ++t)
+        acc += __ldcg(p + static_cast<size_t>(t) * len);
+      const float x = __fsqrt_rn(__fadd_rn(
+          (rows ? q11 : q22)[static_cast<size_t>(b) * len + i], s02));
+      (rows ? dq11 : dq22)[static_cast<size_t>(b) * len + i] =
+          __fdiv_rn(acc, __fmul_rn(2.f, x));
+    }
+    __threadfence();
+    __syncthreads();
+  }
+  if (threadIdx.x == 0)
+    last = atomicAdd(item_ticket, 1) == tiles_m * tiles_n - 1;
+  __syncthreads();
+  if (!last) return;
+  // the item's last tile: dsigma0 = 2 s0 (sum dq11 + sum dq22 + sum dq12)
+  __threadfence();
+  const int tiles = tiles_m * tiles_n;
+  float sum_a = 0.f, sum_b = 0.f, sum_num = 0.f;
+  for (int i = threadIdx.x; i < m; i += BWD_THREADS)
+    sum_a += __ldcg(dq11 + static_cast<size_t>(b) * m + i);
+  for (int j = threadIdx.x; j < n; j += BWD_THREADS)
+    sum_b += __ldcg(dq22 + static_cast<size_t>(b) * n + j);
+  for (int t = threadIdx.x; t < tiles; t += BWD_THREADS)
+    sum_num += __ldcg(num_part + static_cast<size_t>(b) * tiles + t);
+  sum_a = block_sum(sum_a, num_sh);
+  sum_b = block_sum(sum_b, num_sh);
+  sum_num = block_sum(sum_num, num_sh);
+  if (threadIdx.x == 0) dsigma0[b] = (sum_a + sum_b + sum_num) * 2.f * s0;
 }
 
 // ---------------------------------------------------------------------------
@@ -864,8 +981,8 @@ int grid_for(size_t work) {
 }
 
 // Checks a main-loop plan and encodes the four planes' tensor maps of the
-// split operands a (2, batch, m, kp) and b (2, batch, n, kp); 0 or an
-// error code.
+// split operands a (2, batch, m, kp) and b (2, batch, n, kp); 0 or an error
+// code.
 int encode_operands(const float* a, const float* b, int m, int n, int kp,
                     int splits, int batch, CUtensorMap (&maps)[4]) {
   const int kblocks = (kp + BK - 1) / BK;
@@ -954,8 +1071,9 @@ extern "C" int acos_gram_f32(const float* a, const float* b, const float* q11,
 }
 
 // out (batch, m, n) = A B^T per item, from the split operands a (2, batch,
-// m, kp) and b (2, batch, n, kp), on the Gram's main loop; ws as in
-// acos_gram_f32.
+// m, kp) and b (2, batch, n, kp), kp a multiple of 32 (128-byte rows), on
+// the forward's main loop, one block a tile and unit in product_unit's
+// order; ws as in acos_gram_f32.
 extern "C" int nt_product_f32(const float* a, const float* b, float* out,
                               float* ws, int m, int n, int kp, int splits,
                               int batch, void* stream) {
@@ -963,14 +1081,17 @@ extern "C" int nt_product_f32(const float* a, const float* b, float* out,
   CUtensorMap maps[4];
   const int rc = encode_operands(a, b, m, n, kp, splits, batch, maps);
   if (rc != 0) return rc;
+  const long long units = static_cast<long long>(batch) * splits *
+                          ((m + BM - 1) / BM) * ((n + BN - 1) / BN);
+  if (units > 0x7fffffffLL) return ERR_PLAN;
   cudaError_t e = cudaFuncSetAttribute(
-      nt_product_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      nt_product_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, batch * splits);
-  nt_product_tf32x3_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
-      maps[0], maps[1], maps[2], maps[3], splits > 1 ? ws : out, m, n,
-      (kp + BK - 1) / BK, splits);
+  nt_product_kernel<<<static_cast<unsigned>(units), THREADS, SMEM_BYTES,
+                      st>>>(maps[0], maps[1], maps[2], maps[3],
+                            splits > 1 ? ws : out, m, n, (kp + BK - 1) / BK,
+                            splits);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
   const size_t mn = static_cast<size_t>(m) * n;
@@ -979,42 +1100,37 @@ extern "C" int nt_product_f32(const float* a, const float* b, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward epilogue of a batch of Grams: from g and q12 (batch, m, n),
-// q11 (batch, m), q22 (batch, n) and sigma0 (batch,), dq12 (batch, m, n),
-// its TF32 planes planes (2, batch, m, np) (np >= n, zero in the columns
-// past n), dq11 (batch, m), dq22 (batch, n) and dsigma0 (batch,).  part
+// The backward epilogue of a batch of Grams, in one launch: from g and q12
+// (batch, m, n), q11 (batch, m), q22 (batch, n) and sigma0 (batch,), the
+// TF32 planes of dq12, planes (2, batch, m, np), and of dq12^T, planes_t
+// (2, batch, n, mp) or null (np >= n, mp >= m, zero in the columns past n
+// and m), dq11 (batch, m), dq22 (batch, n) and dsigma0 (batch,).  part
 // holds batch x (tiles_n m + tiles_m n + tiles_m tiles_n) floats, tiles of
-// 32 rows by 128 columns.
+// 32 rows by 128 columns; tickets batch x (tiles_m + tiles_n + 1) ints,
+// zero.
 extern "C" int acos_gram_bwd_f32(const float* g, const float* q12,
                                  const float* q11, const float* q22,
-                                 const float* sigma0, float* dq12,
-                                 float* planes, int np, float* part,
-                                 float* dq11, float* dq22, float* dsigma0,
-                                 int m, int n, int batch, void* stream) {
+                                 const float* sigma0, float* planes, int np,
+                                 float* planes_t, int mp, float* part,
+                                 int* tickets, float* dq11, float* dq22,
+                                 float* dsigma0, int m, int n, int batch,
+                                 void* stream) {
   const int tiles_m = (m + BWD_TM - 1) / BWD_TM;
   const int tiles_n = (n + BWD_TN - 1) / BWD_TN;
-  if (batch < 1 || batch > 65535 || tiles_m > 65535 || np < n)
+  if (batch < 1 || batch > 65535 || tiles_n > 65535 || np < n || mp < m ||
+      static_cast<long long>(tiles_m) * tiles_n > 0x7fffffffLL)
     return ERR_PLAN;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* row_part = part;
   float* col_part = row_part + static_cast<size_t>(batch) * tiles_n * m;
   float* num_part = col_part + static_cast<size_t>(batch) * tiles_m * n;
-  const dim3 grid(tiles_n, tiles_m, batch);
-  acos_gram_bwd_kernel<<<grid, BWD_THREADS, 0, st>>>(
-      g, q12, q11, q22, sigma0, dq12, planes,
-      planes + static_cast<size_t>(batch) * m * np, np, row_part, col_part,
-      num_part, m, n);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  acos_gram_bwd_sums_kernel<<<dim3((m + n + BWD_THREADS - 1) / BWD_THREADS,
-                                   batch),
-                              BWD_THREADS, 0, st>>>(
-      row_part, col_part, q11, q22, sigma0, dq11, dq22, m, n, tiles_m,
-      tiles_n);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  acos_gram_bwd_sigma_kernel<<<batch, BWD_THREADS, 0, st>>>(
-      dq11, dq22, num_part, sigma0, dsigma0, m, n, tiles_m * tiles_n);
+  const size_t plane_t = static_cast<size_t>(batch) * n * mp;
+  acos_gram_bwd_kernel<<<dim3(tiles_m, tiles_n, batch), BWD_THREADS, 0,
+                         st>>>(
+      g, q12, q11, q22, sigma0, planes,
+      planes + static_cast<size_t>(batch) * m * np, np, planes_t,
+      planes_t == nullptr ? nullptr : planes_t + plane_t, mp, row_part,
+      col_part, num_part, tickets, dq11, dq22, dsigma0, m, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,13 +30,15 @@ at |c| = 1), passing half the gradient where the clip is exactly at a
 bound, as ``jnp.clip`` and ``torch.maximum`` do, and the row and column
 sums that give dL/dq11, dL/dq22 and dL/dsigma0; then dU1 = dq12 S2 and
 dS2 = dq12^T U1.  On CUDA tensors these are hand-written kernels in the
-same source (``acos_gram_bwd``: the elementwise pass and the sums, in a
-fixed order; ``tf32_split_t``: the split pass of an operand whose
-contraction runs along its rows, transposed; ``nt_product``: the Gram's
-3xTF32 main loop with no epilogue), and a CUDA tensor they cannot take
-raises; on CPU tensors the plain version ``gram_backward_torch`` runs (the
-plain epilogue ``acos_gram_bwd_torch``, then ``dq12 @ s2`` and
-``dq12.mT @ u1``).
+same source (``acos_gram_bwd``: one launch of the elementwise pass, which
+writes dq12 only as the TF32 planes of both products' operands, dq12's and
+dq12^T's, and of the sums, in a fixed order; ``tf32_split_t``: the split
+pass of an operand whose contraction runs along its rows, transposed;
+``nt_product``: the Gram's 3xTF32 main loop with no epilogue, its tiles in
+groups of 4 tile rows; every plane in rows of ``_pitch``), and a CUDA
+tensor they cannot take raises; on CPU tensors the plain version
+``gram_backward_torch`` runs (the plain epilogue ``acos_gram_bwd_torch``,
+then ``dq12 @ s2`` and ``dq12.mT @ u1``).
 
 The kernels are built at first use with ``nvcc`` into ``build/kernels/`` at
 the repository root, keyed by a hash of the source and flags, and loaded
@@ -170,8 +172,8 @@ def load_library():
     lib.tf32_split_t_f32.restype = i32
     lib.nt_product_f32.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
     lib.nt_product_f32.restype = i32
-    lib.acos_gram_bwd_f32.argtypes = ([ptr] * 7 + [i32] + [ptr] * 4
-                                      + [i32] * 3 + [ptr])
+    lib.acos_gram_bwd_f32.argtypes = ([ptr] * 6 + [i32, ptr, i32]
+                                      + [ptr] * 5 + [i32] * 3 + [ptr])
     lib.acos_gram_bwd_f32.restype = i32
     lib.acos_gram_error_string.argtypes = [i32]
     lib.acos_gram_error_string.restype = ctypes.c_char_p
@@ -317,18 +319,27 @@ def tf32_split_torch(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _pad4(n: int) -> int:
-    """n rounded up to 4 floats: the split planes' row stride (TMA wants
-    16-byte strides)."""
+    """n rounded up to 4 floats: the forward's split planes' row stride
+    (TMA wants 16-byte strides)."""
     return -(-n // 4) * 4
+
+
+def _pitch(n: int) -> int:
+    """n rounded up to 32 floats: the row stride of the backward's planes.
+    A row that starts on a 128-byte boundary is one 128-byte line for each
+    of TMA's box rows; at an 8400-byte stride every box row straddles two,
+    and the product took 1.29 ms against 0.72-0.79 (H100 80GB HBM3,
+    PERF.md)."""
+    return -(-n // BK) * BK
 
 
 def tf32_split_t_torch(a: torch.Tensor) -> torch.Tensor:
     """The plain version of the transposing split pass: a ((B,) rows, cols)
     float32 gives one buffer (2, (B,) cols, rowsp) holding the big plane of
     a^T, then its small plane (``tf32_split_torch`` of a^T), with rowsp =
-    rows rounded up to 4 and zeros in rows [rows, rowsp)."""
+    ``_pitch(rows)`` and zeros in rows [rows, rowsp)."""
     rows = a.shape[-2]
-    padded = a.new_zeros(a.shape[:-2] + (a.shape[-1], _pad4(rows)))
+    padded = a.new_zeros(a.shape[:-2] + (a.shape[-1], _pitch(rows)))
     padded[..., :rows] = a.mT
     return torch.stack(tf32_split_torch(padded))
 
@@ -511,10 +522,10 @@ def _split_t_into(lib, a: torch.Tensor, stream: int) -> torch.Tensor:
     returns (2, B, cols, rowsp), as ``tf32_split_t_torch``."""
     global split_t_launches
     batch, rows, cols = a.shape
-    dst = torch.empty((2, batch, cols, _pad4(rows)), dtype=torch.float32,
+    dst = torch.empty((2, batch, cols, _pitch(rows)), dtype=torch.float32,
                       device=a.device)
     _raise_on(lib, lib.tf32_split_t_f32(a.data_ptr(), dst.data_ptr(), batch,
-                                        rows, cols, _pad4(rows), stream),
+                                        rows, cols, _pitch(rows), stream),
               "tf32_split_t")
     split_t_launches += 1
     split_t_shapes[f"{batch}x{rows}x{cols}"] += 1
@@ -524,10 +535,14 @@ def _split_t_into(lib, a: torch.Tensor, stream: int) -> torch.Tensor:
 def _product(lib, a: torch.Tensor, b: torch.Tensor, m: int, n: int, k: int,
              stream: int) -> torch.Tensor:
     """Launch the product on the split operands a (2, B, m, kp) and b (2, B,
-    n, kp), kp = k rounded up to 4: returns A B^T (B, m, n), over
+    n, kp), kp = ``_pitch(k)``: returns A B^T (B, m, n), over
     ``plan_gram``'s split of k."""
     global product_launches
-    batch = a.shape[1]
+    batch, kp = a.shape[1], a.shape[-1]
+    if b.shape[-1] != kp or b.shape[1] != batch or kp != _pitch(k):
+        raise ValueError(f"nt_product: planes {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} do not hold k={k} at a row "
+                         f"stride of {_pitch(k)}")
     plan = plan_gram(m, n, k, _sm_count(a.device), batch)
     out = torch.empty((batch, m, n), dtype=torch.float32, device=a.device)
     ws = out
@@ -535,36 +550,42 @@ def _product(lib, a: torch.Tensor, b: torch.Tensor, m: int, n: int, k: int,
         ws = torch.empty((batch, plan.splits, m, n), dtype=torch.float32,
                          device=a.device)
     _raise_on(lib, lib.nt_product_f32(a.data_ptr(), b.data_ptr(),
-                                      out.data_ptr(), ws.data_ptr(), m, n,
-                                      _pad4(k), plan.splits, batch, stream),
+                                      out.data_ptr(), ws.data_ptr(), m, n, kp,
+                                      plan.splits, batch, stream),
               "nt_product")
     product_launches += 1
     product_shapes[f"{batch}x{m}x{n} k{k}"] += 1
     return out
 
 
-def _bwd_launch(lib, g, q12, q11, q22, sigma0, stream):
-    """The backward epilogue on (B, m, n) g and q12: (dq12, its TF32 planes
-    (2, B, m, np), dq11, dq22, dsigma0 (B,))."""
+def _bwd_launch(lib, g, q12, q11, q22, sigma0, stream, transposed=True):
+    """The backward epilogue on (B, m, n) g and q12: (the TF32 planes of
+    dq12 (2, B, m, _pitch(n)), those of dq12^T (2, B, n, _pitch(m)) or None
+    without ``transposed``, dq11, dq22, dsigma0 (B,)).  dq12 itself is
+    planes[0] + planes[1] (exactly), in the columns below n."""
     global bwd_launches
     batch, m, n = g.shape
     f32 = dict(dtype=torch.float32, device=g.device)
     tiles_m, tiles_n = -(-m // 32), -(-n // 128)
-    dq12 = torch.empty((batch, m, n), **f32)
-    planes = torch.empty((2, batch, m, _pad4(n)), **f32)
+    planes = torch.empty((2, batch, m, _pitch(n)), **f32)
+    planes_t = (torch.empty((2, batch, n, _pitch(m)), **f32) if transposed
+                else None)
     part = torch.empty(batch * (tiles_n * m + tiles_m * n + tiles_m * tiles_n),
                        **f32)
+    tickets = torch.zeros(batch * (tiles_m + tiles_n + 1), dtype=torch.int32,
+                          device=g.device)
     dq11 = torch.empty((batch, m), **f32)
     dq22 = torch.empty((batch, n), **f32)
     dsig = torch.empty(batch, **f32)
     _raise_on(lib, lib.acos_gram_bwd_f32(
         g.data_ptr(), q12.data_ptr(), q11.data_ptr(), q22.data_ptr(),
-        sigma0.data_ptr(), dq12.data_ptr(), planes.data_ptr(), _pad4(n),
-        part.data_ptr(), dq11.data_ptr(), dq22.data_ptr(), dsig.data_ptr(),
-        m, n, batch, stream), "acos_gram_bwd")
+        sigma0.data_ptr(), planes.data_ptr(), _pitch(n),
+        None if planes_t is None else planes_t.data_ptr(), _pitch(m),
+        part.data_ptr(), tickets.data_ptr(), dq11.data_ptr(), dq22.data_ptr(),
+        dsig.data_ptr(), m, n, batch, stream), "acos_gram_bwd")
     bwd_launches += 1
     bwd_shapes[f"{batch}x{m}x{n}"] += 1
-    return dq12, planes, dq11, dq22, dsig
+    return planes, planes_t, dq11, dq22, dsig
 
 
 def _check_bwd(g, q12, q11, q22, sigma0, *rest) -> int:
@@ -593,10 +614,11 @@ def gram_backward(g, u1, s2, q11, q22, sigma0, q12, need_u1=True,
                   need_s2=True):
     """The Gram's gradients (du1, ds2, dq11, dq22, dsigma0) from g = dL/dK
     and the forward's q12, 2-D or batched (du1 / ds2 None where not
-    needed).  On CUDA tensors: the backward epilogue, then du1 = dq12 S2
-    through the product kernel on dq12's planes and the transposing split
-    of s2, and ds2 = dq12^T U1 on the transposing splits of dq12 and u1; a
-    CUDA tensor the kernels cannot take raises.  On CPU tensors the plain
+    needed).  On CUDA tensors: the backward epilogue, which writes the
+    planes of dq12 and of dq12^T, then ds2 = dq12^T U1 through the product
+    kernel on dq12^T's planes and the transposing split of u1, and du1 =
+    dq12 S2 on dq12's planes and the transposing split of s2; a CUDA
+    tensor the kernels cannot take raises.  On CPU tensors the plain
     versions."""
     if not g.is_cuda:
         return gram_backward_torch(g, u1, s2, q11, q22, sigma0, q12, need_u1,
@@ -614,18 +636,17 @@ def gram_backward(g, u1, s2, q11, q22, sigma0, q12, need_u1=True,
     g3, q3, u3, s3 = items
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        dq12, planes, dq11, dq22, dsig = _bwd_launch(
+        planes, planes_t, dq11, dq22, dsig = _bwd_launch(
             lib, g3, q3, q11.contiguous().reshape(batch, m),
             q22.contiguous().reshape(batch, n),
-            sigma0.reshape(batch).contiguous(), stream)
+            sigma0.reshape(batch).contiguous(), stream, need_s2)
         # ds2 first: U1^T's planes (the larger) are freed before du1 (m, k)
         # is allocated
         du1 = ds2 = None
         if need_s2:
-            ds2 = _product(lib, _split_t_into(lib, dq12, stream),
-                           _split_t_into(lib, u3, stream), n, k, m,
-                           stream).reshape(s2.shape)
-        del dq12
+            ds2 = _product(lib, planes_t, _split_t_into(lib, u3, stream), n,
+                           k, m, stream).reshape(s2.shape)
+        del planes_t
         if need_u1:
             du1 = _product(lib, planes, _split_t_into(lib, s3, stream), m, k,
                            n, stream).reshape(u1.shape)

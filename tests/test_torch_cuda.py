@@ -907,7 +907,7 @@ def test_backward_kernels_match_plain(dev, B, m, n, k):
     after = gram_cuda.read_counts()
     assert after["bwd"] == counts["bwd"] + 2
     assert after["product"] == counts["product"] + 4
-    assert after["split_t"] == counts["split_t"] + 6
+    assert after["split_t"] == counts["split_t"] + 4   # u1 and s2, not dq12
     assert after["plain_bwd_cuda"] == counts["plain_bwd_cuda"]
     for a, b in zip(got, again):
         assert torch.equal(a, b)
@@ -946,6 +946,38 @@ def test_forward_keeps_its_bits_with_the_q12_output(dev, B, m, n, k):
         assert digest[:16] == PARENT_K_SHA[(B, m, n, k)]
 
 
+# The first 16 hex digits of the sha256 of each backward output (du1, ds2,
+# dq11, dq22, dsigma0) from the backward kernels as they were before the
+# product and epilogue redesign (commit c51b73d), on an NVIDIA H100 80GB
+# HBM3, at each (B, m, n, k) on benchmarks/gram_backward.operands: split k
+# (37x301), the M-step's K_tilde and K, a small Gram and a batch
+PARENT_BWD_SHA = {
+    (None, 37, 301, 1002): ["1c5f09dd780d5f9a", "23ae0e595b2f28f1",
+        "6cad6369121f47b3", "b1486872540e1a38", "45ac2daa32451b61"],
+    (3, 131, 67, 258): ["62b7b76e53971116", "a91efc9d7d0a71e9",
+        "76876de230d0d843", "b8e1cbea17a04db8", "f92d6c770d636b81"],
+    (None, 2100, 2100, 6400): ["6ade6b83bf500c7e", "2a2dd468cecfc9b3",
+        "ef506a905e1fe629", "14b8921589f0474f", "5d84fcde1c2d83e7"],
+    (None, 3160, 2100, 6400): ["c466eda93b49d5c7", "c2fdac4a995753bb",
+        "b926c009d63c6cd4", "65b7c09f3cbccd12", "5c4b7ad4bfd13cbd"],
+    (None, 256, 64, 576): ["17cbc7f104aab728", "48ced922819d7a75",
+        "7400b652fd807815", "d7bc75646679ae69", "f860235d4f50ccd3"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,m,n,k", sorted(PARENT_BWD_SHA, key=str))
+def test_backward_keeps_its_bits(dev, B, m, n, k):
+    """Every output of the backward has the bits of the kernels before the
+    redesign: the products keep the forward's main loop and plan_gram's
+    cuts of k, the epilogue its formulas and the order of every sum."""
+    from gaussian_processes_tpu_torch.benchmarks import gram_backward
+
+    ops, g = gram_backward.operands(dev, B, m, n, k)
+    _, q12 = gram_cuda._forward(*ops, keep_q12=True)
+    got = gram_cuda.gram_backward(g, *ops, q12)
+    assert gram_backward.digests(got) == PARENT_BWD_SHA[(B, m, n, k)]
+
+
 @pytest.mark.cuda
 def test_backward_epilogue_at_the_clip(dev):
     """Cosines exactly at +-1 and beyond: the kernel decides the clip from
@@ -969,10 +1001,11 @@ def test_backward_epilogue_at_the_clip(dev):
     q12[3, 4] = float("nan")
     g = torch.randn(m, n, generator=gen)
     args = [t.to(dev) for t in (g, q12, q11, q22, s0)]
-    dq12, _, dq11, dq22, ds0 = gram_cuda._bwd_launch(
+    planes, _, dq11, dq22, ds0 = gram_cuda._bwd_launch(
         gram_cuda.load_library(), g.reshape(1, m, n).to(dev),
         q12.reshape(1, m, n).to(dev), q11.reshape(1, m).to(dev),
         q22.reshape(1, n).to(dev), s0.reshape(1).to(dev), _stream(dev))
+    dq12 = planes[0, :, :, :n] + planes[1, :, :, :n]
     got = dq12[0], dq11[0], dq22[0], ds0[0]
     want = gram_cuda.acos_gram_bwd_torch(*args)
     assert torch.isnan(got[0][3, 4]) and torch.isnan(want[0][3, 4])
@@ -1034,3 +1067,198 @@ def test_backward_raises_instead_of_falling_back(dev):
     with pytest.raises(ValueError):
         gram_cuda.gram_backward(g, u1, s2[:3], q11, q22, s0, q12)
     assert gram_cuda.read_counts()["plain_bwd_cuda"] == before
+
+
+# The redesigned product (128-byte rows, tiles in groups of 4 rows) and
+# epilogue (one launch: dq12's planes and dq12^T's, the sums by the last
+# tiles to finish)
+
+def _epilogue_inputs(dev, B, m, n, seed):
+    gen = torch.Generator().manual_seed(seed)
+    q11 = torch.rand(B, m, generator=gen) * 3 + 0.5
+    q22 = torch.rand(B, n, generator=gen) * 3 + 0.5
+    s0 = 0.3 + torch.rand(B, generator=gen)
+    s02 = (s0 * s0)[:, None, None]
+    den = (torch.sqrt(q11[:, :, None] + s02)
+           * torch.sqrt(q22[:, None, :] + s02))
+    q12 = (torch.rand(B, m, n, generator=gen) * 2.2 - 1.1) * den - s02
+    g = torch.randn(B, m, n, generator=gen)
+    return [t.to(dev) for t in (g, q12, q11, q22, s0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,m,n", [(1, 33, 129), (2, 300, 257), (8, 97, 31),
+                                   (30, 161, 385), (1, 1, 1)])
+def test_backward_epilogue_matches_plain_across_tiles(dev, B, m, n):
+    """m and n off the 32 x 128 tile; the planes of dq12 and of dq12^T
+    from one launch: big + small is the plain dq12, both are its split
+    (zero past n and m), dq11, dq22 and dsigma0 within 1e-5, two runs bit
+    for bit (the last tile to finish changes, the order of the sums does
+    not)."""
+    g, q12, q11, q22, s0 = _epilogue_inputs(dev, B, m, n, B * m + n)
+    lib = gram_cuda.load_library()
+    got = gram_cuda._bwd_launch(lib, g, q12, q11, q22, s0, _stream(dev))
+    again = gram_cuda._bwd_launch(lib, g, q12, q11, q22, s0, _stream(dev))
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    planes, planes_t, dq11, dq22, ds0 = got
+    assert planes.shape == (2, B, m, gram_cuda._pitch(n))
+    assert planes_t.shape == (2, B, n, gram_cuda._pitch(m))
+    dq12 = planes[0, :, :, :n] + planes[1, :, :, :n]
+    assert torch.equal(planes, torch.stack(gram_cuda.tf32_split_torch(
+        torch.nn.functional.pad(dq12, (0, planes.shape[-1] - n)))))
+    assert torch.equal(planes_t, gram_cuda.tf32_split_t_torch(dq12))
+    want = gram_cuda.acos_gram_bwd_torch(g, q12, q11, q22, s0)
+    _close((dq12, dq11, dq22, ds0), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,m,n,k", [(1, 129, 257, 1001), (2, 300, 700, 63),
+                                     (8, 385, 130, 333), (30, 200, 64, 1002),
+                                     (1, 3160, 6400, 2100)])
+def test_product_kernel_across_tile_groups(dev, B, m, n, k):
+    """Tile rows past the last whole group of 4 (2, 3 and 25 tiles of
+    128), k off multiples of 4 and of 32, batches of 1, 2, 8 and 30 in one
+    launch: within 1e-5 of a @ b^T, two runs bit for bit."""
+    gen = torch.Generator().manual_seed(m + k)
+    a = torch.randn((B, m, k), generator=gen).to(dev)
+    b = torch.randn((B, n, k), generator=gen).to(dev)
+    lib = gram_cuda.load_library()
+    pa = gram_cuda._split_t_into(lib, a.mT.contiguous(), _stream(dev))
+    pb = gram_cuda._split_t_into(lib, b.mT.contiguous(), _stream(dev))
+    got = gram_cuda._product(lib, pa, pb, m, n, k, _stream(dev))
+    again = gram_cuda._product(lib, pa, pb, m, n, k, _stream(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = gram_cuda.nt_product_torch(a, b)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_nan_in_one_row_poisons_exactly_that_rows_gradients(dev):
+    """A NaN in row i of dq12's operand A poisons row i of the product and
+    nothing else (the other rows keep their bits); a NaN in g's row i
+    poisons dq12's row i and dq11[i] (and the column sums through it), the
+    other rows of dq12 and entries of dq11 keep their bits."""
+    lib = gram_cuda.load_library()
+    m, n, k = 300, 700, 333
+    gen = torch.Generator().manual_seed(5)
+    a = torch.randn((1, m, k), generator=gen).to(dev)
+    b = torch.randn((1, n, k), generator=gen).to(dev)
+
+    def product(a):
+        return gram_cuda._product(
+            lib, gram_cuda._split_t_into(lib, a.mT.contiguous(), _stream(dev)),
+            gram_cuda._split_t_into(lib, b.mT.contiguous(), _stream(dev)), m,
+            n, k, _stream(dev))
+
+    clean = product(a)
+    a[0, 137, 200] = float("nan")
+    got = product(a)
+    assert bool(torch.isnan(got[0, 137]).all())
+    rows = torch.arange(m, device=dev) != 137
+    assert torch.equal(got[0, rows], clean[0, rows])
+
+    g, q12, q11, q22, s0 = _epilogue_inputs(dev, 1, m, n, 9)
+    clean = gram_cuda._bwd_launch(lib, g, q12, q11, q22, s0, _stream(dev))
+    g[0, 37, 11] = float("nan")
+    got = gram_cuda._bwd_launch(lib, g, q12, q11, q22, s0, _stream(dev))
+    dq12 = got[0][0, 0, :, :n] + got[0][1, 0, :, :n]
+    dq12_clean = clean[0][0, 0, :, :n] + clean[0][1, 0, :, :n]
+    assert bool(torch.isnan(dq12[37, 11])) and bool(torch.isnan(got[2][0, 37]))
+    rows = torch.arange(m, device=dev) != 37
+    assert torch.equal(dq12[rows], dq12_clean[rows])
+    assert torch.equal(got[2][0, rows], clean[2][0, rows])
+
+
+def _first_mstep_call(x, r, xtilde, theta, n_px):
+    """The arguments of the first M-step objective call of a 3-iteration
+    fit on the card (float32)."""
+    import numpy as np
+    from gaussian_processes_tpu_torch.config import FitConfig
+    from gaussian_processes_tpu_torch.models import fit as F
+
+    calls = []
+    real = F._mstep_objective
+
+    def record(th, *args, **kwargs):
+        if not calls:
+            calls.append(({k_: v.detach().clone() for k_, v in th.items()},
+                          args, kwargs))
+        return real(th, *args, **kwargs)
+
+    cfg = FitConfig(ntilde=xtilde.shape[0], maxiter=3, n_estep=3, n_mstep=3,
+                    n_fparamstep=3, n_px_side=n_px)
+    F._mstep_objective = record
+    try:
+        res = F.fit(x, r, cfg, xtilde=xtilde, theta=theta,
+                    f_params={"logA": float(np.log(0.01)), "lambda0": 1.0})
+    finally:
+        F._mstep_objective = real
+    return res, calls[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["duplicated_inducing_rows",
+                                    "rf_at_the_border"])
+def test_mstep_gradient_through_backward_kernels_in_the_fits_regimes(dev,
+                                                                     regime):
+    """The fit's M-step value and theta-gradient in float32 through the
+    backward kernels against the plain backward (at a cuBLAS q12), in two
+    of the reference's failure regimes: duplicated inducing rows (K_tilde
+    exactly singular in float32) and a receptive field at the image
+    border.  The fit stays finite, and the gradients agree within 1e-3 of
+    their largest entry (the M-step's float32 gate, chip_smoke.py)."""
+    import numpy as np
+    from gaussian_processes_tpu_torch.benchmarks.fparam_route import (
+        plain_gram_backward)
+    from gaussian_processes_tpu_torch.models import fit as F
+
+    n_px, nt, ntilde = 24, 256, 64
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((nt, n_px * n_px))
+    lin = np.linspace(-1, 1, n_px)
+    yy, xx = np.meshgrid(lin, lin, indexing="ij")
+    center = (0.9, 0.9) if regime == "rf_at_the_border" else (0.1, -0.2)
+    w = np.exp(-((xx - center[0]) ** 2 + (yy - center[1]) ** 2)
+               / (2 * 0.3 ** 2)).ravel()
+    r = rng.poisson(np.exp(0.8 * x @ (w / np.linalg.norm(w)))).astype(float)
+    if regime == "duplicated_inducing_rows":
+        idx = np.concatenate([np.arange(48), np.arange(16)])
+        eps = (0.0, 0.0)
+    else:
+        idx = np.arange(ntilde)
+        eps = (0.9, 0.9)
+    theta = {"sigma_0": 1.0, "eps_0x": eps[0], "eps_0y": eps[1],
+             "-2log2beta": float(-2 * np.log(2 * 0.3)),
+             "-log2rho2": float(-np.log(2 * 0.15 ** 2)), "Amp": 1.0}
+    xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    rt = torch.as_tensor(r, dtype=torch.float32, device=dev)
+    res, (theta0, args, kwargs) = _first_mstep_call(
+        xt, rt, xt[torch.as_tensor(idx, device=dev)], theta, n_px)
+    assert not res.failed
+    assert bool(torch.isfinite(res.track.logmarginal).all())
+    if regime == "duplicated_inducing_rows":
+        assert int(res.track.n_eigen[-1]) <= 48
+    keys = sorted(theta0)
+
+    def evaluation():
+        flat = torch.stack([theta0[k_] for k_ in keys]).requires_grad_(True)
+        with torch.enable_grad():
+            v = F._mstep_objective({k_: flat[i] for i, k_ in enumerate(keys)},
+                                   *args, **kwargs)
+            (gr,) = torch.autograd.grad(v, flat)
+        return v.detach(), gr
+
+    counts = gram_cuda.read_counts()
+    v_kernel, g_kernel = evaluation()
+    after = gram_cuda.read_counts()
+    assert after["bwd"] > counts["bwd"] and after["product"] > counts["product"]
+    assert after["plain_bwd_cuda"] == counts["plain_bwd_cuda"]
+    with plain_gram_backward():
+        v_plain, g_plain = evaluation()
+    assert bool(torch.isfinite(g_kernel).all())
+    assert float(v_kernel) == float(v_plain)   # the same forward
+    scale = float(g_plain.abs().max())
+    assert float((g_kernel - g_plain).abs().max()) <= 1e-3 * scale

@@ -147,12 +147,13 @@ def test_plain_backward_batch_matches_jax_item_by_item(dtype):
 @pytest.mark.parametrize("shape", [(5, 7), (4, 9), (2, 3, 13), (1, 1)])
 def test_transposing_split_plain_version(shape):
     """big + small is a^T exactly, big keeps 10 mantissa bits (the low 13
-    are zero), and the rows past rows (up to a multiple of 4) are zero."""
+    are zero), and the rows past rows (up to a multiple of 32: 128-byte
+    rows) are zero."""
     a = torch.as_tensor(np.random.default_rng(4).standard_normal(shape),
                         dtype=torch.float32)
     rows, cols = shape[-2:]
     buf = gram_cuda.tf32_split_t_torch(a)
-    rowsp = -(-rows // 4) * 4
+    rowsp = -(-rows // 32) * 32
     assert buf.shape == (2,) + shape[:-2] + (cols, rowsp)
     big, small = buf[0], buf[1]
     assert torch.equal(big[..., :rows] + small[..., :rows], a.mT)

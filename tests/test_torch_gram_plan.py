@@ -277,3 +277,39 @@ def test_plan_rejects_a_batch_beyond_the_grid():
         gram_cuda.plan_gram(5, 5, 5, batch=0)
     assert gram_cuda.plan_gram(5, 5, 4096,
                                batch=gram_cuda.MAX_GRID_Z).splits == 1
+
+
+# ---------------------------------------------------------------------------
+# The backward's product: the row stride of its planes
+# ---------------------------------------------------------------------------
+
+def test_backward_planes_have_128_byte_rows():
+    """The backward's planes keep k in rows of a multiple of 32 floats,
+    zero past k; the split k-blocks are the same as at a stride of 4."""
+    for k in (1, 4, 31, 32, 33, 2100, 3160):
+        p = gram_cuda._pitch(k)
+        assert p % 32 == 0 and k <= p < k + 32
+        assert -(-p // gram_cuda.BK) == -(-gram_cuda._pad4(k) // gram_cuda.BK)
+    a = torch.randn(2, 37, 45)
+    buf = gram_cuda.tf32_split_t_torch(a)
+    assert buf.shape == (2, 2, 45, 64)
+    assert bool((buf[..., 37:] == 0).all())
+
+
+@pytest.mark.parametrize("case", ["a off the pitch", "b off a's stride",
+                                  "batches differ"])
+def test_product_wrapper_raises_on_planes_off_the_pitch(case):
+    """The product kernel reads its planes at ``_pitch(k)``; the wrapper
+    raises on planes at another stride or of another batch before it
+    launches anything."""
+    k, m, n = 45, 7, 9
+    a = torch.zeros(2, 1, m, gram_cuda._pitch(k))
+    b = torch.zeros(2, 1, n, gram_cuda._pitch(k))
+    if case == "a off the pitch":
+        a = torch.zeros(2, 1, m, gram_cuda._pad4(k))
+    elif case == "b off a's stride":
+        b = torch.zeros(2, 1, n, gram_cuda._pitch(k) + gram_cuda.BK)
+    else:
+        b = torch.zeros(2, 2, n, gram_cuda._pitch(k))
+    with pytest.raises(ValueError, match="nt_product"):
+        gram_cuda._product(None, a, b, m, n, k, 0)
