@@ -241,13 +241,22 @@ Phases (none catches its own failure; any failure exits non-zero):
    Then the f-param device time of the timed fit: its 290 searches,
    recorded from one more, untimed fit of the same data and
    configuration, replayed as in phase 6b.  The timed fit must have
-   launched the Gram's backward kernels and called the plain backward on
-   CUDA tensors 0 times.  And one M-step evaluation (value and gradient,
+   launched the Gram's backward kernels, the epilogue twice an M-step
+   evaluation (a CUDA graph replay's launches are counted, its capture's
+   not), and called the plain backward on CUDA tensors 0 times.  And one
+   M-step evaluation (value and gradient,
    as the optimizer takes them) at the untimed fit's first M-step state:
    its host ms, then under torch.profiler its device time by kernel name,
    split into the Gram forward, the Gram backward and the rest; the same
    evaluation with the plain backward (``gram_backward_torch`` at a q12
-   recomputed by an FP32 matmul) beside it.
+   recomputed by an FP32 matmul) beside it.  The same evaluation through
+   the graphed route (``optim/graphed``, one CUDA graph replay): value and
+   gradient bit for bit with the eager route's (or within 1e-6 of the
+   largest magnitude), 10 replays under ``set_sync_debug_mode("error")``
+   each equal to the first, host and device ms of both routes, and the
+   Gram's forward and product kernels seen inside the replay by
+   torch.profiler; and the untimed fit's graph captures (count, host s)
+   and M-step guard decisions.
 16. The JAX bench's five secondaries and its parity script, through the
    port's ``gaussian_processes_tpu_torch/benchmarks/`` modules, in process,
    each ``run()`` at its script's full shape and defaults but three depths:
@@ -329,6 +338,12 @@ GRAD_RTOL = 1e-3       # float32 gradients, two summation orders
 # float32 terms in other orders, in 3xTF32
 BWD_RTOL = 1e-5
 MSTEP_SPLIT_EVALS = 5  # M-step evaluations profiled in phase 15
+# phase 15's graphed M-step evaluation: replays run under
+# set_sync_debug_mode("error"), and the graph route against the eager one:
+# the same kernels in the same order, so the same bits; where cuBLAS chose
+# another algorithm under capture the bound below holds
+MSTEP_GRAPH_REPLAYS = 10
+MSTEP_GRAPH_RTOL = 1e-6
 REFERENCE_RTOL = 1e-3  # float32 fit on the card vs float64 fit on the CPU
 # the last tracked iteration rebuilt by state_at_iteration against predict:
 # the rebuild takes k_tilde_b_diag as the Rayleigh quotients diag(B^T K B),
@@ -677,15 +692,21 @@ def check_backward(torch, smi, name, ops, reps=20):
 
 @contextlib.contextmanager
 def first_mstep_call(store):
-    """Keeps in ``store`` the theta (detached) and the other arguments of
-    the first M-step objective call while the block runs."""
+    """Keeps in ``store`` copies of the theta and of the other arguments of
+    the first M-step objective call while the block runs (copies: the
+    graphed route's state lives in buffers that later EM iterations
+    overwrite)."""
+    import torch
+    from torch.utils._pytree import tree_map
     from gaussian_processes_tpu_torch.models import fit as F
     real = F._mstep_objective
 
+    def copy(v):
+        return v.detach().clone() if isinstance(v, torch.Tensor) else v
+
     def record(theta, *args, **kwargs):
         if not store:
-            store.append(({k: v.detach().clone() for k, v in theta.items()},
-                          args, kwargs))
+            store.append(tree_map(copy, (theta, args, kwargs)))
         return real(theta, *args, **kwargs)
 
     F._mstep_objective = record
@@ -723,6 +744,7 @@ def mstep_split(torch, smi, call):
     from gaussian_processes_tpu_torch.models import fit as F
 
     theta0, args, kwargs = call
+    kwargs = eager_kwargs(kwargs)
     keys = sorted(theta0)
 
     def evaluation():
@@ -782,6 +804,140 @@ def mstep_split(torch, smi, call):
         raise RuntimeError("the M-step gradient through the backward "
                            "kernels disagrees with the plain backward's")
     return out
+
+
+MSTEP_STATE = ("es", "m_b", "V_b", "f_params", "win", "xcrop")
+
+
+def eager_kwargs(kwargs):
+    """A recorded M-step call's keywords as the eager route passes them: a
+    crop corner held in 0-d tensors (the graphed route's buffers) as
+    ints."""
+    win = kwargs.get("win")
+    if win is None or isinstance(win[0], int):
+        return kwargs
+    return dict(kwargs, win=(int(win[0]), int(win[1]), win[2]))
+
+
+def mstep_graph_check(torch, smi, call, split):
+    """The M-step evaluation at a recorded ``first_mstep_call`` through
+    ``optim/graphed``, against the eager route (``optim/lbfgs``'s value and
+    gradient of ``_mstep_objective`` at the int crop corner, as a fit off
+    the graph route takes it) and the graph's eager twin (the same buffers,
+    no capture): value and gradient bit for bit (or within
+    MSTEP_GRAPH_RTOL of the largest magnitude); MSTEP_GRAPH_REPLAYS
+    replays under ``set_sync_debug_mode("error")``, each equal to the
+    first; host ms of an evaluation, both routes (median of 10); the
+    replay's device time and kernels under torch.profiler, which must
+    show the Gram's forward and product kernels.  ``split`` is
+    ``mstep_split``'s (the eager route's device time).  Returns a record."""
+    from torch.profiler import ProfilerActivity, profile
+    from gaussian_processes_tpu_torch.models import fit as F
+    from gaussian_processes_tpu_torch.optim import lbfgs
+    from gaussian_processes_tpu_torch.optim.graphed import (
+        GraphedValueAndGrad)
+
+    theta0, args, kwargs = call
+    state = {k: kwargs[k] for k in MSTEP_STATE}
+    const = {k: v for k, v in kwargs.items() if k not in MSTEP_STATE}
+
+    def objective(theta, st):
+        return F._mstep_objective(theta, *args, **const, **st)
+    flat, unflatten, device = lbfgs._flatten(theta0)
+    eager = lbfgs._value_and_grad_fn(
+        lambda th: F._mstep_objective(th, *args, **eager_kwargs(kwargs)),
+        unflatten, device, flat.dtype)
+
+    def joined(vg):
+        v, g = vg(flat)
+        return torch.cat([v.reshape(1), g])
+
+    def host_ms(vg):
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            vg(flat)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[5]
+
+    with GraphedValueAndGrad(objective, theta0, graph=False) as twin, \
+            GraphedValueAndGrad(objective, theta0) as graphed:
+        want = joined(eager)
+        got_twin = joined(twin.bind(state))
+        vg = graphed.bind(state)
+        t0 = time.perf_counter()
+        got_warm = joined(vg)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        got = joined(vg)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            replays = [joined(vg) for _ in range(MSTEP_GRAPH_REPLAYS)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ms_graph, ms_eager = host_ms(vg), host_ms(eager)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(MSTEP_SPLIT_EVALS):
+                with torch.profiler.record_function("graphed evaluation"):
+                    vg(flat)
+    # the host waits inside the evaluations (the profiler's own
+    # synchronize at its end lies outside them)
+    calls = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.name == "graphed evaluation"]
+    kernels, syncs = {}, {}
+    device_ms = 0.0
+    for e in prof.events():
+        if e.name == "graphed evaluation":
+            continue        # the annotation itself, on both timelines
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = kernel_name(e.name)
+            ms = e.time_range.elapsed_us() / 1e3 / MSTEP_SPLIT_EVALS
+            device_ms += ms
+            kernels[name] = kernels.get(name, 0.0) + ms
+        elif "Synchronize" in e.name and any(
+                t0 <= e.time_range.start <= t1 for t0, t1 in calls):
+            syncs[e.name] = syncs.get(e.name, 0) + 1
+    scale = float(want.abs().max())
+    diffs = {name: float((t - want).abs().max()) / scale
+             for name, t in (("twin", got_twin), ("warm-up", got_warm),
+                             ("replay", got))}
+    bits = {name: bool(torch.equal(t, want))
+            for name, t in (("twin", got_twin), ("warm-up", got_warm),
+                            ("replay", got))}
+    same_replays = all(torch.equal(t, got) for t in replays)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    print(f"M-step evaluation at the bench fit's first M-step state, graph "
+          f"route: value {float(got[0]):.6f} gradient "
+          f"{[float(v) for v in got[1:]]}; eager route value "
+          f"{float(want[0]):.6f} gradient {[float(v) for v in want[1:]]}; "
+          f"bit for bit with the eager route {bits}, max|d|/max|eager| "
+          f"{diffs}; {MSTEP_GRAPH_REPLAYS} replays under "
+          f"set_sync_debug_mode('error'), each equal to the first "
+          f"{same_replays}; host ms an evaluation: graph {ms_graph:.3f}, "
+          f"eager {ms_eager:.3f} (first call of the key, warm-up and "
+          f"capture, {first_ms:.1f}); device ms an evaluation: graph "
+          f"{device_ms:.3f}, eager {split['kernel']['device_ms']:.3f}; "
+          f"host waits an evaluation {({k: v / MSTEP_SPLIT_EVALS for k, v in syncs.items()})}"
+          f"; top kernels ms " + "; ".join(
+              f"{n[:48]} {v:.3f}" for n, v in top) + f"  [{smi}]")
+    for what, passed in {
+            "graph value and gradient equal the eager route's, or within "
+            f"{MSTEP_GRAPH_RTOL}": all(bits.values()) or max(
+                diffs.values()) <= MSTEP_GRAPH_RTOL,
+            "every replay equals the first": same_replays,
+            "the replay ran the Gram's forward and product kernels": all(
+                k in kernels for k in ("acos_gram_tf32x3_kernel",
+                                       "nt_product_kernel")),
+            "no stream or device synchronize in a replay": not any(
+                "Stream" in k or "Device" in k for k in syncs)}.items():
+        if not passed:
+            raise RuntimeError(f"phase 15 graphed M-step: {what}")
+    return dict(value=float(got[0]), bitwise=bits, rel=diffs,
+                host_ms=ms_graph, eager_host_ms=ms_eager,
+                device_ms=device_ms,
+                eager_device_ms=split["kernel"]["device_ms"],
+                first_call_ms=first_ms)
 
 
 def fparam_bound(nt, weighted, itemsize, evals):
@@ -2198,6 +2354,7 @@ def phase12_warm_solvers(torch, np, device, smi, totals, x, r, xtilde,
         keep, inv_diag = res_a.keep, res_a.k_tilde_inv_diag
         decisions.clear()
         X_warm = masked_inverse_warm(M, keep, inv_diag)
+        decisions.fold()
         route = dict(decisions)
         X_spd = masked_inverse_spd(M, keep)
         X_64 = masked_inverse_spd(M.double(), keep)
@@ -2687,6 +2844,9 @@ def phase15_bench(torch, np, device, smi, totals, check_kernel, checked,
     (``checked``)."""
     from gaussian_processes_tpu_torch import bench
     from gaussian_processes_tpu_torch.ops import gram_cuda
+    from gaussian_processes_tpu_torch.optim import graphed
+    from gaussian_processes_tpu_torch.utils.tracing import (collect_spans,
+                                                            decisions)
 
     t0 = time.perf_counter()
     seen = {}
@@ -2712,7 +2872,8 @@ def phase15_bench(torch, np, device, smi, totals, check_kernel, checked,
           f"shape {prof['launches_by_shape']}; the gates' (both r2 "
           f"evaluations and the hard fit): {prof['gate_launches']}")
     fit_counts = prof["launches"]
-    print(f"  the timed fit's backward launches: acos_gram_bwd "
+    print(f"  the timed fit's backward launches ({prof['evaluations']['mstep']}"
+          f" M-step evaluations): acos_gram_bwd "
           f"{fit_counts['bwd']}, tf32_split_t {fit_counts['split_t']}, "
           f"nt_product {fit_counts['product']}; plain backward calls on "
           f"CUDA tensors {fit_counts['plain_bwd_cuda']} (the gates': "
@@ -2730,6 +2891,10 @@ def phase15_bench(torch, np, device, smi, totals, check_kernel, checked,
             prof["gate_launches"]["gram"] > 0,
         "the fit launched the backward kernels": min(
             fit_counts[key] for key in ("bwd", "split_t", "product")) > 0,
+        # a replay's launches are counted, a capture's not: two Grams'
+        # backward epilogues an M-step evaluation, graph route or eager
+        "the fit's backward epilogue launched twice an M-step evaluation":
+            fit_counts["bwd"] == 2 * prof["evaluations"]["mstep"],
         "the plain backward called on CUDA tensors 0 times":
             fit_counts["plain_bwd_cuda"] == 0
             and prof["gate_launches"]["plain_bwd_cuda"] == 0,
@@ -2750,11 +2915,22 @@ def phase15_bench(torch, np, device, smi, totals, check_kernel, checked,
     # the timed fit's searches and its first M-step state, from an untimed
     # fit of the same
     first = []
-    with first_mstep_call(first):
+    decisions.clear()
+    graphs = graphed.read_counts()
+    with first_mstep_call(first), collect_spans() as spans:
         searches = bench_fit_searches(torch, device, **shape)
+    now = graphed.read_counts()
+    dec = {k: v for k, v in decisions.items() if k.startswith("mstep.")}
+    print(f"  the bench fit's M-step graph: {now['captures'] - graphs['captures']}"
+          f" captures, {now['capture_seconds'] - graphs['capture_seconds']:.3f}"
+          f" host s, {now['replays'] - graphs['replays']} replays; its "
+          f"M-step guard decisions {dec}; spans {span_line(spans)}")
     fit_ms = fparam_fit_ms(torch, smi, "the bench fit", searches)
     del searches
     split = mstep_split(torch, smi, first[0])
+    split["graph"] = mstep_graph_check(torch, smi, first[0], split)
+    split["captures"] = now["captures"] - graphs["captures"]
+    split["decisions"] = dec
     del first
     print(f"phase 15: {time.perf_counter() - t0:.1f} s")
     for what, passed in checks.items():
@@ -3474,7 +3650,8 @@ def main():
                         "E-step" and c["dtype"] == "float32"
                         and c["trials"] == 15)
     print(f"M-step evaluation split (phase 15, ms an evaluation): "
-          + json.dumps({route: {k: v for k, v in d.items() if k != "grad"}
+          + json.dumps({route: ({k: v for k, v in d.items() if k != "grad"}
+                                if route in ("kernel", "plain") else d)
                         for route, d in mstep.items()}))
     print(json.dumps({"kernels": [{
         "name": "acos_gram",

@@ -22,7 +22,9 @@ across Newton steps (``estep_solver``) and for the M-step's inverse
 and the spectrally projected M-step Gram (``mstep_gram="projected"``, basis
 at the iteration-start theta, crop hoisted out of the line search).  Where
 JAX branches in the graph (``lax.cond``), the port decides on the host, at
-most once per decision (``utils.tracing.decisions`` counts them).  The crop
+most once per decision, except for the M-step's two guards (the series
+log-determinant's and the Newton-Schulz inverse's), which it decides on the
+device as JAX does (``utils.tracing.decisions`` counts them all).  The crop
 window of iteration i is computed from the theta iteration
 i starts from; after the iteration the fit checks that the window still
 covers the margin-1.0 alpha mask of the resulting theta, and re-runs with
@@ -44,6 +46,13 @@ the fused kernel (``ops/gram_cuda``), forward and hand-written backward.
 The single-cell fit's zoom f-param search (no mesh) goes through
 ``ops/fparam_search``: on CUDA tensors one kernel launch a search, which
 keeps the whole L-BFGS on the card as JAX's compiled E-step does.
+
+On CUDA tensors the single-cell zoom fit's M-step (no mesh, the exact
+Gram) evaluates each trial as one CUDA graph replay (``_mstep_graph``,
+``optim/graphed``): the Grams, ``_mstep_loss`` and the gradient, captured
+once per crop width, rank budget and layout of the state, with one host
+read a trial, the value and gradient the line search needs.  JAX's
+compiled EM iteration reads none; the L-BFGS itself stays on the host.
 
 The inner L-BFGS runs (``_minimize``, by ``cfg.linesearch``) take one of
 five line searches.  The speculative and Armijo searches evaluate their
@@ -79,6 +88,7 @@ builds K_tilde whole and takes its rows as K.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -99,6 +109,7 @@ from ..ops.stabilize import (Eigenspace, _eigvalsh_safe, compute_eigenspace,
                              masked_inverse_spd, masked_inverse_warm,
                              masked_logdet_series, mv, reproject,
                              subspace_eigenspace)
+from ..optim.graphed import GraphedValueAndGrad
 from ..optim.lbfgs import (empty_lbfgs_memory, lbfgs_minimize,
                            lbfgs_minimize_armijo,
                            lbfgs_minimize_backtracking,
@@ -328,7 +339,7 @@ def _map(fn, x):
 
 def _minimize(cfg: FitConfig, fun, x0, num_steps: int, lanes: bool = False,
               ladder=None, gtol: float = 0.0, ftol: float = 0.0,
-              ftol_rel: float = 0.0):
+              ftol_rel: float = 0.0, vg=None):
     """The inner L-BFGS of both call sites by ``cfg.linesearch``, without a
     carried memory (JAX ``models/fit.py::_minimize``): "zoom" and
     "zoom_carry" run the zoom search, gated by ``gtol``/``ftol``/
@@ -339,9 +350,11 @@ def _minimize(cfg: FitConfig, fun, x0, num_steps: int, lanes: bool = False,
     and speculative searches take their ladders through it.  ``lanes``: x0
     carries a leading cell axis and ``fun`` takes the (cells, trials) form
     of ``lbfgs_minimize_armijo`` (the cell-batched program, which has the
-    Armijo search only).  Under a mesh every value and gradient the
-    searches read on the host is the whole objective's, the same on every
-    rank, so the ranks take the same steps."""
+    Armijo search only).  ``vg``: the zoom search's value-and-gradient
+    function in place of fun's (``lbfgs_minimize``).  Under a mesh every
+    value and gradient the searches read on the host is the whole
+    objective's, the same on every rank, so the ranks take the same
+    steps."""
     search = cfg.linesearch
     if lanes:
         if search != "armijo":
@@ -365,7 +378,7 @@ def _minimize(cfg: FitConfig, fun, x0, num_steps: int, lanes: bool = False,
         return x, f
     return lbfgs_minimize(fun, x0, num_steps,
                           max_linesearch_steps=cfg.max_linesearch_steps,
-                          gtol=gtol, ftol=ftol, ftol_rel=ftol_rel)
+                          gtol=gtol, ftol=ftol, ftol_rel=ftol_rel, vg=vg)
 
 
 def _mstep_carries_memory(cfg: FitConfig) -> bool:
@@ -512,6 +525,48 @@ def _mstep_objective(theta: Theta, x, xtilde, r, es: Eigenspace, m_b, V_b,
     loss = _mstep_loss(K_tilde, K, Kvec, es, m_b, V_b, f_params, r, shared,
                        cfg, wt, rows)
     return torch.where(ok & torch.isfinite(loss), loss, float("inf"))
+
+
+def _mstep_graph_route(x, cfg: FitConfig, rows) -> bool:
+    """True where the fit's M-step evaluates its trials as CUDA graph
+    replays: CUDA tensors, no mesh (its collectives cannot be captured),
+    the exact Gram (the projected Gram's guard is read on the host) and a
+    zoom search (the other searches read values alone, or evaluate their
+    trials as a batch)."""
+    return (x.is_cuda and rows is None and cfg.n_mstep > 0
+            and cfg.mstep_gram == "exact"
+            and cfg.linesearch in ("zoom", "zoom_carry"))
+
+
+def _mstep_graph(x, xtilde, r, theta0: Theta, shared: bool, cfg: FitConfig,
+                 bounds, backend: Optional[str] = None, wt=None, wi=None,
+                 rows=None):
+    """The M-step's graphed evaluator (``optim/graphed``), as a context
+    manager, on ``_mstep_graph_route``; elsewhere a null context (None).
+    ``_mstep_state`` gives the state it binds each EM iteration; its
+    objective is ``_mstep_objective``, called through this module's name
+    for it."""
+    if not _mstep_graph_route(x, cfg, rows):
+        return contextlib.nullcontext()
+    lower, upper = bounds
+
+    def objective(theta: Theta, state) -> torch.Tensor:
+        return _mstep_objective(theta, x, xtilde, r, shared=shared, cfg=cfg,
+                                lower=lower, upper=upper, backend=backend,
+                                wt=wt, wi=wi, **state)
+    return GraphedValueAndGrad(objective, theta0)
+
+
+def _mstep_state(es: Eigenspace, m_b, V_b, f_params, win: Window, xcrop):
+    """What ``_mstep_graph``'s objective reads that changes between EM
+    iterations, for its buffers: the crop window's corner as 0-d tensors
+    on the device (an int corner would be part of the captured graph)."""
+    if win is not None:
+        dev = xcrop[0].device
+        win = tuple(torch.full((), v, dtype=torch.int64, device=dev)
+                    for v in win[:2]) + (win[2],)
+    return dict(es=es, m_b=m_b, V_b=V_b, f_params=f_params, win=win,
+                xcrop=xcrop)
 
 
 def _mstep_ladder(x, xtilde, r, es: Eigenspace, m_b, V_b, f_params,
@@ -670,12 +725,15 @@ def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
                    do_mstep: bool = True,
                    backend: Optional[str] = None, wt=None, wi=None,
                    warm: bool = False, log: Optional[list] = None,
-                   rows=None) -> Carry:
+                   rows=None,
+                   mstep_graph: Optional[GraphedValueAndGrad] = None
+                   ) -> Carry:
     """One EM iteration (reference loop body: utils.py:1794-2125); a no-op
     once the fit has failed.  ``warm``: the kernel rebuild takes the
     reduced-rank eigenspace from the warm-started subspace eigensolver,
     refreshed by the full eigh when i % eigh_refresh_every == 0 (its route
-    goes to ``log``)."""
+    goes to ``log``).  ``mstep_graph`` (``_mstep_graph``): the M-step's
+    trials are its replays."""
     if c.failed:
         return c
     lower, upper = bounds
@@ -743,6 +801,10 @@ def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
                       m_b=m_b, V_b=V_b, f_params=f_params, shared=shared,
                       cfg=cfg, lower=lower, upper=upper, win=win, xcrop=xcrop,
                       backend=backend, wt=wt, wi=wi, proj=proj, rows=rows)
+        vg = None
+        if mstep_graph is not None:
+            vg = mstep_graph.bind(_mstep_state(kern.es, m_b, V_b, f_params,
+                                               win, xcrop))
         ladder = None
         if cfg.linesearch in ("armijo", "speculative"):
             ladder = _mstep_ladder(x, xtilde, r, kern.es, m_b, V_b, f_params,
@@ -753,13 +815,13 @@ def _fit_iteration(i: int, c: Carry, x, r, xtilde, shared: bool,
                 theta, _ = _minimize(cfg, obj, theta, cfg.n_mstep,
                                      ladder=ladder, gtol=cfg.mstep_gtol,
                                      ftol=cfg.mstep_ftol,
-                                     ftol_rel=cfg.mstep_ftol_rel)
+                                     ftol_rel=cfg.mstep_ftol_rel, vg=vg)
             elif cfg.linesearch == "zoom_carry":
                 theta, _, mem = lbfgs_minimize_zoom_carry(
                     obj, theta, cfg.n_mstep, state=c.mem,
                     max_linesearch_steps=cfg.max_linesearch_steps,
                     gtol=cfg.mstep_gtol, ftol=cfg.mstep_ftol,
-                    ftol_rel=cfg.mstep_ftol_rel)
+                    ftol_rel=cfg.mstep_ftol_rel, vg=vg)
             else:
                 theta, _, mem = lbfgs_minimize_speculative(
                     obj, theta, cfg.n_mstep, max_backtracks=cfg.armijo_trials,
@@ -1007,7 +1069,9 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
               if profile else None)
     n_eig_hist: List[int] = []
     used_warm = False
-    with torch.no_grad():
+    with torch.no_grad(), _mstep_graph(xr, xtilde, rr, theta0, shared, cfg,
+                                       bounds, backend, wtr, wi,
+                                       rows) as mstep_graph:
         t0 = clock() if profile else 0.0
         with trace_annotation("fit.init"):
             carry = _fit_init(xr, rr, xtilde, theta0, fp0, m0, V0, has_V,
@@ -1038,7 +1102,8 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
                                        bounds, win,
                                        do_mstep=(i < cfg.maxiter - 1),
                                        backend=backend, wt=wtr, wi=wi,
-                                       warm=warm, log=routes, rows=rows)
+                                       warm=warm, log=routes, rows=rows,
+                                       mstep_graph=mstep_graph)
                 scalars, n_eig = probe(carry.theta, carry.kern.es)
             if profile:
                 timing["per_iteration"].append(clock() - ti)
@@ -1058,6 +1123,9 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
                     f"crop window used at EM iteration {i} no longer covers "
                     "the RF alpha mask of the resulting theta; re-running "
                     f"the fit with {how}")
+                if mstep_graph is not None:
+                    # the re-run captures its own graphs: free this one's
+                    mstep_graph.close()
                 return fit(x, r, grown, xtilde=xtilde, theta=theta,
                            f_params=f_params, m=m, V=V,
                            sample_weight=sample_weight,
@@ -1068,6 +1136,7 @@ def fit(x: torch.Tensor, r: torch.Tensor, cfg: Optional[FitConfig] = None,
             carry = _fit_finalize(carry, cfg)
         if profile:
             timing["total"] = clock() - t0
+    decisions.fold()
 
     # row-major copies of eigh's column-major basis and of sliced views:
     # a result then computes the same as its checkpoint (utils/io), whose
@@ -1436,4 +1505,6 @@ def fit_cells_program(stim: Cells, rs, theta0: Theta, f_params0: FParams,
                                          do_mstep=(i < cfg.maxiter - 1),
                                          backend=backend,
                                          max_items=max_items, rows=rows)
-        return _fit_finalize(carry, cfg)
+        carry = _fit_finalize(carry, cfg)
+    decisions.fold()
+    return carry

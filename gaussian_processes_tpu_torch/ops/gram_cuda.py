@@ -52,7 +52,9 @@ backward's kernels (each with its helper kernel), by shape in
 ``bwd_shapes`` ("BxMxN"), ``split_t_shapes`` ("BxROWSxCOLS") and
 ``product_shapes`` ("BxMxN kK"), and ``plain_bwd_cuda`` the calls of the
 plain backward on CUDA tensors (which no path of the port makes);
-``reset_counts`` sets them to 0 and ``read_counts`` reads them.
+``reset_counts`` sets them to 0 and ``read_counts`` reads them.  A CUDA
+graph's launches are counted at each replay, not at its capture
+(``utils.tracing.launches_held_out``, ``optim/graphed``).
 ``recorded_operands`` keeps the operands of the Grams a block of code hands
 the wrapper, to hold the kernel against its plain version on them.
 """

@@ -197,8 +197,15 @@ def window_coords(i0, j0, w: int, n_px_side: int, dtype, device=None):
         return (lin_x[:, None, :].expand(b, w, w).reshape(b, w * w),
                 lin_y[:, :, None].expand(b, w, w).reshape(b, w * w),
                 lin_y, lin_x)
-    lin_y = lin[i0:i0 + w]
-    lin_x = lin[j0:j0 + w]
+    if isinstance(i0, torch.Tensor):
+        # a corner held in 0-d tensors on lin's device (a CUDA graph's
+        # buffers): gathered, where an int corner slices (a slice bound
+        # would be read on the host); the same values either way
+        a = torch.arange(w, device=lin.device)
+        lin_y, lin_x = lin[i0 + a], lin[j0 + a]
+    else:
+        lin_y = lin[i0:i0 + w]
+        lin_x = lin[j0:j0 + w]
     return lin_x.repeat(w), lin_y.repeat_interleave(w), lin_y, lin_x
 
 

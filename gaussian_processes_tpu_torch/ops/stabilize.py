@@ -17,8 +17,14 @@ single-cell reduced-rank fit and takes one matrix.
 The warm solvers (``schulz_iterations``, ``masked_inverse_warm``,
 ``masked_logdet_series``, ``subspace_eigenspace``) replace the JAX
 package's in-graph ``lax.cond`` / ``while_loop`` by a fixed number of steps
-and at most one host read per decision, counted in
-``utils.tracing.decisions``: never one per Newton-Schulz step.
+and, for their guards, never one host read per Newton-Schulz step.  The
+M-step's two guards (``masked_inverse_warm``'s fallback and
+``masked_logdet_series``) are decided on the device as ``lax.cond`` is:
+both forms are computed and one is selected, with no host read, so a CUDA
+graph can hold a whole M-step evaluation (``optim/graphed``); they are
+counted on the device (``utils.tracing.decisions.count_on_device``).  The
+subspace eigensolver's guard is read on the host once per call
+(``models/fit._eigenspace``).
 
 NaN-poison contract: a non-finite input yields NaN outputs, never an
 exception, so the fit's rollback sees the failure.  ``torch.linalg.eigh``
@@ -34,7 +40,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import EIGVAL_TOL
-from ..utils.tracing import read_guard
+from ..utils.tracing import decisions
 
 
 class Eigenspace(NamedTuple):
@@ -294,10 +300,11 @@ def masked_logdet_series(M: torch.Tensor, keep: torch.Tensor,
     every trace from E^2, E^3, E^4 (three matrix products) and elementwise
     sums, truncation error <= rank |E|_2^9 / 9.  Where |E|_F >= ``tol`` or
     E is not finite, the Cholesky log-determinant instead
-    (``masked_logdet_chol``).  The guard is read on the host once per call;
-    in a batch with items on both sides, both are computed and selected
-    per item, with E zeroed where it is not used so its series carries no
-    NaN or inf into the gradient."""
+    (``masked_logdet_chol``).  The guard is decided on the device, item by
+    item: both forms are computed and selected, each on a stand-in where
+    the other is selected (E = 0, M = I) so that neither carries NaN or inf
+    into the selected items' gradient.  Counted on the device under
+    ``mstep.series`` / ``mstep.chol``."""
     keepf = keep.to(M.dtype)
     Mp = _pad_dropped(M, keep)
     d = inv_diag_warm + (1.0 - keepf)
@@ -305,9 +312,7 @@ def masked_logdet_series(M: torch.Tensor, keep: torch.Tensor,
     E = s[..., :, None] * Mp * s[..., None, :] - _eye_like(M)
     fro2 = torch.sum(E * E, dim=(-2, -1))
     ok = torch.isfinite(fro2) & (fro2 < tol * tol)
-    n_ok = read_guard(ok, "mstep.series", "mstep.chol")
-    if n_ok == 0:
-        return masked_logdet_chol(M, keep)
+    decisions.count_on_device(ok, "mstep.series", "mstep.chol")
 
     def series(E):
         E2 = E @ E
@@ -321,10 +326,6 @@ def masked_logdet_series(M: torch.Tensor, keep: torch.Tensor,
                 - tr(E3, E3) / 6 + tr(E4, E3) / 7 - tr(E4, E4) / 8)
         return ld_A - torch.sum(torch.log(d), dim=-1)
 
-    if n_ok == ok.numel():
-        return series(E)
-    # each branch gets a stand-in where the other is selected (E = 0, M =
-    # I), so neither carries NaN into the selected items' gradient
     sel = ok[..., None, None]
     E = torch.where(sel, E, torch.zeros_like(E))
     M = torch.where(sel, _eye_like(M).expand_as(M), M)
@@ -361,10 +362,13 @@ def schulz_iterations(M: torch.Tensor, X: torch.Tensor, steps: int = 12,
 class _PaddedInverseWarm(torch.autograd.Function):
     """inv(padded) by Newton-Schulz from diag(x0), with the fallback
     ``fallback`` where its guard fails: "exact" the Cholesky inverse
-    (``_spd_inverse``; one host read per call), "poison" NaN (no host
-    read).  The backward treats the output X as the true inverse,
-    d padded = -X^T g X^T, with non-finite entries zeroed: a poisoned trial
-    (whose loss is +inf) still hands the line search a finite gradient."""
+    (``_spd_inverse``, computed on every call and selected item by item on
+    the device; counted there under ``mstep.schulz`` / ``mstep.exact``),
+    "poison" NaN.  No host read.  The backward treats the output X as the
+    true inverse, d padded = -X^T g X^T, with non-finite entries zeroed: it
+    reads only X, so the form not selected never reaches the gradient, and
+    a poisoned trial (whose loss is +inf) still hands the line search a
+    finite gradient."""
 
     @staticmethod
     def forward(ctx, padded, x0, steps, tol, fallback):
@@ -372,8 +376,8 @@ class _PaddedInverseWarm(torch.autograd.Function):
                                      tol=tol)
         ok = resid < tol
         if fallback == "exact":
-            if read_guard(ok, "mstep.schulz", "mstep.exact") < ok.numel():
-                X = torch.where(ok[..., None, None], X, _spd_inverse(padded))
+            decisions.count_on_device(ok, "mstep.schulz", "mstep.exact")
+            X = torch.where(ok[..., None, None], X, _spd_inverse(padded))
         else:
             X = X + _poison(ok, X.dtype)[..., None, None]
         ctx.save_for_backward(X)

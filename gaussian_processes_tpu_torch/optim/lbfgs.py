@@ -506,18 +506,22 @@ def _zoom(vg, max_linesearch_steps: int) -> Callable:
     return search
 
 
-def lbfgs_minimize(fun: Callable[[Any], torch.Tensor], x0: Any,
+def lbfgs_minimize(fun: Optional[Callable[[Any], torch.Tensor]], x0: Any,
                    num_steps: int, memory_size: int = 15,
                    max_linesearch_steps: int = 20, gtol: float = 0.0,
-                   ftol: float = 0.0, ftol_rel: float = 0.0
+                   ftol: float = 0.0, ftol_rel: float = 0.0,
+                   vg: Optional[Callable] = None
                    ) -> Tuple[Any, torch.Tensor]:
     """Run ``num_steps`` L-BFGS steps minimizing ``fun`` from ``x0`` (a
     dict of 0-d tensors or one tensor).  Returns ``(x_best, f_best)``:
     x_best in x0's structure on x0's device, f_best a 0-d CPU tensor.
     ``fun`` may return +inf (bound violation); the zoom line search then
-    backtracks.  NaN values freeze the iterate."""
+    backtracks.  NaN values freeze the iterate.  ``vg(flat) -> (value,
+    grad)``, on the flat CPU vector (sorted-key order for a dict), takes
+    the place of fun's autograd (``optim/graphed``)."""
     flat0, unflatten, device = _flatten(x0)
-    vg = _value_and_grad_fn(fun, unflatten, device, flat0.dtype)
+    if vg is None:
+        vg = _value_and_grad_fn(fun, unflatten, device, flat0.dtype)
     x_best, f_best = _drive_lbfgs(vg, flat0, num_steps,
                                   _zoom(vg, max_linesearch_steps),
                                   memory_size, gtol=gtol, ftol=ftol,
@@ -531,20 +535,22 @@ def zoom_carry_init(x0: Any, memory_size: int = 15) -> _LbfgsState:
     return _lbfgs_init(_flatten(x0)[0], memory_size)
 
 
-def lbfgs_minimize_zoom_carry(fun: Callable[[Any], torch.Tensor], x0: Any,
-                              num_steps: int, state: _LbfgsState,
+def lbfgs_minimize_zoom_carry(fun: Optional[Callable[[Any], torch.Tensor]],
+                              x0: Any, num_steps: int, state: _LbfgsState,
                               max_linesearch_steps: int = 20,
                               gtol: float = 0.0, ftol: float = 0.0,
-                              ftol_rel: float = 0.0
+                              ftol_rel: float = 0.0,
+                              vg: Optional[Callable] = None
                               ) -> Tuple[Any, torch.Tensor, _LbfgsState]:
     """``lbfgs_minimize`` from a carried optimizer ``state``: its curvature
     memory (and step count) persist across calls.  The stored value and
     gradient belong to the previous call's objective, so the value is set
     to +inf here and the first step evaluates the new objective at ``x0``.
-    The memory size is the state's.  Returns ``(x_best, f_best,
-    state_out)``."""
+    The memory size is the state's; ``vg`` as ``lbfgs_minimize``'s.
+    Returns ``(x_best, f_best, state_out)``."""
     flat0, unflatten, device = _flatten(x0)
-    vg = _value_and_grad_fn(fun, unflatten, device, flat0.dtype)
+    if vg is None:
+        vg = _value_and_grad_fn(fun, unflatten, device, flat0.dtype)
     state = state._replace(value=torch.full_like(state.value, float("inf")))
     x_best, f_best, state = _drive_lbfgs(
         vg, flat0, num_steps, _zoom(vg, max_linesearch_steps),

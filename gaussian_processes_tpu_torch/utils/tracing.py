@@ -16,42 +16,97 @@ The reference instruments varGP with ``time.time()`` accumulators per phase
   (``torch.profiler.record_function``); the fit marks its layers with
   them (``fit.init``, ``fit.iteration``, ``fit.kernel_state``,
   ``fit.estep`` with ``fit.estep.newton`` and ``fit.estep.fparams``,
-  ``fit.mstep``, ``fit.finalize``);
+  ``fit.mstep`` with ``fit.mstep.capture`` (a CUDA graph capture of the
+  M-step evaluation, ``optim/graphed``), ``fit.finalize``);
 * ``collect_spans``: the same spans' host wall-clock into a
   ``PhaseTimer`` without a profiler, for the code run inside it;
 * ``objective_counts``: the evaluations of the fit's two inner objectives
-  (the E-step's f-param L-BFGS and the M-step's) and its Newton steps
-  while a block runs;
+  (the E-step's f-param L-BFGS and the M-step's, CUDA graph replays
+  included) and its Newton steps while a block runs;
 * ``reset_launch_counts`` / ``read_launch_counts``: every hand-written
-  kernel's launch counts at once;
-* ``decisions``: the host decisions of the warm solvers and the projected
+  kernel's launch counts at once; ``launches_held_out`` /
+  ``credit_launches``: what a CUDA graph capture counted (and did not
+  launch) taken off them, and added at each replay (``optim/graphed``);
+* ``decisions``: the decisions of the warm solvers and the projected
   Gram, counted where the host already reads their guard (no added
   synchronization): ``eigensolver.warm`` / ``.refresh`` / ``.fallback``
   per reduced-rank kernel rebuild, ``estep.schulz`` / ``.exact`` per
-  warm-started Newton step (items of a batch), ``mstep.schulz`` /
-  ``.exact`` per M-step inverse under ``schulz_fallback="exact"``,
-  ``mstep.series`` / ``.chol`` per series log-determinant, and
-  ``mstep.projected`` / ``.exact_gram`` per projected Gram under
-  ``mstep_proj_fallback="exact"`` (items); and the legacy f-param
-  Newton update's stop test, ``fparams_newton.stop`` / ``.step`` per
-  iteration (``models/estep.update_f_params_newton``).  Callers reset it with
-  ``decisions.clear()``.
+  warm-started Newton step (items of a batch), ``mstep.projected`` /
+  ``.exact_gram`` per projected Gram under ``mstep_proj_fallback="exact"``
+  (items), and the legacy f-param Newton update's stop test,
+  ``fparams_newton.stop`` / ``.step`` per iteration
+  (``models/estep.update_f_params_newton``).  The M-step's two guards are
+  decided on the device, with no host read (``mstep.schulz`` / ``.exact``
+  per M-step inverse under ``schulz_fallback="exact"``, ``mstep.series`` /
+  ``.chol`` per series log-determinant): ``decisions.count_on_device``
+  adds them to a counter on the guard's device, and ``decisions.fold()``
+  adds those counters to the host counts with one read a device (the fits
+  fold when they end).  ``decisions.clear()`` sets both to 0.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import contextvars
 import dataclasses
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
-# the host decisions of the warm solvers and the projected Gram since
-# import (or since the caller cleared it), by name (see the docstring)
-decisions: collections.Counter = collections.Counter()
+class Decisions(collections.Counter):
+    """The solvers' decisions by name (see the module docstring), with the
+    counts of the guards decided on the device kept there until
+    ``fold``."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        # (device, passed, failed) -> int64 (2,): items passed, failed
+        self._on_device: Dict[Tuple[torch.device, str, str],
+                              torch.Tensor] = {}
+
+    def count_on_device(self, ok: torch.Tensor, passed: str,
+                        failed: str) -> None:
+        """Count the items of the bool tensor ``ok`` that hold under
+        ``passed`` and the rest under ``failed``, on ok's device: queued
+        work, no host read.  A CUDA graph that captures this call counts at
+        each replay; its first call for a device and name pair must come
+        before the capture (the counter is allocated then)."""
+        key = (ok.device, passed, failed)
+        counts = self._on_device.get(key)
+        if counts is None:
+            counts = torch.zeros(2, dtype=torch.int64, device=ok.device)
+            self._on_device[key] = counts
+        n_ok = ok.sum()
+        counts.add_(torch.stack([n_ok, ok.numel() - n_ok]))
+
+    def fold(self) -> None:
+        """Add the device counters to the host counts and set them to 0:
+        one host read for each device that holds counters."""
+        by_device: Dict[torch.device, list] = {}
+        for (device, passed, failed), counts in self._on_device.items():
+            by_device.setdefault(device, []).append((passed, failed, counts))
+        for entries in by_device.values():
+            values = torch.stack([c for _, _, c in entries]).tolist()
+            for (passed, failed, counts), (n_ok, n_fail) in zip(entries,
+                                                                values):
+                if n_ok + n_fail:
+                    self[passed] += n_ok
+                    self[failed] += n_fail
+                    counts.zero_()
+
+    def clear(self) -> None:
+        """Set every count to 0, on the host and on the devices."""
+        super().clear()
+        for counts in self._on_device.values():
+            counts.zero_()
+
+
+# the decisions of the warm solvers and the projected Gram since import (or
+# since the caller cleared it), by name (see the module docstring)
+decisions = Decisions()
 
 
 def read_guard(ok: torch.Tensor, passed: str, failed: str) -> int:
@@ -152,6 +207,52 @@ def read_launch_counts() -> dict:
     return dict(gram_cuda.read_counts(), fparam=fparam_search.launches)
 
 
+def _launch_counters() -> Dict[tuple, object]:
+    """Every launch counter of the kernels' wrappers by (module, name), a
+    copy of its value."""
+    from ..ops import fparam_search, gram_cuda
+    names = {gram_cuda: ("launches", "batched_launches", "items",
+                         "split_launches", "bwd_launches", "split_t_launches",
+                         "product_launches", "plain_bwd_cuda",
+                         "shape_launches", "bwd_shapes", "split_t_shapes",
+                         "product_shapes"),
+             fparam_search: ("launches",)}
+    return {(mod, name): copy.copy(getattr(mod, name))
+            for mod, counters in names.items() for name in counters}
+
+
+def credit_launches(held: dict, times: int = 1) -> None:
+    """Add ``times`` x the counts ``held`` (``launches_held_out``'s) to
+    the kernels' launch counters."""
+    for (mod, name), delta in held.items():
+        value = getattr(mod, name)
+        if isinstance(value, collections.Counter):
+            for key, n in delta.items():
+                value[key] += times * n
+                if not value[key]:
+                    del value[key]
+        else:
+            setattr(mod, name, value + times * delta)
+
+
+@contextlib.contextmanager
+def launches_held_out():
+    """Yields a dict that holds, when the block ends, the launch counts its
+    kernels' wrappers added, which are taken off the counters: a CUDA graph
+    capture calls the wrappers and launches nothing.  Each replay of the
+    graph launches them all, and ``credit_launches`` adds them then."""
+    before = _launch_counters()
+    held: dict = {}
+    try:
+        yield held
+    finally:
+        for key, now in _launch_counters().items():
+            delta = now - before[key]
+            if delta:
+                held[key] = delta
+        credit_launches(held, -1)
+
+
 @contextlib.contextmanager
 def objective_counts(ladders: Optional[list] = None):
     """Evaluations of the fit's two inner objectives (the E-step's f-param
@@ -163,9 +264,13 @@ def objective_counts(ladders: Optional[list] = None):
     functions in ``models/fit`` for the block's duration.  The f-param
     searches that ran as kernels on the card (``ops/fparam_search``) count
     their evaluations on the device: those are read once, at the block's
-    exit, and added to "fparam"."""
+    exit, and added to "fparam".  An M-step evaluation replayed from a CUDA
+    graph (``optim/graphed``) calls no function: the replays are added to
+    "mstep", and the captures, which call the objective without
+    evaluating it, are taken off."""
     from ..models import fit as fit_module
     from ..ops import fparam_search
+    from ..optim import graphed
 
     counts = {"fparam": 0, "mstep": 0, "fparam_ladder": 0, "fparam_items": 0,
               "mstep_ladder": 0, "mstep_items": 0, "newton": 0}
@@ -199,12 +304,16 @@ def objective_counts(ladders: Optional[list] = None):
     for name, fn in zip(names, (fparam, mstep, mstep_ladder, newton)):
         setattr(fit_module, name, fn)
     on_card = fparam_search.evaluation_counters()
+    graphs = graphed.read_counts()
     try:
         yield counts
     finally:
         for name, fn in real.items():
             setattr(fit_module, name, fn)
         counts["fparam"] += fparam_search.evaluations_since(on_card)
+        now = graphed.read_counts()
+        counts["mstep"] += ((now["replays"] - graphs["replays"])
+                            - (now["captures"] - graphs["captures"]))
 
 
 @dataclasses.dataclass

@@ -606,6 +606,7 @@ def test_masked_inverse_warm_on_card_matches_cpu_float64(dev):
     decisions.clear()
     got = stabilize.masked_inverse_warm(M.float().to(dev), keep.to(dev),
                                         inv_diag.float().to(dev))
+    decisions.fold()
     assert decisions["mstep.schulz"] == 1
     err = (got.double().cpu() - want).abs().max() / want.abs().max()
     assert float(err) <= 1e-5
@@ -1173,9 +1174,11 @@ def test_nan_in_one_row_poisons_exactly_that_rows_gradients(dev):
 
 
 def _first_mstep_call(x, r, xtilde, theta, n_px):
-    """The arguments of the first M-step objective call of a 3-iteration
-    fit on the card (float32)."""
+    """Copies of the arguments of the first M-step objective call of a
+    3-iteration fit on the card (float32): the graphed M-step's state
+    lives in buffers that later EM iterations overwrite."""
     import numpy as np
+    from torch.utils._pytree import tree_map
     from gaussian_processes_tpu_torch.config import FitConfig
     from gaussian_processes_tpu_torch.models import fit as F
 
@@ -1184,9 +1187,11 @@ def _first_mstep_call(x, r, xtilde, theta, n_px):
 
     def record(th, *args, **kwargs):
         if not calls:
-            calls.append(({k_: v.detach().clone() for k_, v in th.items()},
-                          args, kwargs))
+            calls.append(tree_map(_copy, (th, args, kwargs)))
         return real(th, *args, **kwargs)
+
+    def _copy(v):
+        return v.detach().clone() if isinstance(v, torch.Tensor) else v
 
     cfg = FitConfig(ntilde=xtilde.shape[0], maxiter=3, n_estep=3, n_mstep=3,
                     n_fparamstep=3, n_px_side=n_px)
@@ -1262,3 +1267,129 @@ def test_mstep_gradient_through_backward_kernels_in_the_fits_regimes(dev,
     assert float(v_kernel) == float(v_plain)   # the same forward
     scale = float(g_plain.abs().max())
     assert float((g_kernel - g_plain).abs().max()) <= 1e-3 * scale
+
+
+def _windowed_problem(dev, n_px=24, nt=256, ntilde=64):
+    import numpy as np
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((nt, n_px * n_px))
+    lin = np.linspace(-1, 1, n_px)
+    yy, xx = np.meshgrid(lin, lin, indexing="ij")
+    w = np.exp(-((xx - 0.2) ** 2 + (yy + 0.1) ** 2) / (2 * 0.15 ** 2)).ravel()
+    r = rng.poisson(np.exp(0.8 * x @ (w / np.linalg.norm(w)))).astype(float)
+    theta = {"sigma_0": 1.0, "eps_0x": 0.2, "eps_0y": -0.1,
+             "-2log2beta": float(-2 * np.log(2 * 0.1)),
+             "-log2rho2": float(-np.log(2 * 0.15 ** 2)), "Amp": 1.0}
+    xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    rt = torch.as_tensor(r, dtype=torch.float32, device=dev)
+    return xt, rt, xt[:ntilde], theta, n_px
+
+
+@pytest.mark.cuda
+def test_graphed_mstep_evaluation_is_the_eager_routes(dev):
+    """The M-step evaluation at a fit's first M-step state (its crop
+    window's corner in the graph's buffers) as CUDA graph replays: the warm-up
+    and every replay equal the eager route's value and gradient bit for
+    bit, and 10 replays run under set_sync_debug_mode("error")."""
+    from gaussian_processes_tpu_torch.models import fit as F
+    from gaussian_processes_tpu_torch.optim import graphed, lbfgs
+
+    x, r, xtilde, theta, n_px = _windowed_problem(dev)
+    before = graphed.read_counts()
+    res, (theta0, args, kwargs) = _first_mstep_call(x, r, xtilde, theta,
+                                                    n_px)
+    assert not res.failed
+    # the fit took the graph route
+    assert graphed.read_counts()["replays"] > before["replays"]
+    names = ("es", "m_b", "V_b", "f_params", "win", "xcrop")
+    state = {k: kwargs[k] for k in names}
+    const = {k: v for k, v in kwargs.items() if k not in names}
+    win = kwargs["win"]
+    int_win = None if win is None else (int(win[0]), int(win[1]), win[2])
+    flat, unflatten, device = lbfgs._flatten(theta0)
+    eager = lbfgs._value_and_grad_fn(
+        lambda th: F._mstep_objective(th, *args, **dict(kwargs, win=int_win)),
+        unflatten, device, flat.dtype)
+    v, g = eager(flat)
+    before = graphed.read_counts()
+    with graphed.GraphedValueAndGrad(
+            lambda th, st: F._mstep_objective(th, *args, **const, **st),
+            theta0) as gv:
+        vg = gv.bind(state)
+        outs = [vg(flat)]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs += [vg(flat) for _ in range(10)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    after = graphed.read_counts()
+    assert after["captures"] == before["captures"] + 1
+    assert after["replays"] == before["replays"] + 10
+    for v_g, g_g in outs:
+        assert torch.equal(v_g, v) and torch.equal(g_g, g)
+
+
+@pytest.mark.cuda
+def test_fit_on_the_graph_route_is_the_eager_fit(dev):
+    """The fit on the card through the graphed M-step and through the
+    eager one (the route forced off): the same track and theta, bit for
+    bit, the same guard decisions under the warm solvers, and the same
+    kernel launch counts (a replay's launches counted, a capture's not)."""
+    from gaussian_processes_tpu_torch.config import FitConfig
+    from gaussian_processes_tpu_torch.models import fit as F
+    from gaussian_processes_tpu_torch.optim import graphed
+    from gaussian_processes_tpu_torch.utils.tracing import (
+        decisions, read_launch_counts, reset_launch_counts)
+
+    x, r, xtilde, theta, n_px = _windowed_problem(dev)
+    cfg = FitConfig(ntilde=xtilde.shape[0], maxiter=4, n_estep=3, n_mstep=3,
+                    n_fparamstep=3, n_px_side=n_px, mstep_inverse="schulz",
+                    mstep_logdet="series")
+
+    def run():
+        decisions.clear()
+        reset_launch_counts()
+        res = F.fit(x, r, cfg, xtilde=xtilde, theta=theta,
+                    f_params={"logA": -4.6, "lambda0": 1.0})
+        return res, dict(decisions), read_launch_counts()
+    before = graphed.read_counts()
+    on_graph, dec_graph, launches_graph = run()
+    assert graphed.read_counts()["replays"] > before["replays"]
+    real = F._mstep_graph_route
+    F._mstep_graph_route = lambda *a: False
+    try:
+        eager, dec_eager, launches_eager = run()
+    finally:
+        F._mstep_graph_route = real
+    assert torch.equal(on_graph.track.logmarginal, eager.track.logmarginal)
+    assert all(torch.equal(on_graph.theta[k], eager.theta[k])
+               for k in eager.theta)
+    assert dec_graph == dec_eager
+    assert launches_graph == launches_eager and launches_eager["bwd"] > 0
+    assert dec_graph["mstep.series"] + dec_graph["mstep.chol"] > 0
+
+
+@pytest.mark.cuda
+def test_graph_pools_do_not_pile_up_across_fits(dev):
+    """Fits on the graph route one after another: each first capture joins
+    the pool of the graph the last fit parked, so the device memory the
+    process holds stops growing after the first fit, and ``release`` frees
+    the parked graph."""
+    from gaussian_processes_tpu_torch.config import FitConfig
+    from gaussian_processes_tpu_torch.models import fit as F
+    from gaussian_processes_tpu_torch.optim import graphed
+
+    x, r, xtilde, theta, n_px = _windowed_problem(dev)
+    cfg = FitConfig(ntilde=xtilde.shape[0], maxiter=4, n_estep=3, n_mstep=3,
+                    n_fparamstep=3, n_px_side=n_px)
+    reserved = []
+    for _ in range(3):
+        F.fit(x, r, cfg, xtilde=xtilde, theta=theta,
+              f_params={"logA": -4.6, "lambda0": 1.0})
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved(dev))
+    assert graphed._parked
+    assert reserved[2] <= reserved[1]
+    graphed.release()
+    assert not graphed._parked

@@ -35,7 +35,8 @@ def test_every_module_is_listed():
                      "ops.analytic_grads",
                      "models.moments", "models.estep", "models.fit",
                      "models.inference", "models.acquisition",
-                     "models.active", "optim.lbfgs", "parallel",
+                     "models.active", "optim.lbfgs", "optim.graphed",
+                     "parallel",
                      "parallel.population", "parallel.large",
                      "parallel.mesh", "parallel.collectives",
                      "parallel.sharded_linalg", "utils",

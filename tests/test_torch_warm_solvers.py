@@ -5,9 +5,11 @@ its hand-written backward, the trace-series log-determinant, the E-step
 update with a carried inverse, and the KL with a supplied log-determinant.
 
 JAX decides its fallbacks in the graph (``lax.cond``, ``while_loop``); the
-port decides on the host, once per call, and runs Newton-Schulz for its
-fixed step count: after acceptance the iterate sits at the rounding floor,
-so the two agree to rounding.  Eigenvectors are compared as projectors.
+port decides the eigensolver's and the E-step's on the host, once per call,
+and the M-step's two (the inverse and the series) on the device, counting
+them there (``decisions.fold`` brings the counts to the host); it runs
+Newton-Schulz for its fixed step count: after acceptance the iterate sits
+at the rounding floor, so the two agree to rounding.  Eigenvectors are compared as projectors.
 Tolerances: rtol 1e-10 on values, 1e-8 on gradients.
 """
 
@@ -132,9 +134,11 @@ def test_masked_inverse_warm_matches_jax(seed_dist, fallback):
                                  torch.as_tensor(inv_diag), fallback=fallback)
     want = js.masked_inverse_warm(jnp.asarray(M), jnp.asarray(keep),
                                   jnp.asarray(inv_diag), fallback=fallback)
+    # the guard is counted on the device: fold its count into the host's
+    decisions.fold()
     if seed_dist == "far" and fallback == "poison":
         assert bool(torch.isnan(got).all()) and np.all(np.isnan(want))
-        assert not decisions          # no host read under "poison"
+        assert not decisions          # no guard counted under "poison"
         return
     scale = np.abs(np.asarray(want)).max()
     close(got, want, atol=1e-12 * scale)
@@ -194,7 +198,7 @@ def test_poisoned_trial_has_a_finite_gradient():
 
 def test_masked_inverse_warm_batched_mixes_both_routes():
     """A stack with one item near its seed and one far: under "exact" each
-    item is the Cholesky inverse to rounding, one host read for the stack;
+    item is the Cholesky inverse to rounding, decided on the device;
     under "poison" only the far item is NaN."""
     (M0, keep, d0), (M1, _, d1) = kept_block(), kept_block(**FAR)
     M = torch.as_tensor(np.stack([M0, M1]))
@@ -202,6 +206,7 @@ def test_masked_inverse_warm_batched_mixes_both_routes():
     d = torch.as_tensor(np.stack([d0, d1]))
     decisions.clear()
     got = ts.masked_inverse_warm(M, k, d)
+    decisions.fold()
     assert dict(decisions) == {"mstep.schulz": 1, "mstep.exact": 1}
     want = ts.masked_inverse_spd(M, k)
     close(got, want.numpy(), atol=1e-12 * float(want.abs().max()))
@@ -222,6 +227,7 @@ def test_masked_logdet_series_matches_jax(far, route):
     tM = torch.as_tensor(M).requires_grad_(True)
     got = ts.masked_logdet_series(tM, torch.as_tensor(keep),
                                   torch.as_tensor(inv_diag))
+    decisions.fold()
     assert decisions[route] == 1 and sum(decisions.values()) == 1
 
     def jld(Mj):
