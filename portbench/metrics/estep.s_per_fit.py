@@ -1,0 +1,13 @@
+"""estep.s_per_fit: device seconds of the kernels launched inside the
+``fit.estep`` span of the traced request.  Layer: the EM iteration's
+E-step (``models/fit``, ``models/estep``).  Moves ``fit_s``."""
+
+UNIT = "s"
+
+
+def read(ctx):
+    tr, n = ctx.get("trace"), ctx.get("traced_requests", 0)
+    if tr is None or not n:
+        return None
+    t = tr.device_seconds(lambda op: tr.inside("fit.estep", op[3]))
+    return t / n if t > 0 else None
