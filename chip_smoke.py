@@ -1177,10 +1177,12 @@ def bench_fit_searches(torch, device, **shape):
 
 
 def span_line(timer):
-    """A PhaseTimer's totals on one line, largest first."""
+    """A PhaseTimer's spans on one line, largest first (the counters
+    beside them in ``totals`` left out)."""
     return ", ".join(f"{name} {sec:.3f} ({timer.counts[name]})"
                      for name, sec in sorted(timer.totals.items(),
-                                             key=lambda kv: -kv[1]))
+                                             key=lambda kv: -kv[1])
+                     if name in timer.counts)
 
 
 def reset_counts():

@@ -468,7 +468,8 @@ def run_bench(nt: int = NT, n_px: int = N_PX, ntilde: int = NTILDE,
                 "kept_rank": res.track.n_eigen.cpu().tolist(),
                 "spans_s": {k: [v, spans.counts[k]]
                             for k, v in sorted(spans.totals.items(),
-                                               key=lambda kv: -kv[1])}})
+                                               key=lambda kv: -kv[1])
+                            if k in spans.counts}})
         else:
             t0 = time.perf_counter()
             res = run()

@@ -26,7 +26,7 @@ from typing import Dict, Optional
 import torch
 
 from ..ops.stabilize import _spd_inverse, mv, schulz_iterations
-from ..utils.tracing import read_guard
+from ..utils.tracing import host_read, read_guard
 from .moments import mean_f_given_lambda_moments, poisson_ell
 
 
@@ -76,6 +76,7 @@ def estep_update(r: torch.Tensor, a: torch.Tensor, m_b: torch.Tensor,
         Minv, resid = schulz_iterations(M, Minv_warm, schulz_steps,
                                         tol=schulz_tol)
         ok = resid < schulz_tol
+        host_read("estep.schulz")
         if read_guard(ok, "estep.schulz", "estep.exact") < ok.numel():
             Minv = torch.where(ok[..., None, None], Minv, _spd_inverse(M))
     else:

@@ -117,7 +117,8 @@ from ..optim.lbfgs import (empty_lbfgs_memory, lbfgs_minimize,
                            lbfgs_minimize_zoom_carry, zoom_carry_init)
 from ..params import (THETA_KEYS, clip_theta, default_f_params,
                       generate_theta, theta_bounds, theta_in_bounds)
-from ..utils.tracing import decisions, read_guard, trace_annotation
+from ..utils.tracing import (decisions, host_read, read_guard,
+                             trace_annotation)
 from .estep import estep_update
 from .moments import (kl_divergence, lambda0_given_logA, lambda_moments,
                       mean_f_given_lambda_moments, poisson_ell)
@@ -472,6 +473,7 @@ def _estep_block(r, kern: KernelState, m_b, V_b, f_params, lambda_m,
         f_params = {"logA": logA, "lambda0": lam0}
         if early:
             # m_b is whole, and the same, on every rank of a mesh
+            host_read("estep.early_stop")
             dm, m_max = torch.stack([torch.max(torch.abs(m_b - m_old)),
                                      torch.max(torch.abs(m_old))]).tolist()
             if dm <= cfg.estep_tol * (1.0 + m_max):

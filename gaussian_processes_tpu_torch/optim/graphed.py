@@ -41,11 +41,22 @@ frees the parked graphs and hands their pools back (it runs at exit).
 
 Under ``graph=False`` (a CPU tensor, or a CUDA one held against the graph)
 ``vg`` runs the same body on the same buffers, eagerly: the graph's twin.
+It takes the graph's path and spans: the first call of a key is its
+warm-up, on the current stream, and its capture span is empty (it has no
+graph to capture).
+
+Spans (``utils/tracing``): each call after the first of a key is a
+``fit.mstep.eval`` span (the copy in, the replay or the twin's body, the
+wait, the copy out); the first is a ``fit.mstep.warmup`` span (the
+warm-up evaluation to its synchronize) and a ``fit.mstep.capture`` span
+after it.  Inside ``utils.tracing.collect_spans``, and only there, a
+replay runs between a pair of timing CUDA events, created once an object,
+whose elapsed time, read after the replay's wait, goes to the timer under
+``mstep.replay_device`` (seconds) beside ``mstep.replays``.
 
 ``captures``, ``capture_seconds`` and ``replays`` count the captures, their
 host seconds and the replays since import (``reset_counts``,
-``read_counts``); each capture is also a ``fit.mstep.capture`` span
-(``utils/tracing``).  The kernels' launch counters count each replay's
+``read_counts``).  The kernels' launch counters count each replay's
 launches, and none of the capture's, which launches nothing
 (``utils.tracing.launches_held_out``).
 """
@@ -60,7 +71,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from ..utils.tracing import (credit_launches, launches_held_out,
-                             trace_annotation)
+                             span_timer, trace_annotation)
 from .lbfgs import _flatten
 
 captures = 0
@@ -129,7 +140,12 @@ class GraphedValueAndGrad:
             _streams[self.device] = torch.cuda.Stream(self.device)
         self._stream = _streams.get(self.device)
         self._done = torch.cuda.Event() if pin else None
+        # the timing pair around a replay, made at the first one timed
+        self._events: Optional[Tuple[torch.cuda.Event,
+                                     torch.cuda.Event]] = None
         self._key = None
+        # a key bound and not yet warmed up (and captured)
+        self._fresh = False
         # the state's leaves: a buffer for each tensor, the constants
         self._buffers: List[Any] = []
         self._state = None
@@ -152,6 +168,7 @@ class GraphedValueAndGrad:
         graph = self._graph if self._graph is not None else self._retired
         self._graph = self._retired = None
         self._key, self._buffers, self._state = None, [], None
+        self._fresh = False
         if graph is None:
             return
         old = _parked.get(self.device)
@@ -180,7 +197,7 @@ class GraphedValueAndGrad:
                              if isinstance(t, torch.Tensor) else t
                              for t in leaves]
             self._state = tree_unflatten(self._buffers, spec)
-            self._key = key
+            self._key, self._fresh = key, True
         with torch.no_grad():
             for buf, t in zip(self._buffers, leaves):
                 if isinstance(t, torch.Tensor):
@@ -212,64 +229,93 @@ class GraphedValueAndGrad:
         global replays
         if self._state is None:
             raise RuntimeError("GraphedValueAndGrad: bind a state first")
-        self._x_host.copy_(flat)
-        if not self.graph:
-            self._body()
-            self._wait()
-            return self._result()
-        if self._graph is None:
+        if self._fresh:
+            self._x_host.copy_(flat)
             return self._warm_up_and_capture()
-        self._graph.replay()
-        credit_launches(self._launches)
-        self._wait()
-        replays += 1
-        return self._result()
+        with trace_annotation("fit.mstep.eval"):
+            self._x_host.copy_(flat)
+            timer = span_timer() if self.graph else None
+            if not self.graph:
+                self._body()
+            elif timer is None:
+                self._graph.replay()
+            else:
+                if self._events is None:
+                    self._events = (torch.cuda.Event(enable_timing=True),
+                                    torch.cuda.Event(enable_timing=True))
+                start, end = self._events
+                start.record()
+                self._graph.replay()
+                end.record()
+            self._wait()
+            if self.graph:
+                credit_launches(self._launches)
+                replays += 1
+                if timer is not None:
+                    timer.add("mstep.replay_device",
+                              1e-3 * start.elapsed_time(end))
+                    timer.add("mstep.replays")
+            return self._result()
 
     def _warm_up_and_capture(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The first call of a key: one evaluation on the side stream, whose
-        result is returned, then the capture on the same stream."""
-        global captures, capture_seconds
-        current = torch.cuda.current_stream(self.device)
-        self._stream.wait_stream(current)
-        allocated = _allocated_bytes(self.device)
-        with torch.cuda.stream(self._stream):
-            self._body()
-            self._done.record(self._stream)
-        self._done.synchronize()
-        result = self._result()
-        with trace_annotation("fit.mstep.capture"):
-            t0 = time.perf_counter()
-            # the capture allocates no more than the warm-up did in all; an
-            # allocation that fails inside a capture cannot be retried, nor
-            # can the allocator's cache be freed there, so free it first
-            # when the device has less room than that
-            need = _allocated_bytes(self.device) - allocated
-            if torch.cuda.mem_get_info(self.device)[0] < need:
-                torch.cuda.empty_cache()
-            graph = torch.cuda.CUDAGraph()
-            donor = self._retired
-            if donor is None:
-                donor = _parked.pop(self.device, None)
-            pool = None if donor is None else donor.pool()
-            with torch.cuda.stream(self._stream), \
-                    launches_held_out() as self._launches:
-                graph.capture_begin(pool=pool)
-                try:
+        """The first call of a key: one evaluation on the side stream (the
+        twin's on the current one), whose result is returned, then the
+        capture on the same stream (the twin has none to make)."""
+        with trace_annotation("fit.mstep.warmup"):
+            if self.graph:
+                current = torch.cuda.current_stream(self.device)
+                self._stream.wait_stream(current)
+                allocated = _allocated_bytes(self.device)
+                with torch.cuda.stream(self._stream):
                     self._body()
-                except BaseException:
-                    # end the failed capture so the stream can be used
-                    # again; the body's error is the one raised
-                    try:
-                        graph.capture_end()
-                    except RuntimeError:
-                        pass
-                    raise
-                graph.capture_end()
-            current.wait_stream(self._stream)
-            if donor is not None:
-                donor.reset()
-            self._retired = None
-            capture_seconds += time.perf_counter() - t0
+                    self._done.record(self._stream)
+                self._done.synchronize()
+            else:
+                self._body()
+                self._wait()
+            result = self._result()
+        with trace_annotation("fit.mstep.capture"):
+            if self.graph:
+                self._capture(current, allocated)
+        self._fresh = False
+        return result
+
+    def _capture(self, current: torch.cuda.Stream, allocated: int) -> None:
+        """Capture the body into the key's graph on the side stream, after
+        the warm-up that allocated from ``allocated`` on; ``current`` waits
+        for it."""
+        global captures, capture_seconds
+        t0 = time.perf_counter()
+        # the capture allocates no more than the warm-up did in all; an
+        # allocation that fails inside a capture cannot be retried, nor can
+        # the allocator's cache be freed there, so free it first when the
+        # device has less room than that
+        need = _allocated_bytes(self.device) - allocated
+        if torch.cuda.mem_get_info(self.device)[0] < need:
+            torch.cuda.empty_cache()
+        graph = torch.cuda.CUDAGraph()
+        donor = self._retired
+        if donor is None:
+            donor = _parked.pop(self.device, None)
+        pool = None if donor is None else donor.pool()
+        with torch.cuda.stream(self._stream), \
+                launches_held_out() as self._launches:
+            graph.capture_begin(pool=pool)
+            try:
+                self._body()
+            except BaseException:
+                # end the failed capture so the stream can be used again;
+                # the body's error is the one raised
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass
+                raise
+            graph.capture_end()
+        current.wait_stream(self._stream)
+        if donor is not None:
+            donor.reset()
+        self._retired = None
+        capture_seconds += time.perf_counter() - t0
         captures += 1
         self._graph = graph
-        return result

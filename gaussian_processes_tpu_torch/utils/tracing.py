@@ -1,4 +1,4 @@
-"""Tracing and profiling: phase timers and fit-time breakdowns
+"""Tracing and profiling: phase timers, spans and counters
 (counterpart of ``gaussian_processes_tpu/utils/tracing.py``).
 
 The reference instruments varGP with ``time.time()`` accumulators per phase
@@ -7,26 +7,42 @@ The reference instruments varGP with ``time.time()`` accumulators per phase
 
 * ``PhaseTimer``: host wall-clock per named phase; ``sync=`` synchronizes
   the CUDA device of the given tensors before the clock stops (PyTorch
-  returns before the card has finished);
+  returns before the card has finished); ``add`` accumulates a counter
+  into the same ``totals`` (so ``totals`` mixes seconds and counts;
+  ``counts`` and ``summary`` hold the timed phases alone);
 * ``fit(..., profile=True)``: per-iteration seconds and rank budgets in
   ``FitResult.timing``;
-* ``profile_fit_phases``: the phase split of a fit by ablation (a full run,
-  one without M-steps, one with neither step);
 * ``trace_annotation``: a named span in ``torch.profiler`` traces
   (``torch.profiler.record_function``); the fit marks its layers with
   them (``fit.init``, ``fit.iteration``, ``fit.kernel_state``,
   ``fit.estep`` with ``fit.estep.newton`` and ``fit.estep.fparams``,
-  ``fit.mstep`` with ``fit.mstep.capture`` (a CUDA graph capture of the
-  M-step evaluation, ``optim/graphed``), ``fit.finalize``);
+  ``fit.mstep``, ``fit.finalize``).  Inside ``fit.mstep`` the graphed
+  evaluator (``optim/graphed``) marks each evaluation it serves
+  (``fit.mstep.eval``: the copy in, the replay or its eager twin, the
+  wait, the copy out) and, at the first call of a key, the eager warm-up
+  (``fit.mstep.warmup``) and the CUDA graph capture
+  (``fit.mstep.capture``), two siblings; what is left of ``fit.mstep``
+  is the L-BFGS's own host code (``optim/lbfgs``);
 * ``collect_spans``: the same spans' host wall-clock into a
-  ``PhaseTimer`` without a profiler, for the code run inside it;
+  ``PhaseTimer`` without a profiler, for the code run inside it, and the
+  counters added there: ``mstep.replays`` and ``mstep.replay_device``
+  (seconds between a CUDA event pair around each graph replay, read after
+  the replay's own wait), and ``host_reads.<site>``, one for each time
+  the E-step reads a value of the fit on the host (``host_read``; on the
+  card a read waits for the device's queue to drain) at the sites of
+  ``HOST_READ_SITES``: the Newton-Schulz guard (``estep.schulz``,
+  ``models/estep``) and the early stop under ``estep_tol``
+  (``estep.early_stop``, ``models/fit``).  The fit's other host reads are
+  not counted.  Outside ``collect_spans`` nothing is counted and no CUDA
+  event is recorded;
 * ``objective_counts``: the evaluations of the fit's two inner objectives
   (the E-step's f-param L-BFGS and the M-step's, CUDA graph replays
   included) and its Newton steps while a block runs;
 * ``reset_launch_counts`` / ``read_launch_counts``: every hand-written
   kernel's launch counts at once; ``launches_held_out`` /
   ``credit_launches``: what a CUDA graph capture counted (and did not
-  launch) taken off them, and added at each replay (``optim/graphed``);
+  launch) taken off them, and added back at each replay
+  (``optim/graphed``);
 * ``decisions``: the decisions of the warm solvers and the projected
   Gram, counted where the host already reads their guard (no added
   synchronization): ``eigensolver.warm`` / ``.refresh`` / ``.fallback``
@@ -42,6 +58,9 @@ The reference instruments varGP with ``time.time()`` accumulators per phase
   adds them to a counter on the guard's device, and ``decisions.fold()``
   adds those counters to the host counts with one read a device (the fits
   fold when they end).  ``decisions.clear()`` sets both to 0.
+
+The fit's phase split comes from its spans (``collect_spans``, or a
+profiler trace), from one fit.
 """
 
 from __future__ import annotations
@@ -50,7 +69,6 @@ import collections
 import contextlib
 import copy
 import contextvars
-import dataclasses
 import time
 from typing import Dict, Optional, Tuple
 
@@ -128,7 +146,9 @@ def _synchronize(sync) -> None:
 
 
 class PhaseTimer:
-    """Accumulating wall-clock timer keyed by phase name."""
+    """Accumulating wall-clock timer keyed by phase name.  ``totals``
+    also holds the counters that ``add`` accumulates beside the phases'
+    seconds; ``counts`` (calls) and ``summary`` hold the phases alone."""
 
     def __init__(self):
         self.totals: Dict[str, float] = {}
@@ -146,11 +166,17 @@ class PhaseTimer:
             self.totals[name] = self.totals.get(name, 0.0) + dt
             self.counts[name] = self.counts.get(name, 0) + 1
 
+    def add(self, name: str, amount: float = 1) -> None:
+        """Add ``amount`` to the counter ``name`` in ``totals`` (beside
+        the phases' seconds; not a phase, so not in ``counts``)."""
+        self.totals[name] = self.totals.get(name, 0.0) + amount
+
     def summary(self) -> str:
+        """The phases (not the counters), largest total first."""
         lines = []
-        for name, total in sorted(self.totals.items(),
-                                  key=lambda kv: -kv[1]):
-            n = self.counts[name]
+        for name, n in sorted(self.counts.items(),
+                              key=lambda kv: -self.totals[kv[0]]):
+            total = self.totals[name]
             lines.append(f"  {name:<24} {total:8.3f}s  "
                          f"({n} calls, {total / n * 1000:8.2f} ms/call)")
         return "\n".join(lines)
@@ -163,6 +189,27 @@ class PhaseTimer:
 # the PhaseTimer that ``collect_spans`` installed for this context, if any
 _span_timer: contextvars.ContextVar = contextvars.ContextVar(
     "span_timer", default=None)
+
+
+def span_timer() -> Optional[PhaseTimer]:
+    """The ``PhaseTimer`` that ``collect_spans`` installed for this
+    context, or None outside it."""
+    return _span_timer.get()
+
+
+# the host reads that ``host_read`` counts: the E-step's (the module
+# docstring); each starts at 0 in a ``collect_spans`` timer, so that a fit
+# that reads at none of them reads 0
+HOST_READ_SITES = ("estep.schulz", "estep.early_stop")
+
+
+def host_read(site: str) -> None:
+    """Inside ``collect_spans``, count one host read of a value of the fit
+    at ``site``, one of ``HOST_READ_SITES`` (``host_reads.<site>``);
+    outside it, nothing."""
+    timer = _span_timer.get()
+    if timer is not None:
+        timer.add("host_reads." + site)
 
 
 @contextlib.contextmanager
@@ -183,8 +230,11 @@ def collect_spans(timer: Optional[PhaseTimer] = None):
     """Time every ``trace_annotation`` span entered inside the block on
     the host clock (no device synchronize: a span that queues device work
     without waiting for it hands that time to a later one) and yield the
-    ``PhaseTimer`` that holds the totals."""
+    ``PhaseTimer`` that holds the totals, with the counters added inside
+    the block (the module docstring)."""
     timer = PhaseTimer() if timer is None else timer
+    for site in HOST_READ_SITES:
+        timer.add("host_reads." + site, 0)
     token = _span_timer.set(timer)
     try:
         yield timer
@@ -314,51 +364,3 @@ def objective_counts(ladders: Optional[list] = None):
         now = graphed.read_counts()
         counts["mstep"] += ((now["replays"] - graphs["replays"])
                             - (now["captures"] - graphs["captures"]))
-
-
-@dataclasses.dataclass
-class FitPhaseBreakdown:
-    """The reference's end-of-fit timing printout (utils.py:2252-2261),
-    reconstructed by ablation."""
-    total: float
-    estep_total: float          # E-steps incl. f-param updates
-    mstep_total: float          # M-step L-BFGS incl. kernel rebuilds
-    kernels_total: float        # not separable: folded into mstep_total
-    init: float
-
-    def print(self):
-        print(f"Time spent for E-steps:       {self.estep_total:.3f}s")
-        print(f"Time spent for M-steps:       {self.mstep_total:.3f}s")
-        print(f"Time spent computing kernels: {self.kernels_total:.3f}s")
-        print(f"Time for initialization:      {self.init:.3f}s")
-        print(f"Time total:                   {self.total:.3f}s")
-
-
-def profile_fit_phases(x, r, cfg, fit_kwargs: Optional[dict] = None,
-                       warmup: bool = True) -> FitPhaseBreakdown:
-    """Split a fit's wall-clock into phases by ablation: a full run, a run
-    without M-steps (so without kernel rebuilds) and one with neither step
-    (init and tracking only), each timed to a device synchronize, after
-    one untimed run of each when ``warmup``."""
-    from ..models.fit import fit
-
-    fit_kwargs = fit_kwargs or {}
-
-    def timed(c):
-        if warmup:
-            fit(x, r, c, **fit_kwargs)
-        t0 = time.perf_counter()
-        res = fit(x, r, c, **fit_kwargs)
-        _synchronize(res.m_b)
-        return time.perf_counter() - t0
-
-    t_full = timed(cfg)
-    t_noM = timed(dataclasses.replace(cfg, n_mstep=0))
-    t_none = timed(dataclasses.replace(cfg, n_mstep=0, n_estep=0))
-    return FitPhaseBreakdown(
-        total=t_full,
-        estep_total=max(t_noM - t_none, 0.0),
-        mstep_total=max(t_full - t_noM, 0.0),
-        kernels_total=float("nan"),
-        init=t_none,
-    )

@@ -1393,3 +1393,49 @@ def test_graph_pools_do_not_pile_up_across_fits(dev):
     assert reserved[2] <= reserved[1]
     graphed.release()
     assert not graphed._parked
+
+
+@pytest.mark.cuda
+def test_replay_device_time_is_recorded_only_inside_collect_spans(
+        dev, monkeypatch):
+    """A fit on the graph route inside ``collect_spans``: ``mstep.replays``
+    is the replays the fit made, each timed by a CUDA event pair, and their
+    device time lies between 0 and the ``fit.mstep.eval`` spans' host time;
+    the same fit outside it makes no timing event and adds to no timer."""
+    from gaussian_processes_tpu_torch.config import FitConfig
+    from gaussian_processes_tpu_torch.models import fit as F
+    from gaussian_processes_tpu_torch.optim import graphed
+    from gaussian_processes_tpu_torch.utils import tracing
+
+    x, r, xtilde, theta, n_px = _windowed_problem(dev)
+    cfg = FitConfig(ntilde=xtilde.shape[0], maxiter=4, n_estep=3, n_mstep=3,
+                    n_fparamstep=3, n_px_side=n_px)
+    timed, added = [], []
+    real_event, real_add = torch.cuda.Event, tracing.PhaseTimer.add
+
+    def event(*args, **kwargs):
+        if kwargs.get("enable_timing"):
+            timed.append(1)
+        return real_event(*args, **kwargs)
+
+    def add(self, name, amount=1):
+        added.append(name)
+        real_add(self, name, amount)
+    monkeypatch.setattr(torch.cuda, "Event", event)
+    monkeypatch.setattr(tracing.PhaseTimer, "add", add)
+
+    def run():
+        return F.fit(x, r, cfg, xtilde=xtilde, theta=theta,
+                     f_params={"logA": -4.6, "lambda0": 1.0})
+    before = graphed.read_counts()["replays"]
+    run()
+    assert graphed.read_counts()["replays"] > before
+    assert timed == [] and added == []
+    before = graphed.read_counts()["replays"]
+    with tracing.collect_spans() as spans:
+        run()
+    replays = graphed.read_counts()["replays"] - before
+    t = spans.totals
+    assert replays > 0 and t["mstep.replays"] == replays
+    assert 0 < t["mstep.replay_device"] <= t["fit.mstep.eval"]
+    assert len(timed) == 2       # one pair for the fit's evaluator

@@ -361,6 +361,68 @@ def test_capture_launches_are_held_out_and_credited_at_replay(module, name,
     tracing.reset_launch_counts()
 
 
+class _Replayed:
+    """A stand-in for a captured CUDA graph: a replay launches nothing
+    that the wrappers see, as a real one does."""
+
+    def replay(self):
+        pass
+
+
+@pytest.mark.parametrize("plan", [
+    ("replay", "replay", "replay", "read", "close"),
+    ("replay", "read", "replay", "read", "replay", "close", "read"),
+    ("replay", "replay", "rebind", "read", "close"),
+    ("replay", "reset", "replay", "replay", "close", "read"),
+    ("read", "close")])
+def test_replays_are_credited_at_each_replay(plan, monkeypatch):
+    """A graph's launches are credited at each replay: the counts read at
+    every point, through replays, a reset of the counters, a rebind to
+    another key and the close, are the held counts times the replays since
+    the capture or the last reset."""
+    from gaussian_processes_tpu_torch.ops import gram_cuda
+    tracing.reset_launch_counts()
+    monkeypatch.setattr(graphed, "_parked", {})   # where close parks it
+
+    def fun(params, state):
+        return (state["a"] * params["x"] ** 2).sum()
+    x0 = {"x": torch.tensor(1.0, dtype=torch.float64)}
+    twin = GraphedValueAndGrad(fun, x0, graph=False)
+    vg = twin.bind({"a": torch.ones(2, dtype=torch.float64)})
+    point = torch.ones(1, dtype=torch.float64)
+    vg(point)                                   # the key's warm-up
+    # the capture, held out: a graph replays 2 backward and 1 product
+    # launches a call
+    with tracing.launches_held_out() as held:
+        gram_cuda.bwd_launches += 2
+        gram_cuda.product_launches += 1
+        gram_cuda.product_shapes.update({"1x8x8 k16": 1})
+    twin.graph, twin._graph, twin._launches = True, _Replayed(), held
+    zero = tracing.read_launch_counts()
+    replayed, seen, want = 0, [], []
+    for step in plan:
+        if step == "replay":
+            vg(point)
+            replayed += 1
+        elif step == "reset":
+            tracing.reset_launch_counts()
+            replayed = 0
+        elif step == "rebind":
+            vg = twin.bind({"a": torch.ones(3, dtype=torch.float64)})
+        elif step == "close":
+            twin.close()
+        if step in ("read", "close"):
+            seen.append(tracing.read_launch_counts())
+            want.append(dict(zero, bwd=zero["bwd"] + 2 * replayed,
+                             product=zero["product"] + replayed,
+                             product_shapes=(
+                                 {"1x8x8 k16": replayed} if replayed
+                                 else {})))
+    assert seen == want
+    assert gram_cuda.bwd_launches == 2 * replayed
+    tracing.reset_launch_counts()
+
+
 # ---------------------------------------------------------------------------
 # Whole fits: the graph route's twin against the eager route
 # ---------------------------------------------------------------------------

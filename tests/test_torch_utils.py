@@ -265,19 +265,6 @@ def test_collect_spans_times_the_fit_spans(problem):
     assert c["fit.iteration"] == STEPS["maxiter"] - 1
 
 
-def test_profile_fit_phases(problem):
-    p = problem
-    x = torch.as_tensor(p["x"])
-    out = ttr.profile_fit_phases(
-        x, torch.as_tensor(p["r"]), TCfg(ntilde=NTILDE, **STEPS),
-        fit_kwargs=dict(xtilde=x[torch.as_tensor(p["idx"])], theta=THETA0,
-                        f_params=FP0), warmup=False)
-    assert out.total > 0 and out.init > 0
-    assert out.estep_total >= 0 and out.mstep_total >= 0
-    assert np.isnan(out.kernels_total)
-    out.print()
-
-
 # ---------------------------------------------------------------------------
 # Guards and plotting
 # ---------------------------------------------------------------------------
