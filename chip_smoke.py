@@ -1393,16 +1393,17 @@ def phase7_batched(torch, np, device, smi, x, xtilde):
 def grad_call_memory(torch, device, smi, x, xtilde, theta, batch, k):
     """Device bytes a (cell, trial) item of the M-step's Grams takes: the
     value call on ``batch`` items (no gradient) against
-    LADDER_BYTES_PER_ELEMENT, and the gradient call on
+    ``ladder_item_bytes``, and the gradient call on
     ``batch // GRAD_CHUNK_DIVISOR`` items (the Grams with autograd, a
     weighted sum of both, its theta-gradient through the backward kernels)
-    against GRAD_CHUNK_DIVISOR x LADDER_BYTES_PER_ELEMENT, each per
+    against GRAD_CHUNK_DIVISOR x ``ladder_item_bytes``, each printed per
     element of (nt + ntilde) k."""
     from gaussian_processes_tpu_torch.models.fit import GRAD_CHUNK_DIVISOR
     from gaussian_processes_tpu_torch.ops.kernels import gram_matrices
     from gaussian_processes_tpu_torch.parallel import population as P
 
     elems = (x.shape[0] + xtilde.shape[0]) * k
+    per_item = P.ladder_item_bytes(x.shape[0], xtilde.shape[0], k)
 
     def peak(items, grad):
         th = {key: v[:items].detach().clone().requires_grad_(grad)
@@ -1424,14 +1425,12 @@ def grad_call_memory(torch, device, smi, x, xtilde, theta, batch, k):
     value, gradient = peak(batch, False), peak(items_g, True)
     print(f"device memory a (cell, trial) item takes, bytes per element of "
           f"(nt + ntilde) k: value call ({batch} items) "
-          f"{value / elems:.2f} against LADDER_BYTES_PER_ELEMENT "
-          f"{P.LADDER_BYTES_PER_ELEMENT}; gradient call ({items_g} items) "
+          f"{value / elems:.2f} against ladder_item_bytes "
+          f"{per_item / elems:.2f}; gradient call ({items_g} items) "
           f"{gradient / elems:.2f} against GRAD_CHUNK_DIVISOR x "
-          f"LADDER_BYTES_PER_ELEMENT "
-          f"{GRAD_CHUNK_DIVISOR * P.LADDER_BYTES_PER_ELEMENT}  [{smi}]")
-    if not (value <= P.LADDER_BYTES_PER_ELEMENT * elems
-            and gradient <= GRAD_CHUNK_DIVISOR * P.LADDER_BYTES_PER_ELEMENT
-            * elems):
+          f"ladder_item_bytes {GRAD_CHUNK_DIVISOR * per_item / elems:.2f}"
+          f"  [{smi}]")
+    if not (value <= per_item and gradient <= GRAD_CHUNK_DIVISOR * per_item):
         raise RuntimeError("an item of the M-step's Grams takes more device "
                            "memory than ladder_items gives it")
 

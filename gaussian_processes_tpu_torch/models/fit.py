@@ -117,7 +117,7 @@ from ..optim.lbfgs import (empty_lbfgs_memory, lbfgs_minimize,
                            lbfgs_minimize_zoom_carry, zoom_carry_init)
 from ..params import (THETA_KEYS, clip_theta, default_f_params,
                       generate_theta, theta_bounds, theta_in_bounds)
-from ..utils.tracing import (decisions, host_read, read_guard,
+from ..utils.tracing import (count, decisions, host_read, read_guard,
                              trace_annotation)
 from .estep import estep_update
 from .moments import (kl_divergence, lambda0_given_logA, lambda_moments,
@@ -1225,10 +1225,13 @@ def _cell_grams(theta: Theta, stim: Cells, lane, shared: bool,
     take the exact Gram (one host read per chunk; when any fails, the exact
     Grams of the chunk are built and selected item by item, as the JAX
     package's vmapped fallback computes both branches) and ``ok`` holds
-    everywhere."""
+    everywhere.  Inside ``collect_spans`` each chunk adds 1 to
+    ``grams.chunks`` and its items to ``grams.items``."""
     x, xtilde, win = stim
     parts = []
     for sl in _chunks(theta["Amp"].shape[0], max_items):
+        count("grams.chunks")
+        count("grams.items", sl.stop - sl.start)
         th = {k: v[sl] for k, v in theta.items()}
         cells = sl if lane is None else lane[sl]
         if win is None:
@@ -1308,7 +1311,9 @@ def _mstep_objective_cells(theta: Theta, stim: Cells, r, es: Eigenspace,
     (``_cell_grams``); an item whose projection fails its guard under the
     "poison" fallback is +inf.  With L = 1 (the single-cell ladder), every
     item is ``_mstep_objective`` at its trial.  ``rows``: the mesh's "data"
-    axis, as ``_mstep_objective``'s (every rank runs the same chunks)."""
+    axis, as ``_mstep_objective``'s (every rank runs the same chunks).
+    A call is a ``fit.mstep.grad`` span under autograd (the chunks'
+    gradients included), else a ``fit.mstep.ladder`` span."""
     if rows is not None:
         theta = rows.enter(theta)
     L, T = theta["Amp"].shape
@@ -1319,24 +1324,27 @@ def _mstep_objective_cells(theta: Theta, stim: Cells, r, es: Eigenspace,
     if grad and max_items is not None:
         max_items = max_items // GRAD_CHUNK_DIVISOR
     out = []
-    for sl in _chunks(n, max_items):
-        ln = lane[sl]
-        th = {k: v[sl] for k, v in flat.items()}
-        ok = theta_in_bounds(th, lower, upper)
-        grams = _cell_grams(clip_theta(th, lower, upper), stim, ln, shared,
-                            cfg, backend, proj=proj)
-        if proj is not None:
-            *grams, p_ok = grams
-            ok = ok & p_ok
-        es_i = Eigenspace(*(_take(t, ln) for t in es))
-        loss = _mstep_loss(*_apply_pad_weights(*grams, shared, wt, wi, rows),
-                           es_i, _take(m_b, ln), _take(V_b, ln),
-                           {k: _take(v, ln) for k, v in f_params.items()},
-                           _take(r, ln), shared, cfg, wt, rows)
-        loss = torch.where(ok & torch.isfinite(loss), loss, float("inf"))
-        if grad and loss.requires_grad:
-            loss = _gradient_now(loss, th)
-        out.append(loss)
+    with trace_annotation("fit.mstep.grad" if grad else "fit.mstep.ladder"):
+        for sl in _chunks(n, max_items):
+            ln = lane[sl]
+            th = {k: v[sl] for k, v in flat.items()}
+            ok = theta_in_bounds(th, lower, upper)
+            grams = _cell_grams(clip_theta(th, lower, upper), stim, ln,
+                                shared, cfg, backend, proj=proj)
+            if proj is not None:
+                *grams, p_ok = grams
+                ok = ok & p_ok
+            es_i = Eigenspace(*(_take(t, ln) for t in es))
+            loss = _mstep_loss(
+                *_apply_pad_weights(*grams, shared, wt, wi, rows), es_i,
+                _take(m_b, ln), _take(V_b, ln),
+                {k: _take(v, ln) for k, v in f_params.items()},
+                _take(r, ln), shared, cfg, wt, rows)
+            loss = torch.where(ok & torch.isfinite(loss), loss,
+                               float("inf"))
+            if grad and loss.requires_grad:
+                loss = _gradient_now(loss, th)
+            out.append(loss)
     return torch.cat(out).reshape(L, T)
 
 
@@ -1393,8 +1401,9 @@ def _fit_init_cells(stim: Cells, rs, theta0: Theta, f_params0: FParams,
     """``_fit_init`` for every cell at once, from m = 0 and V = K_tilde."""
     L, ntilde = rs.shape[0], stim[1].shape[-2]
     dtype, device = rs.dtype, rs.device
-    kern = _cell_kernel_state(theta0, stim, shared, cfg, backend, max_items,
-                              rows)
+    with trace_annotation("fit.kernel_state"):
+        kern = _cell_kernel_state(theta0, stim, shared, cfg, backend,
+                                  max_items, rows)
     es = kern.es
     m_b = mv(es.B.mT, torch.zeros((L, ntilde), dtype=dtype, device=device))
     V_b = torch.diag_embed(es.k_tilde_b_diag)
@@ -1437,9 +1446,10 @@ def _fit_iteration_cells(i: int, c: Carry, stim: Cells, rs, shared: bool,
     m_b, V_b, kern = c.m_b, c.V_b, c.kern
 
     if cfg.n_mstep > 0:
-        kern_new = _cell_kernel_state(theta, stim, shared, cfg, backend,
-                                      max_items, rows)
-        m_b, V_b = reproject(kern_new.es, kern.es, m_b, V_b)
+        with trace_annotation("fit.kernel_state"):
+            kern_new = _cell_kernel_state(theta, stim, shared, cfg, backend,
+                                          max_items, rows)
+            m_b, V_b = reproject(kern_new.es, kern.es, m_b, V_b)
         kern = kern_new
 
     lambda_m, lambda_var = lambda_moments(kern.a, kern.K_b, kern.Kvec,
@@ -1448,9 +1458,10 @@ def _fit_iteration_cells(i: int, c: Carry, stim: Cells, rs, shared: bool,
                               rows=rows)
     f_params = {"logA": f_params["logA"], "lambda0": lam0}
     if cfg.n_estep > 0:
-        m_b, V_b, f_params, lambda_m, lambda_var = _estep_block(
-            rs, kern, m_b, V_b, f_params, lambda_m, lambda_var, cfg,
-            lanes=True, rows=rows)
+        with trace_annotation("fit.estep"):
+            m_b, V_b, f_params, lambda_m, lambda_var = _estep_block(
+                rs, kern, m_b, V_b, f_params, lambda_m, lambda_var, cfg,
+                lanes=True, rows=rows)
 
     f_mean = mean_f_given_lambda_moments(f_params, lambda_m, lambda_var)
     ell = poisson_ell(rs, f_mean, lambda_m, f_params, rows=rows)
@@ -1469,7 +1480,8 @@ def _fit_iteration_cells(i: int, c: Carry, stim: Cells, rs, shared: bool,
                       m_b=m_b, V_b=V_b, f_params=f_params, shared=shared,
                       cfg=cfg, lower=lower, upper=upper, backend=backend,
                       max_items=max_items, proj=proj, rows=rows)
-        theta, _ = _minimize(cfg, obj, theta, cfg.n_mstep, lanes=True)
+        with trace_annotation("fit.mstep"):
+            theta, _ = _minimize(cfg, obj, theta, cfg.n_mstep, lanes=True)
 
     finite = (torch.isfinite(ell - kl) & torch.isfinite(m_b).all(-1)
               & torch.isfinite(V_b).flatten(-2).all(-1)
@@ -1497,16 +1509,28 @@ def fit_cells_program(stim: Cells, rs, theta0: Theta, f_params0: FParams,
     (None: every item at once; under ``rows`` the same on every rank).
     ``rows``: the stimuli and ``rs`` hold this rank's rows of the mesh's
     "data" axis (a shared set: x whole), as ``fit``'s.  Returns the
-    cell-stacked carry (this rank's rows of its row leaves)."""
+    cell-stacked carry (this rank's rows of its row leaves).
+
+    Its spans are the single-cell fit's: ``fit.init``, ``fit.iteration``,
+    ``fit.kernel_state`` (the batched Grams, eigh and reprojection, in the
+    init too), ``fit.estep`` (with ``fit.estep.newton`` and
+    ``fit.estep.fparams``), ``fit.mstep`` and ``fit.finalize``; inside
+    ``fit.mstep``, ``fit.mstep.ladder`` around each value-only ladder call
+    of the batched Armijo search and ``fit.mstep.grad`` around each
+    value-and-gradient call (``_mstep_objective_cells``).  Inside ``collect_spans`` the Grams' chunks
+    are counted (``grams.chunks``, ``grams.items``: ``_cell_grams``)."""
     with torch.no_grad():
-        carry = _fit_init_cells(stim, rs, theta0, f_params0, shared, cfg,
-                                backend, max_items, rows)
+        with trace_annotation("fit.init"):
+            carry = _fit_init_cells(stim, rs, theta0, f_params0, shared, cfg,
+                                    backend, max_items, rows)
         for i in range(1, cfg.maxiter):
-            carry = _fit_iteration_cells(i, carry, stim, rs, shared, cfg,
-                                         bounds,
-                                         do_mstep=(i < cfg.maxiter - 1),
-                                         backend=backend,
-                                         max_items=max_items, rows=rows)
-        carry = _fit_finalize(carry, cfg)
+            with trace_annotation("fit.iteration"):
+                carry = _fit_iteration_cells(i, carry, stim, rs, shared, cfg,
+                                             bounds,
+                                             do_mstep=(i < cfg.maxiter - 1),
+                                             backend=backend,
+                                             max_items=max_items, rows=rows)
+        with trace_annotation("fit.finalize"):
+            carry = _fit_finalize(carry, cfg)
     decisions.fold()
     return carry

@@ -37,10 +37,16 @@ from .mesh import population_shardings
 
 # Bytes of device memory one (cell, trial) item of the M-step's trial ladder
 # takes, per float32 element of its stimuli (rows nt + ntilde, times the
-# contraction): the weighted images, the smoothing pass's intermediate and
-# output, the kernel's input (scaled by Amp) and the two planes of each
-# operand's split pass, with one to spare.
-LADDER_BYTES_PER_ELEMENT = 8 * 4
+# contraction: the weighted images, the smoothing pass, the kernel's input
+# and its split planes) and per element of its (nt + ntilde, ntilde) state
+# (its two Grams, the basis and V_b gathered for it, the projections, the
+# Newton-Schulz iterates and the moments' products).  Fitted to an item's
+# value call on an H100 at nt 3160, ntilde 2100: 247, 589 and 1,235 MB at
+# contraction 1,024, 4,096 and 11,664, which the two terms cover with 3-15%
+# to spare (284, 608 and 1,404 MB); the gradient call's 540, 1,035 and
+# 2,273 MB take GRAD_CHUNK_DIVISOR items' room (``models/fit.py``).
+LADDER_BYTES_PER_ELEMENT = 5 * 4
+LADDER_STATE_BYTES_PER_ELEMENT = 4 * 4
 # Share of the free device memory one chunk of the ladder may take.
 LADDER_MEMORY_SHARE = 0.5
 
@@ -94,20 +100,28 @@ def _per_cell(values, ncells: int, dtype, device) -> Dict[str, torch.Tensor]:
         ncells).clone() for k, v in values.items()}
 
 
+def ladder_item_bytes(nt: int, ntilde: int, k: int) -> int:
+    """Device bytes one (cell, trial) item of the ladder takes: its
+    stimuli's planes and its state (``LADDER_BYTES_PER_ELEMENT``,
+    ``LADDER_STATE_BYTES_PER_ELEMENT``)."""
+    return (nt + ntilde) * (LADDER_BYTES_PER_ELEMENT * k
+                            + LADDER_STATE_BYTES_PER_ELEMENT * ntilde)
+
+
 def ladder_items(nt: int, ntilde: int, k: int, device) -> Optional[int]:
     """The number of items (cells, or (cell, trial) pairs) of one chunk of
     Grams: of the M-step's ladder and of each kernel rebuild (the gradient
     call takes 1/GRAD_CHUNK_DIVISOR of it, ``models/fit.py``).
     LADDER_MEMORY_SHARE of the card's free memory (the driver's free bytes
-    plus what PyTorch's allocator holds unused) over one item's bytes.
-    None (one chunk) off the card."""
+    plus what PyTorch's allocator holds unused) over one item's bytes
+    (``ladder_item_bytes``).  None (one chunk) off the card."""
     if torch.device(device).type != "cuda":
         return None
     free, _ = torch.cuda.mem_get_info(device)
     free += (torch.cuda.memory_reserved(device)
              - torch.cuda.memory_allocated(device))
-    per_item = LADDER_BYTES_PER_ELEMENT * (nt + ntilde) * k
-    return max(1, int(free * LADDER_MEMORY_SHARE) // per_item)
+    return max(1, int(free * LADDER_MEMORY_SHARE)
+               // ladder_item_bytes(nt, ntilde, k))
 
 
 def population_window(thetas: Dict[str, torch.Tensor], cfg: FitConfig):
@@ -180,7 +194,13 @@ def fit_population(x, rs, cfg: Optional[FitConfig] = None, xtilde=None,
     the card's free memory (one chunk on the CPU), so the memory does not
     grow with the number of cells beyond their (ntilde, ntilde) and (nt,
     ntilde) state.
-    ``backend`` overrides the Gram backend.
+    ``backend`` overrides the Gram backend.  The program marks its layers
+    with the single-cell fit's spans (``fit.init``, ``fit.iteration``,
+    ``fit.kernel_state``, ``fit.estep``, ``fit.mstep`` with
+    ``fit.mstep.ladder`` and ``fit.mstep.grad``, ``fit.finalize``) and,
+    inside ``utils.tracing.collect_spans``, counts its chunks of Grams
+    (``grams.chunks``) and their items (``grams.items``):
+    ``models/fit.fit_cells_program``.
 
     ``mesh`` (x on its device type, else ValueError): every rank passes the
     whole x and rs; the start thetas, the inducing draw, the crop window

@@ -16,7 +16,12 @@ The reference instruments varGP with ``time.time()`` accumulators per phase
   (``torch.profiler.record_function``); the fit marks its layers with
   them (``fit.init``, ``fit.iteration``, ``fit.kernel_state``,
   ``fit.estep`` with ``fit.estep.newton`` and ``fit.estep.fparams``,
-  ``fit.mstep``, ``fit.finalize``).  Inside ``fit.mstep`` the graphed
+  ``fit.mstep``, ``fit.finalize``; the population's program the same).
+  Each call of the cell-batched M-step objective (``models/fit.
+  _mstep_objective_cells``: the population's Armijo search, the
+  single-cell ladder) is a ``fit.mstep.grad`` span under autograd, else a
+  ``fit.mstep.ladder`` span.  Inside the single-cell fit's
+  ``fit.mstep`` the graphed
   evaluator (``optim/graphed``) marks each evaluation it serves
   (``fit.mstep.eval``: the copy in, the replay or its eager twin, the
   wait, the copy out) and, at the first call of a key, the eager warm-up
@@ -33,8 +38,10 @@ The reference instruments varGP with ``time.time()`` accumulators per phase
   ``HOST_READ_SITES``: the Newton-Schulz guard (``estep.schulz``,
   ``models/estep``) and the early stop under ``estep_tol``
   (``estep.early_stop``, ``models/fit``).  The fit's other host reads are
-  not counted.  Outside ``collect_spans`` nothing is counted and no CUDA
-  event is recorded;
+  not counted.  The population's program (``models/fit.
+  fit_cells_program``) counts its chunks of Grams (``grams.chunks``) and
+  the items in them (``grams.items``).  Outside ``collect_spans`` nothing
+  is counted and no CUDA event is recorded;
 * ``objective_counts``: the evaluations of the fit's two inner objectives
   (the E-step's f-param L-BFGS and the M-step's, CUDA graph replays
   included) and its Newton steps while a block runs;
@@ -198,18 +205,28 @@ def span_timer() -> Optional[PhaseTimer]:
 
 
 # the host reads that ``host_read`` counts: the E-step's (the module
-# docstring); each starts at 0 in a ``collect_spans`` timer, so that a fit
-# that reads at none of them reads 0
+# docstring)
 HOST_READ_SITES = ("estep.schulz", "estep.early_stop")
+# the counters that start at 0 in a ``collect_spans`` timer, so that a fit
+# that counts none of them reads 0: the host reads and the population's
+# chunks of Grams
+ZERO_COUNTERS = tuple("host_reads." + site for site in HOST_READ_SITES) + (
+    "grams.chunks", "grams.items")
+
+
+def count(name: str, amount: float = 1) -> None:
+    """Inside ``collect_spans``, add ``amount`` to the counter ``name``;
+    outside it, nothing."""
+    timer = _span_timer.get()
+    if timer is not None:
+        timer.add(name, amount)
 
 
 def host_read(site: str) -> None:
     """Inside ``collect_spans``, count one host read of a value of the fit
     at ``site``, one of ``HOST_READ_SITES`` (``host_reads.<site>``);
     outside it, nothing."""
-    timer = _span_timer.get()
-    if timer is not None:
-        timer.add("host_reads." + site)
+    count("host_reads." + site)
 
 
 @contextlib.contextmanager
@@ -233,8 +250,8 @@ def collect_spans(timer: Optional[PhaseTimer] = None):
     ``PhaseTimer`` that holds the totals, with the counters added inside
     the block (the module docstring)."""
     timer = PhaseTimer() if timer is None else timer
-    for site in HOST_READ_SITES:
-        timer.add("host_reads." + site, 0)
+    for name in ZERO_COUNTERS:
+        timer.add(name, 0)
     token = _span_timer.set(timer)
     try:
         yield timer

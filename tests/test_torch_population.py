@@ -292,3 +292,36 @@ def test_numpy_input_without_device_needs_a_card(monkeypatch):
         tpop.fit_population(X, R, cfg, thetas=THETA0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpop.fit_cells_sequential(X, R, cfg, thetas=THETA0)
+
+
+# The device memory one (cell, trial) item of the ladder's value call took
+# on an H100 (NVIDIA H100 80GB HBM3, 700 W) at nt 3160, ntilde 2100, by
+# contraction, in bytes: the slope of the call's peak between chunks of 2
+# and 8 items, and of the gradient call's between chunks of 1 and 4 (the
+# largest of its readings).
+ITEM_BYTES_ON_THE_CARD = {1024: (247.2e6, 539.6e6), 4096: (589.2e6, 1034.6e6),
+                          11664: (1235.5e6, 2272.5e6)}
+
+
+@pytest.mark.parametrize("k", sorted(ITEM_BYTES_ON_THE_CARD))
+def test_ladder_items_count_an_items_state(monkeypatch, k):
+    """``ladder_item_bytes`` covers what an item took on the card at
+    ntilde 2100, and its gradient call's GRAD_CHUNK_DIVISOR times that
+    too, with at most 20% to spare in the value call (the count is fitted
+    to these readings, not a bound far above them); and ``ladder_items``
+    gives LADDER_MEMORY_SHARE of the free memory over it."""
+    value, gradient = ITEM_BYTES_ON_THE_CARD[k]
+    per_item = tpop.ladder_item_bytes(3160, 2100, k)
+    assert value <= per_item <= 1.2 * value
+    assert tf.GRAD_CHUNK_DIVISOR * per_item >= gradient
+    assert per_item == (3160 + 2100) * (20 * k + 16 * 2100)
+    free, reserved, allocated = 70 * 2 ** 30, 6 * 2 ** 30, 2 * 2 ** 30
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device: (free, 80 * 2 ** 30))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda device: reserved)
+    monkeypatch.setattr(torch.cuda, "memory_allocated",
+                        lambda device: allocated)
+    want = int((free + reserved - allocated) * tpop.LADDER_MEMORY_SHARE) \
+        // per_item
+    assert tpop.ladder_items(3160, 2100, k, "cuda") == want
+    assert tpop.ladder_items(3160, 2100, k, "cpu") is None

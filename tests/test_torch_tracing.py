@@ -2,8 +2,9 @@
 M-step's spans (``fit.mstep.eval``, ``fit.mstep.warmup``,
 ``fit.mstep.capture`` under ``fit.mstep``), the counters ``collect_spans``
 gathers beside them (the E-step's ``host_reads.<site>``), nothing
-counted outside it,
-and the benchmark's readers of them (``portbench/metrics``).
+counted outside it, the population program's spans and chunk counters
+(``grams.chunks``, ``grams.items``), and the benchmark's readers of them
+(``portbench/metrics``).
 
 On the CPU the graph's eager twin (``graph=False``) stands in for the
 graph: it takes the graph's path and spans.  The device time of a replay
@@ -12,6 +13,7 @@ the port only.
 """
 
 import functools
+import math
 from pathlib import Path
 
 import numpy as np
@@ -149,9 +151,11 @@ def test_nothing_is_counted_outside_collect_spans(data, twin, monkeypatch):
     assert added == []
     with tracing.collect_spans():
         tracing.host_read("estep.schulz")
-    # the sites start at 0 inside collect_spans
+    # the host-read sites and the population's counters start at 0 inside
+    # collect_spans
     assert added == ["host_reads." + site for site in tracing.HOST_READ_SITES
-                     ] + ["host_reads.estep.schulz"]
+                     ] + ["grams.chunks", "grams.items",
+                          "host_reads.estep.schulz"]
 
 
 def test_phase_timer_adds_counters_beside_spans():
@@ -215,3 +219,60 @@ def test_host_reads_per_fit_reads_zero_where_the_estep_reads_nothing(
     assert not res.failed
     read = load_module(METRICS / "estep.host_reads_per_fit.py").read
     assert read(_ctx(**spans.totals)) == 0.0
+
+
+POP_SPANS = ("fit.init", "fit.iteration", "fit.kernel_state", "fit.estep",
+             "fit.estep.newton", "fit.estep.fparams", "fit.mstep",
+             "fit.mstep.ladder", "fit.mstep.grad", "fit.finalize")
+
+
+def test_population_spans_and_chunk_counters(monkeypatch):
+    """``collect_spans`` around a small population fit sees every span of
+    the population program, each as often as the program enters it, and
+    counts its chunks of Grams as ``max_items`` (here 2) cuts them: the
+    kernel states of every cell (init and each iteration), each ladder of
+    cells x trials items, each value-and-gradient call in chunks of
+    ``max_items // GRAD_CHUNK_DIVISOR``.  Outside it nothing is counted; a
+    profiler trace holds the same spans."""
+    from gaussian_processes_tpu_torch.parallel import population as tpop
+    rng = np.random.default_rng(2)
+    n, nt, ncells = 12, 40, 3
+    x = torch.as_tensor(rng.standard_normal((nt, n * n)))
+    rs = torch.as_tensor(rng.poisson(1.0, (ncells, nt)).astype(float))
+    steps = dict(maxiter=3, n_estep=2, n_mstep=3, n_fparamstep=2)
+    cfg = FitConfig(ntilde=16, n_px_side=n, linesearch="armijo",
+                    armijo_trials=4, **steps)
+    monkeypatch.setattr(tpop, "ladder_items", lambda *args: 2)
+
+    def fit():
+        return tpop.fit_population(x, rs, cfg, xtilde=x[:16], thetas=THETA0,
+                                   f_params=FP0, device="cpu")
+    with tracing.collect_spans() as spans:
+        fit()
+    iters, msteps = steps["maxiter"] - 1, steps["maxiter"] - 2
+    want = {"fit.init": 1, "fit.iteration": iters,
+            "fit.kernel_state": steps["maxiter"], "fit.estep": iters,
+            "fit.estep.newton": steps["n_estep"] * iters,
+            "fit.estep.fparams": steps["n_estep"] * iters,
+            "fit.mstep": msteps,
+            "fit.mstep.ladder": steps["n_mstep"] * msteps,
+            "fit.mstep.grad": (steps["n_mstep"] + 1) * msteps,
+            "fit.finalize": 1}
+    assert {k: spans.counts[k] for k in POP_SPANS} == want
+    grad_items = 2 // tf.GRAD_CHUNK_DIVISOR
+    states = steps["maxiter"] * math.ceil(ncells / 2)
+    ladders = steps["n_mstep"] * msteps * math.ceil(ncells * 4 / 2)
+    grads = want["fit.mstep.grad"] * math.ceil(ncells / grad_items)
+    assert spans.totals["grams.chunks"] == states + ladders + grads
+    assert spans.totals["grams.items"] == ncells * (
+        steps["maxiter"] + want["fit.mstep.grad"]
+        + 4 * want["fit.mstep.ladder"])
+
+    added = []
+    monkeypatch.setattr(tracing.PhaseTimer, "add",
+                        lambda self, name, amount=1: added.append(name))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fit()
+    assert added == []
+    names = {e.name for e in prof.events()}
+    assert set(POP_SPANS) <= names
